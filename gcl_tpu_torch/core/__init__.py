@@ -1,0 +1,1 @@
+"""core subpackage of gcl_tpu_torch (mirrors gcl_tpu/core)."""

@@ -1,0 +1,1 @@
+"""data subpackage of gcl_tpu_torch (mirrors gcl_tpu/data)."""

@@ -1,0 +1,1 @@
+"""models subpackage of gcl_tpu_torch (mirrors gcl_tpu/models)."""

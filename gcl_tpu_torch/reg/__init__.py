@@ -1,0 +1,1 @@
+"""reg subpackage of gcl_tpu_torch (mirrors gcl_tpu/reg)."""
