@@ -1,5 +1,5 @@
 """Stride levels + implicit kernel maps (port of gcl_tpu/core/kernel_maps.py,
-forward maps of the cloud-blocked layout only).
+the cloud-blocked layout only).
 
 For each stride level the port keeps the level's coords and mask exactly
 as gcl_tpu lays them out (cloud-blocked, 256-row-aligned cloud bases, pads
@@ -8,7 +8,10 @@ their rows (``srow``). For each forward conv geometry it keeps the query
 keys ``qkey[k, i] = pack_query_keys(fold(out_coords[i]), offset_k *
 offset_scale, in_stride)``, exactly what gcl_tpu's _build_fused_maps
 computes. The conv kernels resolve ``qkey`` against ``skeys`` by binary
-search; the TPU's window tables have no counterpart here.
+search; the TPU's window tables have no counterpart here. Every odd-kernel
+geometry also gets its reverse-direction twin (in and out strides swapped,
+queries over the input level's rows), which the backward's dX and dW pass
+walks (``ConvMap.rqkey``).
 
 Transpose-conv parity note (as in gcl_tpu): the map gathers
 in[f + d'·s·dil] @ W'[d'], so a MinkowskiEngine weight W maps to
@@ -172,7 +175,7 @@ def query_keys(spec: ConvSpec, out_level: LevelCoords) -> torch.Tensor:
 def build_graph(coords: torch.Tensor, mask: torch.Tensor,
                 specs: Sequence[ConvSpec], level_caps: Dict[int, int],
                 n_clouds: int) -> SparseGraph:
-    """All stride levels + forward conv maps of a conv plan.
+    """All stride levels + conv maps (with reverse twins) of a conv plan.
 
     coords int32[N0, 4] / mask bool[N0] are level-0 voxels in the
     voxelize_per_cloud layout (ascending cloud blocks, each key-sorted,
@@ -199,8 +202,18 @@ def build_graph(coords: torch.Tensor, mask: torch.Tensor,
         src_coords = levels[src].coords if src is not None else coords
         levels[s] = _downsample_level(src_coords, s, cap, n_clouds)
 
-    maps: Dict[str, ConvMap] = {}
+    # every odd-kernel map also gets its reverse twin; for the ResUNet
+    # family this adds nothing (a same-level map is its own twin and each
+    # strided conv's twin is its transposed conv's map)
+    want = []
     for sp in specs:
+        want.append(sp)
+        if sp.kernel_size % 2 == 1:
+            want.append(dataclasses.replace(
+                sp, name=sp.name + "_rev", in_stride=sp.out_stride,
+                out_stride=sp.in_stride))
+    maps: Dict[str, ConvMap] = {}
+    for sp in want:
         if sp.is_identity_map or sp.key in maps:
             continue
         c1z = None
@@ -208,6 +221,11 @@ def build_graph(coords: torch.Tensor, mask: torch.Tensor,
                 and sp.kernel_size % 2 == 1):
             c1z = _c1z_aux(levels[1])
         maps[sp.key] = ConvMap(query_keys(sp, levels[sp.out_stride]), c1z)
+    for sp in want:
+        if sp.key in maps and sp.kernel_size % 2 == 1:
+            maps[sp.key].rqkey = maps[map_key(
+                sp.out_stride, sp.in_stride, sp.kernel_size,
+                sp.dilation)].qkey
     return SparseGraph(levels, maps)
 
 

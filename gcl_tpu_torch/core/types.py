@@ -59,10 +59,16 @@ class ConvMap:
     c1z: None, or int32[N_out, 8] occupancy-conv aux (stride-1 same-level
     odd maps): col 0 the row's own packed query key, cols 1-3 its
     grid-shifted (ux, uy, uz) coords, -(1 << 20) on padded rows.
+    rqkey: None (even kernels), or int32[K, N_in] the query keys of the
+    reverse-direction twin (in and out strides swapped) over the INPUT
+    level's rows, which the backward resolves against the output level:
+    kmap[k, i] == j  <=>  rev[K-1-k, j] == i. It is the same tensor as the
+    twin geometry's ``qkey`` (a same-level map is its own twin).
     """
 
     qkey: torch.Tensor
     c1z: Optional[torch.Tensor] = None
+    rqkey: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -70,11 +76,34 @@ class SparseGraph:
     """The static geometry of one U-Net forward pass.
 
     levels: stride -> LevelCoords. maps: map_key -> ConvMap for every
-    forward conv geometry with a kernel (1x1 same-level convs need none).
+    conv geometry with a kernel and its reverse twin (1x1 same-level convs
+    need none).
     """
 
     levels: Dict[int, LevelCoords]
     maps: Dict[str, ConvMap]
+
+
+@dataclasses.dataclass
+class ColocationGroups:
+    """Fixed-capacity colocation groups (GCL positive clusters), one slot
+    per centre voxel; invalid slots are masked, not dropped.
+
+    member_idx: int32[G, Kc] global voxel rows of the members (centre-cloud
+    hits first, then each neighbour cloud's), -1 pad. member_mask:
+    bool[G, Kc]. finest_pos: int32[G] column of the finest member (the one
+    closest to its own LiDAR origin; 0 is the centre voxel itself). valid:
+    bool[G] (centre voxel valid and at least one cross-cloud hit).
+    anchor_xyz: float32[G, 3] integer voxel coords of the centre voxel.
+    anchor_item: int32[G] sample index of the group.
+    """
+
+    member_idx: torch.Tensor
+    member_mask: torch.Tensor
+    finest_pos: torch.Tensor
+    valid: torch.Tensor
+    anchor_xyz: torch.Tensor
+    anchor_item: torch.Tensor
 
 
 def map_key(in_stride: int, out_stride: int, kernel_size: int,

@@ -32,7 +32,6 @@ namespace {
 
 constexpr int kRows = 64;
 constexpr int kThreads = 256;
-constexpr int kBX = 10, kBY = 10, kBZ = 7;  // coords.DEFAULT_KEY_BITS
 
 __global__ void __launch_bounds__(kThreads)
 occupancy_conv_fwd_kernel(const int* __restrict__ aux,
@@ -61,24 +60,8 @@ occupancy_conv_fwd_kernel(const int* __restrict__ aux,
     const int dxi = k / s2;
     const int dyi = (k / side) % side;
     const int dzi = k % side;
-    const int* a = aux + (size_t)i * 8;
-    const int ux = __ldg(a + 1) + dxi - rad;
-    const int uy = __ldg(a + 2) + dyi - rad;
-    const int uz = __ldg(a + 3) + dzi - rad;
-    if (ux < 0 || ux >= (1 << kBX) || uy < 0 || uy >= (1 << kBY) ||
-        uz < 0 || uz >= (1 << kBZ)) {
-      continue;
-    }
-    // in range, so adding the offset's fields carries into no other field;
-    // unsigned arithmetic wraps exactly as the signed int32 keys do
-    const unsigned int q =
-        static_cast<unsigned int>(__ldg(a)) +
-        (static_cast<unsigned int>(dxi - rad) << (kBY + kBZ)) +
-        (static_cast<unsigned int>(dyi - rad) << kBZ) +
-        static_cast<unsigned int>(dzi - rad);
-    const int qs = static_cast<int>(q);
-    const int p = lower_bound(skeys, n_keys, qs);
-    if (p < n_keys && __ldg(skeys + p) == qs) {
+    if (neighbor_pos(aux + (size_t)i * 8, dxi - rad, dyi - rad, dzi - rad,
+                     skeys, n_keys) >= 0) {
       atomicOr(&bits_s[lr][dxi], 1u << (dyi * side + dzi));
     }
   }

@@ -71,9 +71,8 @@ sparse_conv_implicit_fwd_kernel(const float* __restrict__ x,
       const int i = row0 + tid;
       int r = -1;
       if (i < n_out) {
-        const int q = qkey[(size_t)k * n_out + i];
-        const int p = lower_bound(skeys, n_keys, q);
-        if (p < n_keys && __ldg(skeys + p) == q) r = __ldg(srow + p);
+        const int p = find_key(skeys, n_keys, qkey[(size_t)k * n_out + i]);
+        if (p >= 0) r = __ldg(srow + p);
       }
       rows_s[tid] = r;
       found = r >= 0;

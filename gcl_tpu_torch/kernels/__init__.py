@@ -1,16 +1,34 @@
 """Hand-written CUDA kernels of the port (sources in ../csrc).
 
-Each module holds one kernel's wrapper, its plain PyTorch version and its
-launch counter (``wrapper.launches``): a CPU tensor takes the plain
+Each module holds its kernels' wrappers, their plain PyTorch versions and
+their launch counters (``wrapper.launches``): a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises.
 """
-from .occupancy_conv import occupancy_conv_fwd, occupancy_conv_fwd_plain
-from .sparse_conv import (sparse_conv_implicit_fwd,
+from .occupancy_conv import (c1z_unpack_bits, occupancy_conv_dw,
+                             occupancy_conv_dw_plain, occupancy_conv_fwd,
+                             occupancy_conv_fwd_plain)
+from .scalar_conv import (scalar_conv_dw, scalar_conv_dw_plain,
+                          scalar_conv_fwd, scalar_conv_fwd_plain)
+from .sparse_conv import (sparse_conv_implicit_bwd,
+                          sparse_conv_implicit_bwd_plain,
+                          sparse_conv_implicit_fwd,
                           sparse_conv_implicit_fwd_plain)
 
-KERNELS = (occupancy_conv_fwd, sparse_conv_implicit_fwd)
+# TPU kernel number -> (wrapper, plain version)
+KERNELS = {
+    "K2": (occupancy_conv_fwd, occupancy_conv_fwd_plain),
+    "K3": (occupancy_conv_dw, occupancy_conv_dw_plain),
+    "K4": (scalar_conv_fwd, scalar_conv_fwd_plain),
+    "K5": (scalar_conv_dw, scalar_conv_dw_plain),
+    "K6": (sparse_conv_implicit_fwd, sparse_conv_implicit_fwd_plain),
+    "K7": (sparse_conv_implicit_bwd, sparse_conv_implicit_bwd_plain),
+}
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS:
+    for fn, _ in KERNELS.values():
         fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, (fn, _) in KERNELS.items()}

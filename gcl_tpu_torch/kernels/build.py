@@ -1,8 +1,9 @@
 """Build and load the CUDA kernel library (nvcc -> shared library -> ctypes).
 
-Every ``*.cu`` under ``gcl_tpu_torch/csrc`` is compiled for ``sm_90a`` into
-one shared library with a plain C interface, at first use, into
-``build/kernels/`` beside the package. The file name carries a hash of the
+Every ``*.cu`` under ``gcl_tpu_torch/csrc`` is compiled for ``sm_90a`` (one
+nvcc per source, all started together) and linked into one shared library
+with a plain C interface, at first use, into ``build/kernels/`` beside the
+package. The file name carries a hash of the
 sources, their ``*.cuh`` headers and the flags, so an edited source builds
 anew and an unchanged one is reused. Nothing here runs at import time.
 """
@@ -20,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -28,6 +29,10 @@ _I = ctypes.c_int
 SIGNATURES = {
     "sparse_conv_implicit_fwd": [_P] * 6 + [_I] * 5 + [_P],
     "occupancy_conv_fwd": [_P] * 5 + [_I] * 4 + [_P],
+    "sparse_conv_implicit_bwd": [_P] * 8 + [_I] * 6 + [_P],
+    "occupancy_conv_dw": [_P] * 3 + [_I] * 3 + [_P],
+    "scalar_conv_fwd": [_P] * 7 + [_I] * 4 + [_P],
+    "scalar_conv_dw": [_P] * 7 + [_I] * 4 + [_P],
 }
 
 _lib = None
@@ -70,18 +75,29 @@ def load_library() -> ctypes.CDLL:
     path = library_path()
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, path)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            nvcc = _nvcc()
+            objs = [os.path.join(tmp, src.stem + ".o") for src in _sources()]
+            procs = [subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for src, obj in zip(_sources(), objs)]
+            logs = [proc.communicate() for proc in procs]
+            for src, proc, (out, err) in zip(_sources(), procs, logs):
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {src.name} "
+                                       f"({proc.returncode}):\n{out}\n{err}")
+            lib_tmp = os.path.join(tmp, "lib.so")
+            link = subprocess.run([nvcc, "-shared", "-o", lib_tmp, *objs],
+                                  capture_output=True, text=True)
+            if link.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                                   f"{link.stdout}\n{link.stderr}")
+            os.replace(lib_tmp, path)
         build_info.update(seconds=time.perf_counter() - t0,
-                          ptxas=proc.stderr.strip(), path=str(path))
+                          ptxas="\n".join(err.strip() for _, err in logs),
+                          path=str(path))
     lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

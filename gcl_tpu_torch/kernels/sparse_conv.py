@@ -1,9 +1,12 @@
-"""K6: the implicit-map sparse convolution forward.
+"""K6 and K7: the implicit-map sparse convolution, forward and backward.
 
 ``sparse_conv_implicit_fwd`` launches the CUDA kernel of
 ``csrc/sparse_conv_fwd.cu`` on a CUDA tensor and takes the plain PyTorch
 version below on a CPU tensor. It replaces
 gcl_tpu/core/pallas_conv.py:_conv_half_fwd (kernel body _fwd_kernel_h).
+``sparse_conv_implicit_bwd`` does the same with ``csrc/sparse_conv_bwd.cu``
+(dX and dW in one pass over the reverse map) and replaces _conv_half_bwd
+(kernel body _bwd_kernel_h).
 """
 from __future__ import annotations
 
@@ -26,6 +29,28 @@ def sparse_conv_implicit_fwd_plain(x: torch.Tensor, w: torch.Tensor,
     for k in range(w.shape[0]):
         out = out + xp[idx[k]] @ w[k]
     return out
+
+
+def sparse_conv_implicit_bwd_plain(x: torch.Tensor, g: torch.Tensor,
+                                   w: torch.Tensor, rqkey: torch.Tensor,
+                                   skeys: torch.Tensor, srow: torch.Tensor,
+                                   want_dx: bool = True):
+    """Plain version: the reverse rows by searchsorted, then per reverse
+    offset k' a gather of g, one matmul for dX (with W[K-1-k']^T) and one
+    for dW[K-1-k']."""
+    n_out, cout = g.shape
+    kvol = w.shape[0]
+    rows = lookup(skeys, srow, rqkey).long()                 # [K, N_in]
+    gp = torch.cat([g, g.new_zeros((1, cout))])
+    idx = torch.where(rows < 0, n_out, rows)
+    dx = torch.zeros_like(x) if want_dx else None
+    dw = []
+    for kp in range(kvol):
+        gg = gp[idx[kp]]                                     # [N_in, Cout]
+        if want_dx:
+            dx = dx + gg @ w[kvol - 1 - kp].T
+        dw.append(x.T @ gg)
+    return dx, torch.stack(dw[::-1])
 
 
 def _check_args(x, w, qkey, skeys, srow):
@@ -83,3 +108,59 @@ def sparse_conv_implicit_fwd(x: torch.Tensor, w: torch.Tensor,
 
 
 sparse_conv_implicit_fwd.launches = 0
+
+
+def sparse_conv_implicit_bwd(x: torch.Tensor, g: torch.Tensor,
+                             w: torch.Tensor, rqkey: torch.Tensor,
+                             skeys: torch.Tensor, srow: torch.Tensor,
+                             want_dx: bool = True):
+    """(dX, dW) of sparse_conv_implicit_fwd in one pass over the reverse
+    map: dX[j] = sum_k' g[rev(k', j)] @ w[K-1-k']^T (None unless want_dx)
+    and dW[K-1-k'] = sum_j x[j]^T g[rev(k', j)], dW in forward offset
+    order.
+
+    x f32[N_in, Cin], g f32[N_out, Cout] (any strides: made contiguous
+    here), w f32[K, Cin, Cout], rqkey int32[K, N_in] the reverse-direction
+    query keys (ConvMap.rqkey), skeys / srow the OUTPUT level's sorted
+    valid keys and their rows.
+    """
+    _check_args(x, w, rqkey, skeys, srow)
+    if rqkey.shape[1] != x.shape[0]:
+        raise ValueError(f"rqkey {tuple(rqkey.shape)} does not cover x "
+                         f"{tuple(x.shape)}")
+    if g.dim() != 2 or g.shape[1] != w.shape[2]:
+        raise ValueError(f"g {tuple(g.shape)} does not match w "
+                         f"{tuple(w.shape)}")
+    if g.dtype != torch.float32:
+        raise TypeError(f"g must be torch.float32, got {g.dtype}")
+    if g.device != x.device:
+        raise ValueError(f"g on {g.device}, x on {x.device}")
+    if x.device.type == "cpu":
+        return sparse_conv_implicit_bwd_plain(x, g, w, rqkey, skeys, srow,
+                                              want_dx)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    for name, t in (("x", x), ("w", w), ("rqkey", rqkey), ("skeys", skeys),
+                    ("srow", srow)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    kvol, cin, cout = w.shape
+    g = g.contiguous()
+    n_in = x.shape[0]
+    dx = torch.zeros_like(x) if want_dx else None
+    dw = torch.zeros_like(w)
+    if n_in == 0 or g.shape[0] == 0:
+        return dx, dw
+    lib = load_library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.sparse_conv_implicit_bwd(
+        x.data_ptr(), g.data_ptr(), w.data_ptr(), rqkey.data_ptr(),
+        skeys.data_ptr(), srow.data_ptr(),
+        dx.data_ptr() if want_dx else None, dw.data_ptr(), cin, cout, kvol,
+        n_in, skeys.shape[0], int(want_dx), stream)
+    check(err, "sparse_conv_implicit_bwd")
+    sparse_conv_implicit_bwd.launches += 1
+    return dx, dw
+
+
+sparse_conv_implicit_bwd.launches = 0

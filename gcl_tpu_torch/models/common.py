@@ -1,5 +1,6 @@
 """Shared model building blocks: the sparse conv module and masked norms
-(port of gcl_tpu/models/common.py, forward only).
+(port of gcl_tpu/models/common.py). Gradients come from the
+torch.autograd.Functions of core.sparse_ops.
 
 Parameter and buffer names follow the flax modules (``kernel``, ``bias``,
 ``scale``, ``mean``, ``var``) so models.weights maps a flax tree onto the
@@ -13,7 +14,8 @@ import torch
 from torch import nn
 
 from ..core.kernel_maps import ConvSpec
-from ..core.sparse_ops import (masked_mean_var, sparse_conv_c1z,
+from ..core.sparse_ops import (draw_input_eps, masked_mean_var,
+                               sparse_conv_c1z, sparse_conv_c1z_exact_jitter,
                                sparse_conv_implicit)
 from ..core.types import SparseGraph
 
@@ -42,18 +44,42 @@ class SparseConv(nn.Module):
         self.bias = (nn.Parameter(torch.zeros(out_ch)) if use_bias
                      else None)
 
-    def forward(self, x: torch.Tensor, graph: SparseGraph) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, graph: SparseGraph, c1z_jitter=None,
+                generator=None, jitter_draws=None) -> torch.Tensor:
+        """``c1z_jitter``: optional (sigma, p, row_sel, exact) -- the conv
+        owns the train-time feature jitter of its all-ones input. Only an
+        occupancy conv takes it, and only exact=True is ported: conv(1 +
+        eps) = presence conv(1) + scalar conv(eps)
+        (sparse_ops.sparse_conv_c1z_exact_jitter). The noise comes from
+        ``generator`` unless ``jitter_draws`` = (gate_u, normal) hands in
+        draw_input_eps's numbers already drawn."""
         if self.spec.is_identity_map:
             y = torch.matmul(x, self.kernel)
         else:
             cmap = graph.maps[self.spec.key]
             in_level = graph.levels[self.spec.in_stride]
-            if (self.occupancy and self.in_ch == 1
-                    and cmap.c1z is not None):
+            on_c1z = (self.occupancy and self.in_ch == 1
+                      and cmap.c1z is not None)
+            if c1z_jitter is not None:
+                sigma, p, row_sel, exact = c1z_jitter
+                if not on_c1z:
+                    raise NotImplementedError(
+                        "input jitter is ported for the occupancy conv1 "
+                        "only")
+                if not exact:
+                    raise NotImplementedError(
+                        "jitter_mode 'c1z' (distribution-matched output "
+                        "noise) is not ported; use the exact input jitter")
+                gate_u, normal = jitter_draws or (None, None)
+                eps = draw_input_eps(generator, sigma, p, in_level.mask,
+                                     row_sel, gate_u, normal)
+                y = sparse_conv_c1z_exact_jitter(self.kernel, cmap, in_level,
+                                                 eps, row_sel)
+            elif on_c1z:
                 y = sparse_conv_c1z(self.kernel, cmap.c1z, in_level)
             else:
-                y = sparse_conv_implicit(x, self.kernel, cmap.qkey,
-                                         in_level)
+                y = sparse_conv_implicit(x, self.kernel, cmap, in_level,
+                                         graph.levels[self.spec.out_stride])
         if self.bias is not None:
             y = y + self.bias
         return y

@@ -105,14 +105,21 @@ class ResUNet2(nn.Module):
                                 ConvSpec("final", 1, 1, 1, 1),
                                 use_bias=True)
 
-    def forward(self, graph: SparseGraph,
-                feats: torch.Tensor) -> torch.Tensor:
+    def forward(self, graph: SparseGraph, feats: torch.Tensor,
+                conv1_jitter=None, generator=None,
+                jitter_draws=None) -> torch.Tensor:
         """Features of every level-1 row, [N_1, out_channels]. ``feats``
-        is the all-ones occupancy input of conv1."""
+        is the all-ones occupancy input of conv1. ``conv1_jitter``:
+        optional (sigma, p, row_sel, exact), the train-time input jitter
+        owned by conv1 (models.common.SparseConv), drawn from
+        ``generator`` or handed in as ``jitter_draws``. Train mode is
+        nn.Module.train()."""
         es = self.encoder_strides()
         mask = {s: graph.levels[s].mask for s in set(es)}
 
-        out_s1 = self.norm1(self.conv1(feats, graph), mask[1])
+        out_s1 = self.conv1(feats, graph, conv1_jitter, generator,
+                            jitter_draws)
+        out_s1 = self.norm1(out_s1, mask[1])
         out_s1 = self.block1(out_s1, graph)
         out = torch.relu(out_s1)
 

@@ -5,7 +5,10 @@ flax ``params`` and ``batch_stats`` arrive as nested dicts of numpy arrays
 parameters and buffers like the flax modules, and both keep conv weights
 as [K, Cin, Cout] in kernel_offsets order, so the mapping is by path alone
 (``conv1/kernel`` <-> ``conv1.kernel``, ``block1/norm1/mean`` <->
-``block1.norm1.mean``) and an identity on values.
+``block1.norm1.mean``) and an identity on values. The same paths name a
+flax-shaped tree of gradients and an optax ``trace`` state (the momentum
+tree), so tests compare ``p.grad`` and the optimizer's momentum buffers
+with gcl_tpu's by name.
 """
 from __future__ import annotations
 
@@ -18,12 +21,14 @@ from torch import nn
 _STATS = ("mean", "var")  # batch_stats leaves; everything else is params
 
 
-def _flatten(tree: dict, prefix: str = "") -> Dict[str, np.ndarray]:
+def flatten_tree(tree: dict, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested flax-shaped tree (params, batch_stats, gradients, an optax
+    trace) -> {dotted path: array}, the port's names."""
     out = {}
     for name, val in tree.items():
         path = f"{prefix}{name}"
         if isinstance(val, dict):
-            out.update(_flatten(val, path + "."))
+            out.update(flatten_tree(val, path + "."))
         else:
             out[path] = np.asarray(val)
     return out
@@ -32,7 +37,7 @@ def _flatten(tree: dict, prefix: str = "") -> Dict[str, np.ndarray]:
 def flax_to_state_dict(params: dict,
                        batch_stats: dict) -> Dict[str, torch.Tensor]:
     """Nested flax params + batch_stats -> the port's state_dict."""
-    flat = {**_flatten(params), **_flatten(batch_stats)}
+    flat = {**flatten_tree(params), **flatten_tree(batch_stats)}
     return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in
             flat.items()}
 
@@ -48,6 +53,22 @@ def state_dict_to_flax(state: Dict[str, torch.Tensor]) -> Tuple[dict, dict]:
             node = node.setdefault(p, {})
         node[leaf] = val.detach().cpu().numpy()
     return params, stats
+
+
+def gradients_by_name(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """``p.grad`` of every parameter under its state_dict name, which is
+    the flattened path of the same leaf in a flax gradient tree
+    (``flatten_tree``)."""
+    return {name: p.grad for name, p in model.named_parameters()}
+
+
+def momentum_by_name(model: nn.Module,
+                     optimizer: torch.optim.Optimizer
+                     ) -> Dict[str, torch.Tensor]:
+    """The optimizer's momentum buffer of every parameter under its
+    state_dict name: the leaves of optax's ``trace`` state, flattened."""
+    return {name: optimizer.state[p]["momentum_buffer"]
+            for name, p in model.named_parameters()}
 
 
 def random_state_dict(model: nn.Module,

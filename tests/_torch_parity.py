@@ -85,3 +85,33 @@ def jax_map_refs(graph, specs):
         return out
 
     return jax.tree_util.tree_map(np.asarray, refs(graph.levels))
+
+
+def assert_close_to_max(got, ref, rel: float, what: str = ""):
+    """max|got - ref| <= rel * max|ref|, on arrays of one shape."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    assert got.shape == ref.shape, (what, got.shape, ref.shape)
+    scale = float(np.abs(ref).max())
+    assert scale > 0, f"{what}: the reference is all zero"
+    err = float(np.abs(got - ref).max())
+    assert err <= rel * scale, f"{what}: {err} > {rel} * {scale}"
+
+
+def replay_loss_draws(key, n_groups: int, n_voxels: int,
+                      max_pos_cluster: int, max_hn_samples: int):
+    """The uniforms gcl_tpu's finest_contrastive_loss draws from ``key``
+    (its key splits, losses/gcl.py, and sample_without_replacement's one
+    uniform call per pick), as the port's LossDraws."""
+    import jax
+    from gcl_tpu_torch.losses.gcl import LossDraws
+
+    k_sel, _, k_neg = jax.random.split(key, 3)
+    k1, k2, _ = jax.random.split(k_neg, 3)
+
+    def u(k, m, n):
+        return torch.from_numpy(np.array(
+            jax.random.uniform(k, (min(m, n),))))
+
+    return LossDraws(u(k_sel, max_pos_cluster, n_groups),
+                     u(k1, max_hn_samples, n_voxels),
+                     u(k2, max_hn_samples, n_voxels))

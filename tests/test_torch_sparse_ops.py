@@ -58,8 +58,8 @@ def test_implicit_conv_plain_matches_jax(graphs, key, cin, cout):
     x *= to_np(lv.mask)[:, None]
     w = (rng.randn(27, cin, cout) * 0.05).astype(np.float32)
     out = sparse_ops.sparse_conv_implicit(torch.from_numpy(x),
-                                          torch.from_numpy(w),
-                                          g.maps[key].qkey, lv)
+                                          torch.from_numpy(w), g.maps[key],
+                                          lv, g.levels[sp.out_stride])
     ref = _j_conv(jnp.asarray(x), jnp.asarray(w), gj.kmaps[key])
     assert out.shape == ref.shape
     np.testing.assert_allclose(to_np(out), np.asarray(ref), **TOL)
