@@ -52,7 +52,7 @@ N_POINTS = 65536
 NV_CAP = 18432
 N_KEY = 5000
 SEED = 0
-REPS = 10
+REPS = 5
 BATCH = 4          # the train step's batch: 4 samples x 7 clouds
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_FLOP_PER_S = 67e12     # float32 outside the tensor cores, published
@@ -83,24 +83,28 @@ def _ms(fn, reps: int) -> float:
 
 @contextlib.contextmanager
 def _routed(route):
-    """Put route(K, wrapper, plain) in each kernel wrapper's place in
-    core.sparse_ops, which the model's convs call through."""
+    """Put route(K, wrapper, plain) in each kernel wrapper's place where
+    its callers look it up: core.sparse_ops for the convs of the model,
+    kernels.radius_topk for the group search of data.device_pipeline."""
     from gcl_tpu_torch.core import sparse_ops
-    from gcl_tpu_torch.kernels import KERNELS
+    from gcl_tpu_torch.kernels import KERNELS, radius_topk
 
-    saved = {fn.__name__: fn for fn, _ in KERNELS.values()}
+    saved = []
     for k, (fn, plain) in KERNELS.items():
-        setattr(sparse_ops, fn.__name__, route(k, fn, plain))
+        for mod in (sparse_ops, radius_topk):
+            if hasattr(mod, fn.__name__):
+                saved.append((mod, fn.__name__, fn))
+                setattr(mod, fn.__name__, route(k, fn, plain))
     try:
         yield
     finally:
-        for name, fn in saved.items():
-            setattr(sparse_ops, name, fn)
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def plain_path():
-    """Route the model's convs, forward and backward, through the kernels'
-    plain versions (for the comparison runs only)."""
+    """Route the model's convs, forward and backward, and the group search
+    through the kernels' plain versions (for the comparison runs only)."""
     return _routed(lambda k, fn, plain: plain)
 
 
@@ -120,6 +124,9 @@ def checked_path(errs: dict):
                     _require(b is None, f"{k}: both leave dX out")
                 elif a.dtype == torch.int32:
                     _require(torch.equal(a, b), f"{k}: equal integers")
+                elif k in ("K1", "K11"):
+                    _require(_bit_equal(a, b), f"{k}: d2 bit for bit")
+                    errs.setdefault(k, 0.0)
                 else:
                     errs[k] = max(errs.get(k, 0.0),
                                   _rel_err(a, b, f"{k} inside the step"))
@@ -127,6 +134,12 @@ def checked_path(errs: dict):
         return both
 
     return _routed(checked)
+
+
+def _bit_equal(a, b) -> bool:
+    import torch
+
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def _nbytes(*tensors) -> int:
@@ -188,7 +201,7 @@ def train_kernel_checks(dev) -> dict:
         for s, lv in sorted(graph.levels.items())))
 
     rec = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bytes=0, flops=0)
-           for k in KERNELS}
+           for k in KERNELS if k not in ("K1", "K11")}
 
     def run(name, args, mult=1, n_bytes=0, flops=0, outs=lambda o: o,
             kw=None):
@@ -298,9 +311,31 @@ def train_kernel_checks(dev) -> dict:
     _rel_err(KERNELS["K5"][0](xs, g1, *geo, 125, sel),
              KERNELS["K5"][0](xs, g1, *geo, 125, None),
              "K5 with the row flag against K5 without it")
+    # K9: conv1's dX of a dense upstream gradient, and as the adjoint of K4
+    dx, e9, _, _ = run("K9", (g1, w1, *geo), flops=2 * present * 32,
+                       n_bytes=_nbytes(g1, w1, *geo, x1), outs=lambda o: (o,))
+    fwd = KERNELS["K4"][0](x1, w1, *geo)
+    lhs, rhs = float((fwd * g1).sum()), float((x1 * dx).sum())
+    adj = abs(lhs - rhs) / float((fwd.abs() * g1.abs()).sum())
+    _require(adj <= REL_TOL, f"<K4(x), g> = <x, K9(g)> within {REL_TOL} of "
+                             f"sum |K4(x)| |g|: {lhs} vs {rhs}")
+    # and the way a caller reaches it: ScalarConv's backward, asked for dX
+    from gcl_tpu_torch.core.sparse_ops import ScalarConv
+    from gcl_tpu_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    xr = x1.clone().requires_grad_()
+    wr = w1.clone().requires_grad_()
+    ScalarConv.apply(xr, wr, *geo, None).backward(g1)
+    torch.cuda.synchronize()
+    rec["K9"]["launches"] = launch_counts()["K9"]
+    _require(launch_counts() == {**{k: 0 for k in KERNELS}, "K4": 1, "K5": 1,
+                                 "K9": 1},
+             f"ScalarConv's backward with dX: K4 1, K5 1, K9 1, got "
+             f"{launch_counts()}")
+    _require(torch.equal(xr.grad, dx), "ScalarConv's dX is K9's")
     print(f"conv1 k5 1->32 ({present} present pairs, {sel_pairs} on the "
           f"centre clouds): K3 rel_err {e3:.3g}, K4 gated {e4:.3g}, "
-          f"K5 gated {e5:.3g}")
+          f"K5 gated {e5:.3g}, K9 {e9:.3g} (adjoint identity {adj:.3g})")
     for name, r in rec.items():
         r["bound_ms"], r["bound_by"] = _bound(r["bytes"], r["flops"])
         print(f"{name} per train step: kernel {r['ms']:.3f} ms, plain "
@@ -311,9 +346,169 @@ def train_kernel_checks(dev) -> dict:
     return rec
 
 
+def _captured(name: str, fn):
+    """Run fn() and return (its result, the arguments of the first call it
+    made to kernels.radius_topk.<name>)."""
+    from gcl_tpu_torch.kernels import radius_topk
+
+    seen = []
+    real = getattr(radius_topk, name)
+    setattr(radius_topk, name, lambda *a: seen.append(a) or real(*a))
+    try:
+        out = fn()
+    finally:
+        setattr(radius_topk, name, real)
+    _require(len(seen) == 1, f"one call of {name}, got {len(seen)}")
+    return out, seen[0]
+
+
+def _topk_work(arrays, kn: int):
+    """(bytes, float operations) of one windowed_cell_topk call: every
+    input read and every output written once; 8 operations (3 subtracts,
+    3 multiplies, 2 adds) for each target in a probed cell of its query,
+    counted from this call's keys."""
+    import torch
+
+    tkey_s, trow_s, txyz_s, pbase, qxyz, r2 = arrays
+    out_bytes = pbase.numel() * kn * 8
+    runs = torch.tensor([0, 1 << 10, 1 << 20, (1 << 20) + (1 << 10)],
+                        device=pbase.device, dtype=torch.int64)
+    ok = pbase != 0x7FFFFFFF
+    key0 = (pbase.long()[..., None] + runs).reshape(pbase.shape[0], -1)
+    keys = tkey_s.long()
+    n = (torch.searchsorted(keys, key0 + 2) - torch.searchsorted(keys, key0))
+    cand = int((n.reshape(*pbase.shape, 4).sum(-1) * ok).sum())
+    return _nbytes(*arrays) + out_bytes, 8 * cand, cand
+
+
+def group_kernel_checks(dev) -> dict:
+    """Phase 6: K1 and K11 against their plain versions, the grid groups
+    against the brute-force ones, at the train step's shapes."""
+    import torch
+
+    from gcl_tpu_torch import bench
+    from gcl_tpu_torch.data import device_pipeline as dp
+    from gcl_tpu_torch.kernels import (KERNELS, launch_counts,
+                                       reset_launch_counts)
+
+    k, cell = 5, bench.SEARCH_CELL
+    points, pmask, transforms, radius = bench.bench_batch(SEED, BATCH,
+                                                          N_POINTS, dev)
+    b, c = BATCH, bench.N_CLOUDS
+    vox = dp.voxelize_per_cloud(points.reshape(b * c, N_POINTS, 3),
+                                pmask.reshape(b * c, N_POINTS), 0.3, NV_CAP)
+    vox_b = dp.VoxelizedClouds(vox.coords.reshape(b, c, NV_CAP, 4),
+                               vox.mask.reshape(b, c, NV_CAP),
+                               vox.xyz.reshape(b, c, NV_CAP, 3))
+    rec = {}
+
+    # K1 at the step's shapes: the arrays the step's group search hands it
+    (idx, hit, qperm), arrays = _captured(
+        "windowed_cell_topk_packed",
+        lambda: dp._grid_searches(vox_b, transforms, radius, k, cell))
+    arrays = arrays[:6]
+    fn, plain = KERNELS["K1"]
+    rows, d2 = fn(*arrays, k)
+    torch.cuda.synchronize()
+    prows, pd2 = plain(*arrays, k)
+    torch.cuda.synchronize()
+    _require(torch.equal(rows, prows), "K1 rows equal the plain version's")
+    _require(_bit_equal(d2, pd2), "K1 d2 equals the plain version's bit "
+                                  "for bit")
+    n_bytes, flops, cand = _topk_work(arrays, k)
+    rec["K1"] = dict(max_abs_err=0.0, ms=_ms(lambda: fn(*arrays, k), 10),
+                     plain_ms=_ms(lambda: plain(*arrays, k), 1),
+                     bytes=n_bytes, flops=flops)
+    s_n, t_n = arrays[0].shape
+    print(f"K1 S={s_n} T=Q={t_n} kn={k}: rows equal, d2 bit for bit; "
+          f"{cand} candidates ({cand / rows[..., 0].numel():.1f} a query), "
+          f"{int((rows >= 0).sum())} neighbours; kernel "
+          f"{rec['K1']['ms']:.3f} ms, plain {rec['K1']['plain_ms']:.1f} ms")
+
+    # the grid search against the brute-force one, group by group
+    bidx, bhit = [], []
+    for i in range(b):
+        aligned = dp._aligned(vox_b.xyz[i], transforms[i])
+        bi, bh = dp.radius_knn(vox_b.xyz[i, 0], vox_b.mask[i, 0], aligned,
+                               vox_b.mask[i], radius[i], k, 1024)
+        where = qperm[i][None, :, None].expand(c, -1, k)   # to slot order
+        bidx.append(torch.gather(bi, 1, where))
+        bhit.append(torch.gather(bh, 1, where))
+    bidx, bhit = torch.stack(bidx), torch.stack(bhit)        # [B, C, Nv, k]
+    live = torch.gather(vox_b.mask[:, 0], 1, qperm)[:, None, :].expand(
+        b, c, NV_CAP)
+    same_count = hit.sum(-1) == bhit.sum(-1)
+    # hits come sorted by distance in both: equal sets are equal rows
+    # wherever both hit, up to the order of ties
+    gset = torch.where(hit, idx, -1).sort(-1)[0]
+    bset = torch.where(bhit, bidx, -1).sort(-1)[0]
+    same_rows = (gset == bset).all(-1)
+    share_count = float(same_count[live].float().mean())
+    share_rows = float(same_rows[live].float().mean())
+    share_groups = float(same_rows.all(1)[live[:, 0]].float().mean())
+    print(f"grid search against brute force over {int(live.sum())} (search, "
+          f"query) pairs: equal hit counts {share_count:.6f}, equal row "
+          f"sets {share_rows:.6f}; groups with equal member sets "
+          f"{share_groups:.6f}")
+    _require(share_count >= 0.99, f"hit counts agree on 99%, got "
+                                  f"{share_count}")
+    grid_ms = _ms(lambda: dp.batch_colocation_groups(
+        vox_b, transforms, radius, k=k, cell=cell), 3)
+    brute_ms = _ms(lambda: dp.batch_colocation_groups(
+        vox_b, transforms, radius, k=k, chunk=1024), 1)
+    rec["K1"]["brute_force_search_ms"] = brute_ms
+    rec["K1"]["grid_search_ms"] = grid_ms
+    print(f"groups of the batch: grid search {grid_ms:.2f} ms (sorts, K1, "
+          f"tables), brute-force search {brute_ms:.2f} ms")
+
+    # K11: T > 2^19 targets in one search, through the entry point
+    n_copy = (1 << 19) // NV_CAP + 4       # 32 clouds of 18,432 voxels
+    shift = torch.arange(n_copy, device=dev, dtype=torch.float32) * 0.11
+    clouds = vox.xyz[torch.arange(n_copy, device=dev) % (b * c)]
+    targets = (clouds + shift[:, None, None]).reshape(1, -1, 3)
+    t_mask = vox.mask[torch.arange(n_copy, device=dev) % (b * c)].reshape(
+        1, -1)
+    queries, q_mask = vox.xyz[:1, :4096], vox.mask[:1, :4096]  # Q <= 4096
+    r11 = torch.full((1,), 0.45, device=dev)
+    reset_launch_counts()
+    (idx11, hit11), arrays = _captured(
+        "windowed_cell_topk_exact",
+        lambda: dp.batched_grid_radius_knn(queries, q_mask, targets, t_mask,
+                                           r11, k, cell))
+    torch.cuda.synchronize()
+    rec11_launches = launch_counts()["K11"]
+    _require(launch_counts() == {**{kk: 0 for kk in KERNELS}, "K11": 1},
+             f"the large-T search launches K11 once and nothing else, got "
+             f"{launch_counts()}")
+    arrays = arrays[:6]
+    fn, plain = KERNELS["K11"]
+    rows, d2 = fn(*arrays, k)
+    torch.cuda.synchronize()
+    prows, pd2 = plain(*arrays, k)
+    torch.cuda.synchronize()
+    _require(torch.equal(rows, prows), "K11 rows equal the plain version's")
+    _require(_bit_equal(d2, pd2), "K11 d2 equals the plain version's")
+    _require(int(hit11.sum()) > queries.shape[1] // 2,
+             "the large-T search finds neighbours")
+    n_bytes, flops, cand = _topk_work(arrays, k)
+    rec["K11"] = dict(max_abs_err=0.0, ms=_ms(lambda: fn(*arrays, k), 10),
+                      plain_ms=_ms(lambda: plain(*arrays, k), 1),
+                      bytes=n_bytes, flops=flops, launches=rec11_launches)
+    print(f"K11 S=1 Q={arrays[3].shape[1]} T={arrays[0].shape[1]} kn={k}: "
+          f"rows and d2 equal; {cand} candidates, {int(hit11.sum())} "
+          f"neighbours; kernel {rec['K11']['ms']:.3f} ms, plain "
+          f"{rec['K11']['plain_ms']:.1f} ms")
+    for name in ("K1", "K11"):
+        r = rec[name]
+        r["bound_ms"], r["bound_by"] = _bound(r["bytes"], r["flops"])
+        print(f"{name}: bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+              f"({r['bytes'] / 1e6:.1f} MB, {r['flops'] / 1e9:.3f} GFLOP)")
+    return rec
+
+
 def train_step_checks(dev, gpu: str) -> dict:
-    """Phase 6: the train step at full width and full batch. Returns the
-    launch counts of one step."""
+    """Phase 7: the train step at full width and full batch, with the
+    grid group search. Returns the launch counts of one step."""
     import torch
 
     from gcl_tpu_torch import bench
@@ -359,7 +554,8 @@ def train_step_checks(dev, gpu: str) -> dict:
                           launches=launch_counts())
     launches = runs["kernel"]["launches"]
     print(f"launches per train step: {launches}")
-    want = {"K2": 1, "K3": 1, "K4": 1, "K5": 1, "K6": 20, "K7": 20}
+    want = {"K1": 1, "K2": 1, "K3": 1, "K4": 1, "K5": 1, "K6": 20, "K7": 20,
+            "K9": 0, "K11": 0}
     _require(launches == want, f"launches per step {want}, got {launches}")
     _require(not any(runs["plain"]["launches"].values()),
              "the plain path launches no kernel")
@@ -390,8 +586,9 @@ def train_step_checks(dev, gpu: str) -> dict:
     # held to 0.1 of each tensor's max.
     print(f"kernel vs plain inside the step, worst rel_err per kernel: "
           f"{ {k: float(f'{v:.3g}') for k, v in sorted(in_step_errs.items())} }")
-    _require(sorted(in_step_errs) == sorted(want),
-             f"all six kernels were checked inside the step: {in_step_errs}")
+    _require(sorted(in_step_errs) == sorted(k for k, n in want.items() if n),
+             f"all seven kernels of the step were checked inside it: "
+             f"{in_step_errs}")
     free = worst_gradient("kernel", "plain")
     nudged = worst_gradient("plain_nudged", "plain")
     print(f"gradients of whole steps over {len(runs['kernel']['grads'])} "
@@ -414,6 +611,17 @@ def train_step_checks(dev, gpu: str) -> dict:
                  f"finite metrics, got {metrics}")
         _require(float(metrics["num_groups"]) > 0, "groups were found")
     peak = torch.cuda.max_memory_allocated()
+    # the same step with the brute-force group search, beside it
+    brute_model = bench.bench_model(SEED, dev)
+    _, brute_step = bench.bench_step(brute_model, BATCH, NV_CAP,
+                                     search="brute_force")
+    brute_step(lr, *batch, generator=gen)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    brute_metrics = brute_step(lr, *batch, generator=gen)
+    torch.cuda.synchronize()
+    brute_dt = time.perf_counter() - t0
+    del brute_model, brute_step
     with plain_path():
         t0 = time.perf_counter()
         runs["plain"]["step"](lr, *batch, generator=gen)
@@ -434,6 +642,9 @@ def train_step_checks(dev, gpu: str) -> dict:
           f"{float(metrics['loss']):.6f}, num_groups "
           f"{int(metrics['num_groups'])}, voxels_per_step {int(n_vox)} "
           f"on {gpu}")
+    print(f"train step, kernel path, brute-force group search: step_time_s "
+          f"{brute_dt:.4f} (1 step after a warm-up), num_groups "
+          f"{int(brute_metrics['num_groups'])}")
     print(f"train step, plain path: step_time_s {plain_dt:.4f} (1 step "
           f"after a warm-up), {n_vox / plain_dt:.1f} voxel/s")
     print(f"peak device memory over the timed steps: {peak / 2**30:.2f} GiB")
@@ -452,7 +663,8 @@ def main() -> None:
     from gcl_tpu_torch.data.device_pipeline import voxelize_per_cloud
     from gcl_tpu_torch.data.synthetic import synth_lidar
     from gcl_tpu_torch.core.coords import lookup
-    from gcl_tpu_torch.kernels import (build, c1z_unpack_bits, launch_counts,
+    from gcl_tpu_torch.kernels import (KERNELS, build, c1z_unpack_bits,
+                                       launch_counts,
                                        occupancy_conv_fwd,
                                        occupancy_conv_fwd_plain,
                                        reset_launch_counts,
@@ -560,8 +772,7 @@ def main() -> None:
     torch.cuda.synchronize()
     launches = launch_counts()
     print(f"launches per pair: {launches}")
-    _require(launches == {"K2": 1, "K3": 0, "K4": 0, "K5": 0, "K6": 20,
-                          "K7": 0},
+    _require(launches == {**{k: 0 for k in KERNELS}, "K2": 1, "K6": 20},
              f"1 K2 and 20 K6 launches per pair, got {launches}")
     _require(bool(torch.isfinite(t_est).all())
              and bool(torch.isfinite(feats).all()),
@@ -614,29 +825,44 @@ def main() -> None:
         print(f"{name} path: {1.0 / dt:.3f} pairs/s, {dt * 1e3:.2f} ms "
               f"per pair ({REPS} pairs after a warm-up) on {gpu}")
 
-    # 5. and 6. the train step
+    # 5., 6. and 7. the train step's kernels, its group search, the step
     rec = train_kernel_checks(dev)
+    rec.update(group_kernel_checks(dev))
     step_launches = train_step_checks(dev, gpu)
 
+    conv, radius = "pallas_conv.py", "pallas_radius.py"
     table = [
-        ("K6", "sparse_conv_implicit_fwd", "sparse_conv_fwd.cu", 781),
-        ("K7", "sparse_conv_implicit_bwd", "sparse_conv_bwd.cu", 820),
-        ("K2", "occupancy_conv_fwd", "occupancy_conv_fwd.cu", 1024),
-        ("K3", "occupancy_conv_dw", "occupancy_conv_dw.cu", 1118),
-        ("K4", "scalar_conv_fwd", "scalar_conv.cu", 917),
-        ("K5", "scalar_conv_dw", "scalar_conv.cu", 973)]
+        ("K6", "sparse_conv_implicit_fwd", "sparse_conv_fwd.cu", conv, 781),
+        ("K7", "sparse_conv_implicit_bwd", "sparse_conv_bwd.cu", conv, 820),
+        ("K2", "occupancy_conv_fwd", "occupancy_conv_fwd.cu", conv, 1024),
+        ("K3", "occupancy_conv_dw", "occupancy_conv_dw.cu", conv, 1118),
+        ("K4", "scalar_conv_fwd", "scalar_conv.cu", conv, 917),
+        ("K5", "scalar_conv_dw", "scalar_conv.cu", conv, 973),
+        ("K1", "windowed_cell_topk_packed", "radius_topk.cu", radius, 183),
+        ("K11", "windowed_cell_topk_exact", "radius_topk.cu", radius, 136),
+        ("K9", "scalar_conv_dx", "scalar_conv.cu", conv, 944)]
+    # K9 and K11 are not on the train step's path: their launches are those
+    # of the path that does reach them, driven above with the counts set
+    # to 0 just before (ScalarConv's backward with dX; the large-T search)
+    paths = {"K9": "ScalarConv backward with dX at conv1's shape",
+             "K11": "batched_grid_radius_knn, T = 589,824"}
     kernels = []
-    for k, name, src, line in table:
+    for k, name, src, jsrc, line in table:
         r = rec[k]
         kernels.append({
             "name": f"{name} ({k})", "route": "cuda",
             "source": f"gcl_tpu_torch/csrc/{src}",
-            "replaces": f"gcl_tpu/core/pallas_conv.py:{line}",
-            "launches": step_launches[k], "max_abs_err": r["max_abs_err"],
+            "replaces": f"gcl_tpu/core/{jsrc}:{line}",
+            "launches": r.get("launches", step_launches[k]),
+            "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             # no single PyTorch call computes any of these functions
-            "library_ms": None, "shapes": "train step"})
+            "library_ms": None, "path": paths.get(k, "train step"),
+            "train_step_launches": step_launches[k]})
+    kernels[6].update(
+        brute_force_search_ms=rec["K1"]["brute_force_search_ms"],
+        grid_search_ms=rec["K1"]["grid_search_ms"])
     kernels[0].update(serving_launches=launches["K6"],
                       serving_max_abs_err=k6_err, serving_ms=k6_ms,
                       serving_plain_ms=k6_plain_ms,

@@ -3,11 +3,15 @@
 ``python -m gcl_tpu_torch.bench`` runs the flagship configuration
 (ResUNetFatBN at full width, conv1 k=5, voxel 0.3 m, batch 4 x 7 clouds of
 65,536 synthetic LiDAR points, exact input jitter, the ``finest`` loss
-with the spatial negative filter, SGD momentum 0.8 / weight decay 1e-4)
-and times the full step: voxelization, colocation-group search, levels
-and conv maps, U-Net forward and backward, loss and the SGD update. It is
-the port of the root ``bench.py`` with two differences, both named in the
-output: compute is float32 and the group search is the brute-force one.
+with the spatial negative filter, SGD momentum 0.8 / weight decay 1e-4,
+the colocation-group search on a hash grid of 1.08 m cells) and times the
+full step: voxelization, colocation-group search, levels and conv maps,
+U-Net forward and backward, loss and the SGD update. It is the port of the
+root ``bench.py`` with one difference, named in the output: compute is
+float32. ``--search brute_force`` swaps the grid search (one launch of the
+windowed cell top-k kernel, printed as ``"search": "grid_1.08"``) for the
+brute-force O(QT) one (``"search": "brute_force"``), the step this
+benchmark timed before the grid search was ported.
 
 With ``--profile`` it first prints a JSON line of where one step's time
 goes (host-clock stage times with a synchronize after each stage's range,
@@ -37,6 +41,7 @@ from .train.steps import StepConfig, make_gcl_train_step
 
 BASELINE_VOXELS_PER_SEC = 6.4e5
 N_CLOUDS = 7  # the centre scan + 6 neighbours
+SEARCH_CELL = 1.08  # the root bench.py's: >= 2 x the 0.45 m search radius
 
 
 def bench_model(seed: int, device) -> ResUNetFatBN:
@@ -47,8 +52,12 @@ def bench_model(seed: int, device) -> ResUNetFatBN:
     return model.to(device)
 
 
-def bench_config(batch_size: int, nv_cap: int = 18432):
-    """(conv specs, StepConfig) at the root bench.py's settings."""
+def bench_config(batch_size: int, nv_cap: int = 18432,
+                 search: str = "grid"):
+    """(conv specs, StepConfig) at the root bench.py's settings; ``search``
+    is 'grid' (its search_cell) or 'brute_force'."""
+    if search not in ("grid", "brute_force"):
+        raise ValueError(f"search {search!r}: 'grid' or 'brute_force'")
     specs = ResUNetFatBN.conv_specs(5)
     strides = sorted({s for sp in specs
                       for s in (sp.in_stride, sp.out_stride)})
@@ -56,12 +65,14 @@ def bench_config(batch_size: int, nv_cap: int = 18432):
     return specs, StepConfig(
         voxel_size=0.3, nv_cap=nv_cap,
         level_caps=default_level_caps(n_flat, strides, 0.55),
-        knn_chunk=1024, search_cell=None)
+        knn_chunk=1024,
+        search_cell=SEARCH_CELL if search == "grid" else None)
 
 
-def bench_step(model, batch_size: int, nv_cap: int = 18432):
+def bench_step(model, batch_size: int, nv_cap: int = 18432,
+               search: str = "grid"):
     """(optimizer, step_fn) at the root bench.py's settings."""
-    specs, cfg = bench_config(batch_size, nv_cap)
+    specs, cfg = bench_config(batch_size, nv_cap, search)
     return make_gcl_train_step(
         model, specs, cfg, GCLLossConfig(block_finest_gradient=False),
         "finest", max_pos_cluster=256 * batch_size,
@@ -143,6 +154,8 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--search", default="grid",
+                    choices=["grid", "brute_force"])
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -158,7 +171,7 @@ def main(argv=None):
             torch.cuda.synchronize()
 
     model = bench_model(args.seed, dev)
-    _, step = bench_step(model, args.batch_size, args.nv)
+    _, step = bench_step(model, args.batch_size, args.nv, args.search)
     batch = bench_batch(args.seed, args.batch_size, args.points, dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
@@ -191,7 +204,8 @@ def main(argv=None):
         "voxels_per_step": int(n_vox),
         "device": torch.cuda.get_device_name(0) if on_card else "cpu",
         "compute_dtype": "float32",
-        "search": "brute_force",
+        "search": (f"grid_{SEARCH_CELL}" if args.search == "grid"
+                   else "brute_force"),
     }
     if on_card:
         from .infer import gpu_identity

@@ -14,9 +14,8 @@ the graph records:
   forward K2, which also leaves the presence bitmasks; backward K3 from
   those bitmasks; there is no dX;
 * ``ScalarConv`` (a Cin == 1 conv that reads its features: the eps term of
-  the exact input jitter): forward K4, backward K5. Its dX would be a
-  Cout == 1 conv through the reverse map, which is not ported; asking for
-  it raises.
+  the exact input jitter): forward K4, backward K5 for dW and, only when
+  the input asks for a gradient, K9 for dX (the jitter noise does not).
 """
 from __future__ import annotations
 
@@ -25,13 +24,14 @@ from typing import Optional
 import torch
 
 from ..kernels import (c1z_unpack_bits, occupancy_conv_dw, occupancy_conv_fwd,
-                       scalar_conv_dw, scalar_conv_fwd,
+                       scalar_conv_dw, scalar_conv_dx, scalar_conv_fwd,
                        sparse_conv_implicit_bwd, sparse_conv_implicit_fwd)
 from .types import ConvMap, LevelCoords
 
 __all__ = ["SparseConvImplicit", "OccupancyConv", "ScalarConv",
            "sparse_conv_implicit", "sparse_conv_c1z", "c1z_unpack_bits",
            "draw_input_eps", "sparse_conv_c1z_exact_jitter",
+           "sparse_conv_c1z_jittered",
            "masked_mean_var", "l2_normalize", "apply_mask"]
 
 
@@ -67,13 +67,16 @@ class SparseConvImplicit(torch.autograd.Function):
 class OccupancyConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w, aux, skeys):
+        """(out, sbits): the presence bitmasks come out too, so that a
+        caller can mask by presence without a second kernel pass."""
         out, sbits = occupancy_conv_fwd(aux, skeys, w.contiguous())
         ctx.save_for_backward(sbits)
+        ctx.mark_non_differentiable(sbits)
         ctx.kcube = w.shape[0]
-        return out
+        return out, sbits
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, _g_sbits):
         (sbits,) = ctx.saved_tensors
         return occupancy_conv_dw(sbits, g, ctx.kcube), None, None
 
@@ -82,21 +85,20 @@ class ScalarConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, aux, skeys, srow, row_sel):
         x, w = x.contiguous(), w.contiguous()
-        ctx.save_for_backward(x)
-        ctx.rest = (aux, skeys, srow, row_sel, w.shape[0])
+        ctx.save_for_backward(x, w)
+        ctx.rest = (aux, skeys, srow, row_sel)
         return scalar_conv_fwd(x, w, aux, skeys, srow, row_sel)
 
     @staticmethod
     def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        aux, skeys, srow, row_sel = ctx.rest
+        dx = dw = None
         if ctx.needs_input_grad[0]:
-            raise NotImplementedError(
-                "dX of a Cin == 1 conv is a Cout == 1 conv through the "
-                "reverse map (gcl_tpu's _conv_co1_fwd), which is not "
-                "ported; the jitter noise it is used for needs no gradient")
-        (x,) = ctx.saved_tensors
-        aux, skeys, srow, row_sel, kcube = ctx.rest
-        dw = scalar_conv_dw(x, g, aux, skeys, srow, kcube, row_sel)
-        return (None, dw) + (None,) * 4
+            dx = scalar_conv_dx(g, w, aux, skeys, srow, row_sel)
+        if ctx.needs_input_grad[1]:
+            dw = scalar_conv_dw(x, g, aux, skeys, srow, w.shape[0], row_sel)
+        return (dx, dw) + (None,) * 4
 
 
 def sparse_conv_implicit(x: torch.Tensor, w: torch.Tensor, cmap: ConvMap,
@@ -122,7 +124,7 @@ def sparse_conv_c1z(w: torch.Tensor, c1z: torch.Tensor,
     c1z is the level's occupancy aux (ConvMap.c1z).
     """
     _require_f32("w", w)
-    return OccupancyConv.apply(w, c1z, level.skeys)
+    return OccupancyConv.apply(w, c1z, level.skeys)[0]
 
 
 def draw_input_eps(generator: Optional[torch.Generator], sigma: float,
@@ -171,9 +173,44 @@ def sparse_conv_c1z_exact_jitter(w: torch.Tensor, cmap: ConvMap,
     if row_sel is not None:
         sel = (level.mask.to(torch.float32)
                * row_sel.to(torch.float32)).contiguous()
-    return (OccupancyConv.apply(w, cmap.c1z, level.skeys)
+    return (OccupancyConv.apply(w, cmap.c1z, level.skeys)[0]
             + ScalarConv.apply(eps.detach(), w, cmap.c1z, level.skeys,
                                level.srow, sel))
+
+
+def sparse_conv_c1z_jittered(w: torch.Tensor, cmap: ConvMap,
+                             level: LevelCoords,
+                             generator: Optional[torch.Generator],
+                             sigma: float, p: float,
+                             row_sel: Optional[torch.Tensor] = None,
+                             gate_u: Optional[torch.Tensor] = None,
+                             normal: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """Occupancy conv + distribution-matched output noise (jitter_mode
+    'c1z'), plain tensor code on the presence bits K2 leaves.
+
+    Input jitter adds sum_{k present(i)} eps_{j_k} W[k] to output i. This
+    draws a fresh iid eps_{ik} per (output, offset) instead, masked by the
+    forward's presence bitmasks: per output the mean (zero) and covariance
+    (sigma^2 sum_present W[k] W[k]^T) are those of the input jitter; the
+    correlation between outputs that share an input voxel is dropped. The
+    noise term is differentiable in w, as in gcl_tpu. ``row_sel`` f32[N]
+    restricts the noise to selected output rows. The gate uniform (scalar)
+    and the normals f32[N, K] come from ``generator`` on w's device unless
+    ``gate_u`` / ``normal`` hand them in.
+    """
+    _require_f32("w", w)
+    out, sbits = OccupancyConv.apply(w, cmap.c1z, level.skeys)
+    bits = c1z_unpack_bits(sbits, w.shape[0]).to(torch.float32)
+    if gate_u is None:
+        gate_u = torch.rand((), generator=generator, device=w.device)
+    if normal is None:
+        normal = torch.randn(bits.shape, generator=generator,
+                             device=w.device)
+    a = normal * sigma * bits * (gate_u < p).to(torch.float32)
+    if row_sel is not None:
+        a = a * row_sel.to(torch.float32)[:, None]
+    return out + a @ w[:, 0, :]
 
 
 def masked_mean_var(feats: torch.Tensor, mask: torch.Tensor):

@@ -1,13 +1,19 @@
 // Scalar-feature (Cin == 1) sparse convolution that READS its features,
-// forward and weight gradient, for Hopper (sm_90a).
+// forward, weight gradient and input gradient, for Hopper (sm_90a).
 //
 // Replaces gcl_tpu/core/pallas_conv.py:_fwd_c1_kernel (TPU kernel K4,
-// wrapper _conv_c1_fwd) and _dw_c1_kernel (K5, wrapper _conv_c1_dw) on a
-// stride-1 same-level odd stencil. With match(k, i) the row of the voxel
+// wrapper _conv_c1_fwd), _dw_c1_kernel (K5, wrapper _conv_c1_dw) and
+// _fwd_co1_kernel (K9, wrapper _conv_co1_fwd: the Cout == 1 forward that
+// gcl_tpu runs through the reverse queries as the dX of a Cin == 1 conv) on
+// a stride-1 same-level odd stencil. With match(k, i) the row of the voxel
 // at offset k of row i (none: the term is zero):
 //
 //   K4:  out[i, :]    = sum_k x[match(k, i)] * W[k, 0, :]
 //   K5:  dW[k, 0, :]  = sum_i x[match(k, i)] * g[i, :]
+//   K9:  dX[j]        = sum_k sum_c g[match(K-1-k, j), c] * W[k, 0, c]
+//
+// (match(k, i) == j iff i == match(K-1-k, j): the stencil is odd and the
+// level is its own reverse twin.)
 //
 // On the train path x is the eps term of the exact input jitter: zero off
 // the jittered (centre) clouds.
@@ -29,7 +35,12 @@
 // to the last bit. K5 combines blocks as the occupancy dW (K3) does: each
 // block walks many chunks, keeps its partial dW in shared memory and adds
 // it to global memory with atomicAdd once, so dW agrees with the plain
-// version to float32 rounding.
+// version to float32 rounding. K9 resolves its neighbours the same way, 125
+// searches a row, then reads one g row of Cout floats per match: a warp
+// takes a row at a time, its lanes spread over the channels so that each
+// matched g row is one coalesced read, and the lanes' partial sums meet in
+// a shuffle reduction. It is bound by those reads (g once is N * Cout * 4
+// bytes; each row of g is read once per row it neighbours, from L2).
 
 #include <cuda_runtime.h>
 
@@ -141,6 +152,68 @@ scalar_conv_dw_kernel(const float* __restrict__ x,
   }
 }
 
+// K9. nb[lr][k] = match(K-1-k, row0 + lr) or -1; a gathered row i whose
+// row_sel[i] <= 0 counts as absent (K4 left out[i] zero, so g[i] reaches no
+// x): the exact adjoint of K4 for any row flag.
+__global__ void __launch_bounds__(kThreads)
+scalar_conv_dx_kernel(const float* __restrict__ g,
+                      const float* __restrict__ w,
+                      const int* __restrict__ aux,
+                      const int* __restrict__ skeys,
+                      const int* __restrict__ srow,
+                      const float* __restrict__ row_sel,
+                      float* __restrict__ dx, int n, int side, int cout,
+                      int n_keys) {
+  extern __shared__ __align__(16) float ws[];  // [kvol, cout]
+  __shared__ int nb[kRows][kMaxVol];
+
+  const int tid = threadIdx.x;
+  const int kvol = side * side * side;
+  const int s2 = side * side;
+  const int rad = side / 2;
+  const int row0 = blockIdx.x * kRows;
+  for (int e = tid; e < kvol * cout; e += kThreads) ws[e] = __ldg(w + e);
+  for (int e = tid; e < kRows * kvol; e += kThreads) {
+    const int lr = e / kvol;
+    const int k = e % kvol;
+    const int j = row0 + lr;
+    int i = -1;
+    if (j < n) {
+      const int kr = kvol - 1 - k;  // the mirrored offset
+      const int p = neighbor_pos(aux + (size_t)j * 8, kr / s2 - rad,
+                                 (kr / side) % side - rad, kr % side - rad,
+                                 skeys, n_keys);
+      if (p >= 0) {
+        i = __ldg(srow + p);
+        if (row_sel != nullptr && !(__ldg(row_sel + i) > 0.f)) i = -1;
+      }
+    }
+    nb[lr][k] = i;
+  }
+  __syncthreads();
+
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  for (int lr = warp; lr < kRows; lr += kThreads / 32) {
+    const int j = row0 + lr;
+    if (j >= n) break;
+    float acc = 0.f;
+    for (int k = 0; k < kvol; ++k) {
+      const int i = nb[lr][k];  // the same for the whole warp
+      if (i < 0) continue;
+      const float* gi = g + (size_t)i * cout;
+      const float* wk = ws + k * cout;
+      for (int c = lane; c < cout; c += 32) {
+        acc = fmaf(__ldg(gi + c), wk[c], acc);
+      }
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      acc += __shfl_down_sync(0xffffffffu, acc, off);
+    }
+    if (lane == 0) dx[j] = acc;
+  }
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024 - sizeof(float) * kRows * kMaxVol) return cudaSuccess;
@@ -191,5 +264,22 @@ extern "C" int scalar_conv_dw(const float* x, const float* g, const int* aux,
   scalar_conv_dw_kernel<<<blocks, kThreads, smem,
                           static_cast<cudaStream_t>(stream)>>>(
       x, g, aux, skeys, srow, row_sel, dw, n, side, cout, n_keys);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K9: g f32[n, cout], w f32[side^3, 1, cout], dx f32[n, 1] out; the rest
+// as scalar_conv_fwd. row_sel is K4's flag of its OUTPUT rows, i.e. of the
+// rows of g.
+extern "C" int scalar_conv_dx(const float* g, const float* w, const int* aux,
+                              const int* skeys, const int* srow,
+                              const float* row_sel, float* dx, int n,
+                              int side, int cout, int n_keys, void* stream) {
+  const size_t smem = sizeof(float) * side * side * side * cout;
+  const cudaError_t err = allow_smem(scalar_conv_dx_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + kRows - 1) / kRows);
+  scalar_conv_dx_kernel<<<grid, kThreads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      g, w, aux, skeys, srow, row_sel, dx, n, side, cout, n_keys);
   return static_cast<int>(cudaGetLastError());
 }

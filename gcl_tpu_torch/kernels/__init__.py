@@ -7,7 +7,10 @@ version, a CUDA tensor launches the kernel or raises.
 from .occupancy_conv import (c1z_unpack_bits, occupancy_conv_dw,
                              occupancy_conv_dw_plain, occupancy_conv_fwd,
                              occupancy_conv_fwd_plain)
+from .radius_topk import (windowed_cell_topk, windowed_cell_topk_exact,
+                          windowed_cell_topk_packed, windowed_cell_topk_plain)
 from .scalar_conv import (scalar_conv_dw, scalar_conv_dw_plain,
+                          scalar_conv_dx, scalar_conv_dx_plain,
                           scalar_conv_fwd, scalar_conv_fwd_plain)
 from .sparse_conv import (sparse_conv_implicit_bwd,
                           sparse_conv_implicit_bwd_plain,
@@ -16,12 +19,15 @@ from .sparse_conv import (sparse_conv_implicit_bwd,
 
 # TPU kernel number -> (wrapper, plain version)
 KERNELS = {
+    "K1": (windowed_cell_topk_packed, windowed_cell_topk_plain),
     "K2": (occupancy_conv_fwd, occupancy_conv_fwd_plain),
     "K3": (occupancy_conv_dw, occupancy_conv_dw_plain),
     "K4": (scalar_conv_fwd, scalar_conv_fwd_plain),
     "K5": (scalar_conv_dw, scalar_conv_dw_plain),
     "K6": (sparse_conv_implicit_fwd, sparse_conv_implicit_fwd_plain),
     "K7": (sparse_conv_implicit_bwd, sparse_conv_implicit_bwd_plain),
+    "K9": (scalar_conv_dx, scalar_conv_dx_plain),
+    "K11": (windowed_cell_topk_exact, windowed_cell_topk_plain),
 }
 
 

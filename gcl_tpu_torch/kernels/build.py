@@ -33,6 +33,8 @@ SIGNATURES = {
     "occupancy_conv_dw": [_P] * 3 + [_I] * 3 + [_P],
     "scalar_conv_fwd": [_P] * 7 + [_I] * 4 + [_P],
     "scalar_conv_dw": [_P] * 7 + [_I] * 4 + [_P],
+    "scalar_conv_dx": [_P] * 7 + [_I] * 4 + [_P],
+    "windowed_cell_topk": [_P] * 10 + [_I] * 5 + [ctypes.c_float, _P],
 }
 
 _lib = None

@@ -1,11 +1,16 @@
-"""K4 and K5: the scalar-feature (Cin == 1) conv that reads its features,
-forward and weight gradient, on a stride-1 same-level odd stencil.
+"""K4, K5 and K9: the scalar-feature (Cin == 1) conv that reads its
+features, forward, weight gradient and input gradient, on a stride-1
+same-level odd stencil.
 
-``scalar_conv_fwd`` and ``scalar_conv_dw`` launch the CUDA kernels of
-``csrc/scalar_conv.cu`` on CUDA tensors and take the plain PyTorch versions
-below on CPU tensors. They replace gcl_tpu/core/pallas_conv.py:_conv_c1_fwd
-(kernel body _fwd_c1_kernel) and _conv_c1_dw (kernel body _dw_c1_kernel).
-On the train path x is the eps term of the exact input jitter.
+``scalar_conv_fwd``, ``scalar_conv_dw`` and ``scalar_conv_dx`` launch the
+CUDA kernels of ``csrc/scalar_conv.cu`` on CUDA tensors and take the plain
+PyTorch versions below on CPU tensors. They replace
+gcl_tpu/core/pallas_conv.py:_conv_c1_fwd (kernel body _fwd_c1_kernel),
+_conv_c1_dw (_dw_c1_kernel) and _conv_co1_fwd (_fwd_co1_kernel: the
+Cout == 1 forward that gcl_tpu runs through the reverse queries as the dX
+of a Cin == 1 conv). On the train path x is the eps term of the exact input
+jitter, which needs no dX; a caller whose x requires a gradient gets it
+from K9.
 """
 from __future__ import annotations
 
@@ -40,28 +45,47 @@ def scalar_conv_dw_plain(x, g, aux, skeys, srow, kcube, row_sel=None):
     return (xv.T @ g)[:, None, :]
 
 
+def scalar_conv_dx_plain(g, w, aux, skeys, srow, row_sel=None):
+    """Plain version: p[i, k] = g[i] . W[k, 0, :] by one matmul (zero on
+    rows K4 skipped), then dX[j] = sum_k p[match(K-1-k, j), k] by a gather
+    through the mirrored neighbour rows."""
+    kcube = w.shape[0]
+    p = g @ w[:, 0, :].T                                     # [N, K]
+    if row_sel is not None:
+        p = p * (row_sel > 0).to(p.dtype)[:, None]
+    rows = neighbor_rows(aux, skeys, srow, cube_side(kcube)).flip(1).long()
+    picked = torch.gather(p, 0, rows.clamp_min(0))
+    return torch.where(rows >= 0, picked, 0.0).sum(dim=1, keepdim=True)
+
+
 def _check_args(x, other, other_name, aux, skeys, srow, row_sel):
+    """The checks the three wrappers share; x is None where the wrapper
+    takes none (the dX)."""
     n = aux.shape[0]
-    if aux.dim() != 2 or aux.shape[1] != 8 or tuple(x.shape) != (n, 1):
-        raise ValueError(f"expected aux [N, 8] and x [N, 1], got "
-                         f"{tuple(aux.shape)} and {tuple(x.shape)}")
+    if aux.dim() != 2 or aux.shape[1] != 8:
+        raise ValueError(f"expected aux [N, 8], got {tuple(aux.shape)}")
+    if x is not None and tuple(x.shape) != (n, 1):
+        raise ValueError(f"expected x [N, 1] = {(n, 1)}, got "
+                         f"{tuple(x.shape)}")
     if skeys.dim() != 1 or srow.shape != skeys.shape:
         raise ValueError("skeys and srow must be 1-D of one length")
     if row_sel is not None and tuple(row_sel.shape) != (n,):
         raise ValueError(f"row_sel must be [N], got {tuple(row_sel.shape)}")
-    named = [("x", x, torch.float32), (other_name, other, torch.float32),
-             ("aux", aux, torch.int32), ("skeys", skeys, torch.int32),
-             ("srow", srow, torch.int32)]
+    named = [(other_name, other, torch.float32), ("aux", aux, torch.int32),
+             ("skeys", skeys, torch.int32), ("srow", srow, torch.int32)]
+    if x is not None:
+        named.append(("x", x, torch.float32))
     if row_sel is not None:
         named.append(("row_sel", row_sel, torch.float32))
+    dev = aux.device
     for name, t, dt in named:
         if t.dtype != dt:
             raise TypeError(f"{name} must be {dt}, got {t.dtype}")
-        if t.device != x.device:
-            raise ValueError(f"{name} on {t.device}, x on {x.device}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {x.device}")
-    if x.device.type == "cuda":
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, aux on {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda":
         for name, t, _ in named:
             if name != "g" and not t.is_contiguous():
                 raise ValueError(f"{name} must be contiguous")
@@ -131,5 +155,42 @@ def scalar_conv_dw(x: torch.Tensor, g: torch.Tensor, aux: torch.Tensor,
     return dw
 
 
+def scalar_conv_dx(g: torch.Tensor, w: torch.Tensor, aux: torch.Tensor,
+                   skeys: torch.Tensor, srow: torch.Tensor,
+                   row_sel: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dX f32[N, 1] of scalar_conv_fwd: dX[j] = sum over the (k, i) with
+    match(k, i) == j of g[i, :] . w[k, 0, :], rows i with row_sel[i] <= 0
+    left out (their outputs were skipped): the exact adjoint of
+    scalar_conv_fwd in x for any row flag. g f32[N, Cout] may have any
+    strides; it is made contiguous here."""
+    side = cube_side(w.shape[0])
+    if w.dim() != 3 or w.shape[1] != 1:
+        raise ValueError(f"expected w [K, 1, Cout], got {tuple(w.shape)}")
+    n = aux.shape[0]
+    if g.dim() != 2 or tuple(g.shape) != (n, w.shape[2]):
+        raise ValueError(f"expected g [N, Cout] = {(n, w.shape[2])}, got "
+                         f"{tuple(g.shape)}")
+    _check_args(None, g, "g", aux, skeys, srow, row_sel)
+    if w.dtype != torch.float32 or w.device != g.device:
+        raise TypeError(f"w must be float32 on {g.device}, got {w.dtype} on "
+                        f"{w.device}")
+    if g.device.type == "cpu":
+        return scalar_conv_dx_plain(g, w, aux, skeys, srow, row_sel)
+    g, w = g.contiguous(), w.contiguous()
+    dx = torch.empty((n, 1), dtype=torch.float32, device=g.device)
+    if n == 0:
+        return dx
+    lib = load_library()
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    err = lib.scalar_conv_dx(g.data_ptr(), w.data_ptr(), aux.data_ptr(),
+                             skeys.data_ptr(), srow.data_ptr(),
+                             _ptr(row_sel), dx.data_ptr(), n, side,
+                             w.shape[2], skeys.shape[0], stream)
+    check(err, "scalar_conv_dx")
+    scalar_conv_dx.launches += 1
+    return dx
+
+
 scalar_conv_fwd.launches = 0
 scalar_conv_dw.launches = 0
+scalar_conv_dx.launches = 0

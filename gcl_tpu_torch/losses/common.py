@@ -1,5 +1,5 @@
-"""Shared loss machinery: distances and masked sampling (port of
-gcl_tpu/losses/common.py).
+"""Shared loss machinery: distances, masked sampling, pair-set membership
+(port of gcl_tpu/losses/common.py).
 
 Every function that draws takes a torch.Generator and, optionally, the
 uniforms already drawn, so a test can hand the same numbers to both
@@ -18,6 +18,18 @@ def pdist_l2(a: torch.Tensor, b: torch.Tensor,
     d2 = ((a * a).sum(dim=1)[:, None] + (b * b).sum(dim=1)[None, :]
           - 2.0 * a @ b.T)
     return torch.sqrt(d2.clamp_min(0.0) + eps)
+
+
+def square_distance(a: torch.Tensor, b: torch.Tensor,
+                    normalised: bool = False) -> torch.Tensor:
+    """Pairwise squared distances clamped at 1e-12; ``normalised`` takes
+    unit rows (2 - 2 a.b)."""
+    d = -2.0 * a @ b.T
+    if normalised:
+        d = d + 2.0
+    else:
+        d = d + (a * a).sum(dim=1)[:, None] + (b * b).sum(dim=1)[None, :]
+    return d.clamp_min(1e-12)
 
 
 def _valid_order(valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -86,3 +98,35 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor,
     if dim is None:
         return (x * m).sum() / m.sum().clamp_min(1.0)
     return (x * m).sum(dim=dim) / m.sum(dim=dim).clamp_min(1.0)
+
+
+INT_MAX = 0x7FFFFFFF
+
+
+def _pair_key(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a, b) non-negative int pairs as one int64 in lexicographic order."""
+    return (a.long() << 32) | b.long()
+
+
+def sort_pairs(pairs: torch.Tensor, valid: torch.Tensor):
+    """Sort an (i, j) pair list lexicographically, invalid pairs last (as
+    INT_MAX). Returns (a_sorted, b_sorted) int32 for pair_isin."""
+    a = torch.where(valid, pairs[:, 0], INT_MAX)
+    b = torch.where(valid, pairs[:, 1], INT_MAX)
+    key = torch.sort(_pair_key(a, b))[0]
+    return (key >> 32).to(torch.int32), (key & 0xFFFFFFFF).to(torch.int32)
+
+
+def pair_isin(a_sorted: torch.Tensor, b_sorted: torch.Tensor,
+              qa: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
+    """True where (qa, qb) appears in the sorted pair list."""
+    keys, q = _pair_key(a_sorted, b_sorted), _pair_key(qa, qb)
+    n = keys.shape[0]
+    pos = torch.searchsorted(keys, q)
+    return (pos < n) & (keys[pos.clamp_max(n - 1)] == q)
+
+
+def masked_logsumexp(x: torch.Tensor, mask: torch.Tensor,
+                     dim: int = -1) -> torch.Tensor:
+    """logsumexp over the masked-in entries (-inf where there is none)."""
+    return torch.logsumexp(torch.where(mask, x, -torch.inf), dim=dim)

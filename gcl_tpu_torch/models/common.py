@@ -16,7 +16,7 @@ from torch import nn
 from ..core.kernel_maps import ConvSpec
 from ..core.sparse_ops import (draw_input_eps, masked_mean_var,
                                sparse_conv_c1z, sparse_conv_c1z_exact_jitter,
-                               sparse_conv_implicit)
+                               sparse_conv_c1z_jittered, sparse_conv_implicit)
 from ..core.types import SparseGraph
 
 
@@ -48,11 +48,14 @@ class SparseConv(nn.Module):
                 generator=None, jitter_draws=None) -> torch.Tensor:
         """``c1z_jitter``: optional (sigma, p, row_sel, exact) -- the conv
         owns the train-time feature jitter of its all-ones input. Only an
-        occupancy conv takes it, and only exact=True is ported: conv(1 +
-        eps) = presence conv(1) + scalar conv(eps)
-        (sparse_ops.sparse_conv_c1z_exact_jitter). The noise comes from
+        occupancy conv takes it. exact=True: conv(1 + eps) = presence
+        conv(1) + scalar conv(eps)
+        (sparse_ops.sparse_conv_c1z_exact_jitter); exact=False:
+        distribution-matched noise on the output
+        (sparse_ops.sparse_conv_c1z_jittered). The noise comes from
         ``generator`` unless ``jitter_draws`` = (gate_u, normal) hands in
-        draw_input_eps's numbers already drawn."""
+        the numbers already drawn (normal f32[N, 1] for the exact jitter,
+        f32[N, K] for the other)."""
         if self.spec.is_identity_map:
             y = torch.matmul(x, self.kernel)
         else:
@@ -66,15 +69,16 @@ class SparseConv(nn.Module):
                     raise NotImplementedError(
                         "input jitter is ported for the occupancy conv1 "
                         "only")
-                if not exact:
-                    raise NotImplementedError(
-                        "jitter_mode 'c1z' (distribution-matched output "
-                        "noise) is not ported; use the exact input jitter")
                 gate_u, normal = jitter_draws or (None, None)
-                eps = draw_input_eps(generator, sigma, p, in_level.mask,
-                                     row_sel, gate_u, normal)
-                y = sparse_conv_c1z_exact_jitter(self.kernel, cmap, in_level,
-                                                 eps, row_sel)
+                if exact:
+                    eps = draw_input_eps(generator, sigma, p, in_level.mask,
+                                         row_sel, gate_u, normal)
+                    y = sparse_conv_c1z_exact_jitter(self.kernel, cmap,
+                                                     in_level, eps, row_sel)
+                else:
+                    y = sparse_conv_c1z_jittered(self.kernel, cmap, in_level,
+                                                 generator, sigma, p,
+                                                 row_sel, gate_u, normal)
             elif on_c1z:
                 y = sparse_conv_c1z(self.kernel, cmap.c1z, in_level)
             else:

@@ -1,5 +1,6 @@
 """The GCL train step (port of gcl_tpu/train/steps.py: StepConfig,
-make_gcl_grad_fn, make_optimizer, make_gcl_train_step).
+make_gcl_grad_fn, make_optimizer, make_gcl_train_step, AccumStepper,
+make_dist_err_step).
 
 One step spans the whole per-iteration pipeline on the device: voxelize ->
 colocation groups -> stride levels and conv maps -> sparse U-Net forward
@@ -12,13 +13,12 @@ dampening 0: grad + wd * p -> momentum buffer -> p -= lr * buf; lr is fed
 in per step. Weight decay covers every parameter, BN scale and bias
 included, as gcl_tpu's optax chain does.
 
-Gradient accumulation, the pair (FCGF) step and the validation steps are
-not ported.
+The pair (FCGF) step and its validation step are not ported.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -27,7 +27,13 @@ from ..core.kernel_maps import ConvSpec, build_graph
 from ..data.device_pipeline import (VoxelizedClouds, batch_colocation_groups,
                                     voxelize_per_cloud)
 from ..losses.gcl import (GCLLossConfig, LossDraws, SpatialNegFilter,
-                          finest_contrastive_loss)
+                          finest_contrastive_loss, location_circle_loss,
+                          location_contrastive_loss, member_group_index)
+from .diagnostics import group_distance_errors
+
+_GROUP_LOSSES = {"finest": finest_contrastive_loss,
+                 "location": location_contrastive_loss,
+                 "circle": location_circle_loss}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,18 +45,24 @@ class StepConfig:
     level_caps: Dict[int, int]
     group_k: int = 5
     knn_chunk: int = 1024
-    # Hash-grid cell of the group search. None -> brute-force O(QT)
-    # search, the only route ported: a value raises NotImplementedError.
-    search_cell: Any = None
-    # Negative-loss intra-group filter; only 'spatial' is ported.
+    # Hash-grid cell of the group search (at least twice the largest search
+    # radius; a larger radius is clamped to cell / 2): the S = B * C searches
+    # of a batch run as one windowed_cell_topk call (K1). None ->
+    # brute-force O(QT) search, knn_chunk queries at a time.
+    search_cell: Optional[float] = None
+    member_r_cap: int = 32  # width of the reverse membership index
+    # Negative-loss intra-group filter: 'spatial' (the geometric 2r test in
+    # the aligned frame, no index to build) or 'membership' (exact
+    # co-membership through member_group_index).
     neg_filter: str = "spatial"
     momentum: float = 0.8
     weight_decay: float = 1e-4
     jitter_sigma: float = 0.01
     jitter_p: float = 0.95
     # 'input': exact feature jitter of the conv1 input, split by linearity
-    # into the presence conv and a scalar eps conv. 'c1z' (matched output
-    # noise) is not ported.
+    # into the presence conv and a scalar eps conv. 'c1z':
+    # distribution-matched iid noise per (output, offset) on conv1's
+    # output instead (sparse_ops.sparse_conv_c1z_jittered).
     jitter_mode: str = "input"
     compute_dtype: torch.dtype = torch.float32
 
@@ -58,9 +70,9 @@ class StepConfig:
 class StepDraws(NamedTuple):
     """The random numbers of one train step, already drawn (tests hand the
     same numbers to gcl_tpu): sample_gate_u f32[B] the per-sample jitter
-    gates, jitter (gate_u scalar, normal f32[N, 1]) conv1's noise
-    (draw_input_eps), loss the loss's uniforms. Unused fields may be
-    None."""
+    gates, jitter (gate_u scalar, normal) conv1's noise (normal f32[N, 1]
+    for jitter_mode 'input', f32[N, K] for 'c1z'), loss the loss's
+    uniforms. Unused fields may be None."""
 
     sample_gate_u: Optional[torch.Tensor] = None
     jitter: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
@@ -91,16 +103,41 @@ def _check_config(step_cfg: StepConfig, loss_kind: str) -> None:
         raise NotImplementedError(
             f"compute_dtype {step_cfg.compute_dtype}: the port computes in "
             f"float32 only (bf16 waits for the tensor-core conv kernels)")
-    if step_cfg.neg_filter != "spatial":
-        raise NotImplementedError(
-            f"neg_filter {step_cfg.neg_filter!r}: only 'spatial' is ported")
-    if step_cfg.jitter_mode != "input":
-        raise NotImplementedError(
-            f"jitter_mode {step_cfg.jitter_mode!r}: only the exact 'input' "
-            f"jitter is ported")
-    if loss_kind != "finest":
-        raise NotImplementedError(
-            f"loss {loss_kind!r}: only the 'finest' loss is ported")
+    if step_cfg.neg_filter not in ("spatial", "membership"):
+        raise ValueError(f"neg_filter {step_cfg.neg_filter!r}: 'spatial' or "
+                         f"'membership'")
+    if step_cfg.jitter_mode not in ("input", "c1z"):
+        raise ValueError(f"jitter_mode {step_cfg.jitter_mode!r}: 'input' or "
+                         f"'c1z'")
+    if loss_kind not in _GROUP_LOSSES:
+        raise ValueError(f"loss {loss_kind!r}: one of "
+                         f"{sorted(_GROUP_LOSSES)}")
+
+
+def _geometry(points, pmask, transforms, radius, conv_specs,
+              step_cfg: StepConfig):
+    """(flat voxels, graph, groups, vox_b) of a colocation batch, the part
+    the train step and the diagnostic step share."""
+    b, c, p, _ = points.shape
+    # the record_function ranges name the step's stages in a
+    # torch.profiler trace (gcl_tpu_torch.bench --profile)
+    with record_function("gcl/voxelize"):
+        vox = voxelize_per_cloud(points.reshape(b * c, p, 3),
+                                 pmask.reshape(b * c, p),
+                                 step_cfg.voxel_size, step_cfg.nv_cap)
+        nv = vox.xyz.shape[1]
+        vox_b = VoxelizedClouds(vox.coords.reshape(b, c, nv, 4),
+                                vox.mask.reshape(b, c, nv),
+                                vox.xyz.reshape(b, c, nv, 3))
+        flat = vox.flatten()
+    with record_function("gcl/groups"):
+        groups = batch_colocation_groups(
+            vox_b, transforms, radius, k=step_cfg.group_k,
+            chunk=step_cfg.knn_chunk, cell=step_cfg.search_cell)
+    with record_function("gcl/graph"):
+        graph = build_graph(flat.coords, flat.mask, conv_specs,
+                            step_cfg.level_caps, n_clouds=b * c)
+    return flat, graph, groups, vox_b
 
 
 def make_gcl_grad_fn(model: torch.nn.Module, conv_specs: Sequence[ConvSpec],
@@ -118,39 +155,29 @@ def make_gcl_grad_fn(model: torch.nn.Module, conv_specs: Sequence[ConvSpec],
     points' device) unless ``draws`` hands them in.
     """
     _check_config(step_cfg, loss_kind)
+    group_loss = _GROUP_LOSSES[loss_kind]
 
     def grad_fn(points, pmask, transforms, radius, generator=None,
                 draws: Optional[StepDraws] = None):
         draws = draws or StepDraws()
-        b, c, p, _ = points.shape
-        # the record_function ranges name the step's stages in a
-        # torch.profiler trace (gcl_tpu_torch.bench --profile)
+        b, c = points.shape[:2]
         with torch.no_grad():
-            with record_function("gcl/voxelize"):
-                vox = voxelize_per_cloud(points.reshape(b * c, p, 3),
-                                         pmask.reshape(b * c, p),
-                                         step_cfg.voxel_size,
-                                         step_cfg.nv_cap)
-                nv = vox.xyz.shape[1]
-                vox_b = VoxelizedClouds(vox.coords.reshape(b, c, nv, 4),
-                                        vox.mask.reshape(b, c, nv),
-                                        vox.xyz.reshape(b, c, nv, 3))
-                flat = vox.flatten()
-            with record_function("gcl/groups"):
-                groups = batch_colocation_groups(
-                    vox_b, transforms, radius, k=step_cfg.group_k,
-                    chunk=step_cfg.knn_chunk, cell=step_cfg.search_cell)
-            with record_function("gcl/graph"):
-                graph = build_graph(flat.coords, flat.mask, conv_specs,
-                                    step_cfg.level_caps, n_clouds=b * c)
-            # voxel positions in their sample's centre frame
-            aligned = (vox_b.xyz @ transforms[:, :, :3, :3].transpose(2, 3)
-                       + transforms[:, :, None, :3, 3])
-            sample_id = torch.arange(
-                b, dtype=torch.int32,
-                device=points.device).repeat_interleave(c * nv)
-            neg_filter = SpatialNegFilter(aligned.reshape(-1, 3), sample_id,
-                                          radius)
+            flat, graph, groups, vox_b = _geometry(
+                points, pmask, transforms, radius, conv_specs, step_cfg)
+            nv = vox_b.xyz.shape[2]
+            if step_cfg.neg_filter == "spatial":
+                # voxel positions in their sample's centre frame
+                aligned = (vox_b.xyz
+                           @ transforms[:, :, :3, :3].transpose(2, 3)
+                           + transforms[:, :, None, :3, 3])
+                sample_id = torch.arange(
+                    b, dtype=torch.int32,
+                    device=points.device).repeat_interleave(c * nv)
+                neg_filter = SpatialNegFilter(aligned.reshape(-1, 3),
+                                              sample_id, radius)
+            else:
+                neg_filter = member_group_index(groups, flat.mask.shape[0],
+                                                step_cfg.member_r_cap)
             conv1_jitter = None
             if jitter:
                 # conv1 owns the jitter: centre-cloud rows only, with the
@@ -162,14 +189,15 @@ def make_gcl_grad_fn(model: torch.nn.Module, conv_specs: Sequence[ConvSpec],
                     generator, step_cfg.jitter_p, b,
                     torch.div(cloud, c, rounding_mode="floor"),
                     draws.sample_gate_u)
-                conv1_jitter = (step_cfg.jitter_sigma, 1.0, jit_rows, True)
+                conv1_jitter = (step_cfg.jitter_sigma, 1.0, jit_rows,
+                                step_cfg.jitter_mode != "c1z")
 
         model.train()
         with record_function("gcl/unet"):
             f_out = model(graph, flat.feats, conv1_jitter=conv1_jitter,
                           generator=generator, jitter_draws=draws.jitter)
         with record_function("gcl/loss"):
-            out = finest_contrastive_loss(
+            out = group_loss(
                 f_out, flat.mask, groups, neg_filter, generator,
                 max_pos_cluster, max_hn_samples, loss_cfg, draws.loss)
             total = (pos_weight * out.pos_loss
@@ -215,3 +243,85 @@ def make_gcl_train_step(model: torch.nn.Module,
         return metrics
 
     return opt, step_fn
+
+
+class AccumStepper:
+    """Caffe-style ``iter_size`` gradient accumulation: the gradients of
+    ``loss / iter_size`` are summed over ``iter_size`` consecutive
+    micro-batches and ONE SGD step is taken at the window's end. BatchNorm
+    running stats move at every micro-batch, as at every forward.
+
+    Drop-in for a step function: ``stepper(lr, *batch, generator=None,
+    draws=None) -> metrics``; the optimizer steps on every ``iter_size``-th
+    call. ``reset()`` discards a partial window. The accumulator is a
+    float32 gradient tree by parameter, ``stepper.accumulated``.
+    """
+
+    def __init__(self, opt: torch.optim.Optimizer, grad_fn: Callable,
+                 iter_size: int):
+        self.opt, self.grad_fn = opt, grad_fn
+        self.iter_size = int(iter_size)
+        self._params = [p for g in opt.param_groups for p in g["params"]]
+        self.reset()
+
+    def reset(self):
+        self._acc = None
+        self._count = 0
+
+    @property
+    def boundary(self) -> bool:
+        """True right after an optimizer step (the window just closed)."""
+        return self._count == 0
+
+    @property
+    def accumulated(self):
+        """The window's summed gradients so far, in the optimizer's
+        parameter order (None before the first micro-batch)."""
+        return self._acc
+
+    def __call__(self, lr: float, *batch, generator=None, draws=None):
+        metrics = self.grad_fn(*batch, generator, draws)
+        with torch.no_grad():
+            if self._acc is None:
+                self._acc = [torch.zeros_like(p, dtype=torch.float32)
+                             for p in self._params]
+            for a, p in zip(self._acc, self._params):
+                if p.grad is not None:
+                    a.add_(p.grad.to(a.dtype) / self.iter_size)
+        self._count += 1
+        if self._count == self.iter_size:
+            for a, p in zip(self._acc, self._params):
+                p.grad = a.to(p.dtype)
+            for group in self.opt.param_groups:
+                group["lr"] = lr
+            with record_function("gcl/sgd"):
+                self.opt.step()
+            self.reset()
+        return metrics
+
+
+def make_dist_err_step(model: torch.nn.Module,
+                       conv_specs: Sequence[ConvSpec],
+                       step_cfg: StepConfig) -> Callable:
+    """The GCL validation (distance-error) step: eval-mode features over a
+    colocation batch, then per member its distance offset to the finest
+    member's own LiDAR range and its feature distance to the finest member.
+
+    diag_step(points [B, C, P, 3], pmask, transforms, radius) ->
+    (dist_err, feat_err, mask), flat [G * Kc]. It runs the train step's
+    group search and leaves the model in eval mode.
+    """
+    _check_config(step_cfg, "finest")
+
+    @torch.no_grad()
+    def diag_step(points, pmask, transforms, radius):
+        flat, graph, groups, vox_b = _geometry(
+            points, pmask, transforms, radius, conv_specs, step_cfg)
+        model.eval()
+        f = model(graph, flat.feats)
+        # each member voxel's own-frame LiDAR range
+        own = torch.sqrt((vox_b.xyz * vox_b.xyz).sum(dim=-1)).reshape(-1)
+        central = own[groups.member_idx.long().clamp_min(0)]
+        return group_distance_errors(f, groups, central)
+
+    return diag_step

@@ -1,5 +1,9 @@
 """gcl_tpu_torch stands alone: it imports on a CPU-only machine without JAX,
-flax, optax or gcl_tpu, and importing it builds no kernel."""
+flax, optax or gcl_tpu, and importing it builds no kernel; chip_smoke.py
+imports none of them either; the port's bench runs on the CPU when asked."""
+import ast
+import json
+import pathlib
 import subprocess
 import sys
 
@@ -17,7 +21,10 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "gcl_tpu"))
 missing = [n for n in ("gcl_tpu_torch.losses.gcl", "gcl_tpu_torch.train.steps",
-                       "gcl_tpu_torch.bench", "gcl_tpu_torch.kernels.scalar_conv")
+                       "gcl_tpu_torch.bench",
+                       "gcl_tpu_torch.kernels.scalar_conv",
+                       "gcl_tpu_torch.kernels.radius_topk",
+                       "gcl_tpu_torch.train.diagnostics")
            if n not in names]
 print(len(names), bad + missing, build._lib is None)
 """
@@ -29,7 +36,7 @@ def test_import_leaves_jax_out_and_builds_nothing():
     line = out.stdout.strip().splitlines()[-1]
     n_modules, rest = line.split(" ", 1)
     assert rest == "[] True", line  # no JAX module, no library loaded
-    assert int(n_modules) >= 28, line
+    assert int(n_modules) >= 30, line
 
 
 def test_synth_lidar_is_bench_copy():
@@ -41,3 +48,49 @@ def test_synth_lidar_is_bench_copy():
         b = bench.synth_lidar(np.random.RandomState(seed), 3000)
         assert a.dtype == b.dtype == np.float32
         np.testing.assert_array_equal(a, b)
+
+
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gcl_tpu")
+
+
+def _imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_no_source_of_the_port_names_jax():
+    """Every import statement of chip_smoke.py and of every module of the
+    package, function-level imports included, by its syntax tree."""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    files = [root / "chip_smoke.py"] + sorted(
+        (root / "gcl_tpu_torch").rglob("*.py"))
+    assert len(files) >= 31
+    for path in files:
+        bad = _imported_roots(path) & set(_FORBIDDEN)
+        assert not bad, f"{path.name} imports {sorted(bad)}"
+
+
+def test_bench_runs_on_the_cpu_when_asked():
+    """python -m gcl_tpu_torch.bench refuses to run without a card unless
+    --device cpu is given; on the CPU, at a small size, it prints bench.py's
+    keys and names the search that ran, the grid one by default."""
+    base = [sys.executable, "-m", "gcl_tpu_torch.bench", "--batch_size", "1",
+            "--points", "1500", "--nv", "512", "--iters", "1", "--reps", "1"]
+    refused = subprocess.run(base, capture_output=True, text=True,
+                             timeout=300)
+    assert refused.returncode != 0 and "no CUDA device" in refused.stderr
+    for extra, search in (([], "grid_1.08"),
+                          (["--search", "brute_force"], "brute_force")):
+        out = subprocess.run(base + ["--device", "cpu"] + extra,
+                             capture_output=True, text=True, timeout=600,
+                             check=True)
+        res = json.loads(out.stdout.strip().splitlines()[-1])
+        assert res["search"] == search and res["device"] == "cpu"
+        assert res["metric"] == "gcl_train_voxels_per_sec"
+        assert res["compute_dtype"] == "float32" and res["value"] > 0
+        assert res["voxels_per_step"] > 1000

@@ -1,5 +1,5 @@
-"""CUDA legs of the port's kernels (K2-K7): each kernel against its plain
-PyTorch version on the card, at small shapes with ragged tile edges.
+"""CUDA legs of the port's kernels (K1-K7, K9, K11): each kernel against its
+plain PyTorch version on the card, at small shapes with ragged tile edges.
 
 A CUDA kernel has no CPU mode, so these skip where
 torch.cuda.is_available() is false. On a machine with a card (no JAX
@@ -13,16 +13,25 @@ import torch
 from gcl_tpu_torch.core.kernel_maps import ConvSpec, build_graph
 from gcl_tpu_torch.data.device_pipeline import voxelize_per_cloud
 from gcl_tpu_torch.infer import make_feature_extractor
+from gcl_tpu_torch.data.device_pipeline import (_batched_grid_core,
+                                                batch_colocation_groups,
+                                                batched_grid_radius_knn,
+                                                radius_knn)
 from gcl_tpu_torch.kernels import (occupancy_conv_dw,
                                    occupancy_conv_dw_plain,
                                    occupancy_conv_fwd,
                                    occupancy_conv_fwd_plain, scalar_conv_dw,
-                                   scalar_conv_dw_plain, scalar_conv_fwd,
+                                   scalar_conv_dw_plain, scalar_conv_dx,
+                                   scalar_conv_dx_plain, scalar_conv_fwd,
                                    scalar_conv_fwd_plain,
                                    sparse_conv_implicit_bwd,
                                    sparse_conv_implicit_bwd_plain,
                                    sparse_conv_implicit_fwd,
-                                   sparse_conv_implicit_fwd_plain)
+                                   sparse_conv_implicit_fwd_plain,
+                                   windowed_cell_topk,
+                                   windowed_cell_topk_exact,
+                                   windowed_cell_topk_packed,
+                                   windowed_cell_topk_plain)
 from gcl_tpu_torch.models.resunet import ResUNetFatBN
 from gcl_tpu_torch.models.weights import random_state_dict
 
@@ -169,6 +178,135 @@ def test_scalar_conv_kernels_match_plain(dev, key, k, gated):
     if gated:
         assert torch.equal(out, scalar_conv_fwd(x, w, *geo, None))
         _close_to_max(dw, scalar_conv_dw(x, g, *geo, k, None), 1e-5)
+
+
+@pytest.mark.parametrize("key,k", [("s1->s1/k5d1", 125), ("s1->s1/k3d1", 27)])
+@pytest.mark.parametrize("cout", [32, 20, 70])
+@pytest.mark.parametrize("gated", [False, True])
+def test_scalar_conv_dx_kernel_matches_plain(dev, key, k, cout, gated):
+    """K9 within 1e-4 of the max (float32 FMAs in another order than the
+    plain version's matmul), with a row flag that varies inside a cloud,
+    and by the adjoint identity with K4: <K4(x), g> == <x, K9(g)>."""
+    gr = _graph(dev, seed=2)
+    lv = gr.levels[1]
+    n = lv.coords.shape[0]
+    gen = torch.Generator().manual_seed(k + cout)
+    x = torch.randn(n, 1, generator=gen).to(dev)
+    w = torch.randn(k, 1, cout, generator=gen).to(dev)       # not symmetric
+    g = torch.randn(cout, n, generator=gen).to(dev).T        # not contiguous
+    sel = (torch.rand(n, generator=gen) > 0.4).float().to(dev) if gated \
+        else None
+    geo = (gr.maps[key].c1z, lv.skeys, lv.srow, sel)
+    before = scalar_conv_dx.launches
+    dx = scalar_conv_dx(g, w, *geo)
+    torch.cuda.synchronize()
+    assert scalar_conv_dx.launches == before + 1 and dx.shape == (n, 1)
+    _close_to_max(dx, scalar_conv_dx_plain(g, w, *geo), 1e-4)
+    out = scalar_conv_fwd(x, w, *geo)
+    lhs, rhs = float((out * g).sum()), float((x * dx).sum())
+    assert abs(lhs - rhs) <= 1e-4 * float((out.abs() * g.abs()).sum())
+
+
+def _search_inputs(dev, seed, s_n, q_n, t_n, spread=1.2):
+    gen = torch.Generator().manual_seed(seed)
+    q = (torch.randn(s_n, q_n, 3, generator=gen) * spread).to(dev)
+    t = (torch.randn(s_n, t_n, 3, generator=gen) * spread).to(dev)
+    qm = (torch.rand(s_n, q_n, generator=gen) > 0.1).to(dev)
+    tm = (torch.rand(s_n, t_n, generator=gen) > 0.1).to(dev)
+    return q, qm, t, tm
+
+
+def _topk_arrays(q, qm, t, tm, r, cell):
+    """The prepared arrays windowed_cell_topk is given, captured from
+    _batched_grid_core."""
+    from gcl_tpu_torch.kernels import radius_topk
+    seen = []
+    real = radius_topk.windowed_cell_topk
+    radius_topk.windowed_cell_topk = lambda *a: seen.append(a) or real(*a)
+    try:
+        _batched_grid_core(q, qm, t, tm, r, 5, cell, presorted=False)
+    finally:
+        radius_topk.windowed_cell_topk = real
+    return seen[0][:6]
+
+
+@pytest.mark.parametrize("s_n,q_n,t_n,kn", [
+    (3, 300, 600, 5), (2, 1000, 777, 8), (1, 129, 4099, 1), (4, 64, 33, 4)])
+def test_windowed_topk_kernel_matches_plain(dev, s_n, q_n, t_n, kn):
+    """K1: rows equal and d2 equal bit for bit (the kernel forbids the FMA
+    contraction that would move a candidate into the next bin)."""
+    q, qm, t, tm = _search_inputs(dev, q_n, s_n, q_n, t_n)
+    r = torch.linspace(0.3, 0.5, s_n, device=dev)
+    arrays = _topk_arrays(q, qm, t, tm, r, 1.0)
+    before = (windowed_cell_topk_packed.launches,
+              windowed_cell_topk_exact.launches)
+    rows, d2 = windowed_cell_topk(*arrays, kn)
+    torch.cuda.synchronize()
+    assert (windowed_cell_topk_packed.launches,
+            windowed_cell_topk_exact.launches) == (before[0] + 1, before[1])
+    prow, pd2 = windowed_cell_topk_plain(*arrays, kn)
+    assert torch.equal(rows, prow)
+    assert torch.equal(d2.view(torch.int32), pd2.view(torch.int32))
+    assert int((rows >= 0).sum()) > 20
+
+
+def test_windowed_topk_crowded_cells(dev):
+    """Hundreds of targets in a cell, far more than kn, and every query in
+    the same few cells: each run is read to its end."""
+    q, qm, t, tm = _search_inputs(dev, 5, 2, 500, 3000, spread=0.4)
+    r = torch.tensor([0.5, 0.2], device=dev)
+    arrays = _topk_arrays(q, qm, t, tm, r, 1.0)
+    rows, d2 = windowed_cell_topk(*arrays, 8)
+    prow, pd2 = windowed_cell_topk_plain(*arrays, 8)
+    assert torch.equal(rows, prow)
+    assert torch.equal(d2.view(torch.int32), pd2.view(torch.int32))
+    # and the hit counts are the brute-force search's
+    idx, hit = batched_grid_radius_knn(q, qm, t, tm, r, 8, 1.0)
+    for s in range(2):
+        _, bhit = radius_knn(q[s], qm[s], t[s], tm[s], r[s], 8)
+        agree = (hit[s].sum(-1) == bhit.sum(-1)).float().mean()
+        assert float(agree) > 0.99
+
+
+def test_windowed_topk_exact_kernel_matches_plain(dev):
+    """K11 (T > 2^19): rows and exact d2 equal; duplicated targets make
+    exact ties, which go to the lower sorted position in both."""
+    t_n = (1 << 19) + 7
+    q, qm, t, tm = _search_inputs(dev, 9, 2, 700, t_n, spread=3.0)
+    t[:, 1::2] = t[:, 0::2][:, :t[:, 1::2].shape[1]]         # duplicates
+    r = torch.tensor([0.5, 0.4], device=dev)
+    arrays = _topk_arrays(q, qm, t, tm, r, 1.0)
+    before = windowed_cell_topk_exact.launches
+    rows, d2 = windowed_cell_topk(*arrays, 5)
+    torch.cuda.synchronize()
+    assert windowed_cell_topk_exact.launches == before + 1
+    prow, pd2 = windowed_cell_topk_plain(*arrays, 5)
+    assert torch.equal(rows, prow)
+    assert torch.equal(d2.view(torch.int32), pd2.view(torch.int32))
+    ties = (d2[..., 1:] == d2[..., :-1]) & (rows[..., 1:] >= 0)
+    assert int(ties.sum()) > 100 and int((rows >= 0).sum()) > 1000
+
+
+def test_groups_on_the_grid_on_card_match_cpu(dev):
+    """batch_colocation_groups(cell=...) with K1 on the card against the
+    plain version on the CPU: every field equal."""
+    pts, pmask = clouds(21, 6, 900)
+    trans = torch.eye(4).repeat(2, 3, 1, 1)
+    trans[:, 1, 0, 3], trans[:, 2, 1, 3] = 0.4, -0.3
+    out = []
+    for d in (dev, torch.device("cpu")):
+        vox = voxelize_per_cloud(torch.from_numpy(pts).to(d),
+                                 torch.from_numpy(pmask).to(d), VOXEL, 600)
+        vox_b = type(vox)(vox.coords.reshape(2, 3, 600, 4),
+                          vox.mask.reshape(2, 3, 600),
+                          vox.xyz.reshape(2, 3, 600, 3))
+        out.append(batch_colocation_groups(
+            vox_b, trans.to(d), torch.tensor([0.45, 0.7], device=d), k=5,
+            cell=1.2))
+    for name in ("member_idx", "member_mask", "finest_pos", "valid",
+                 "anchor_xyz", "anchor_item"):
+        assert torch.equal(getattr(out[0], name).cpu(), getattr(out[1], name))
+    assert int(out[1].valid.sum()) > 100
 
 
 def test_train_mode_gradients_on_card_match_cpu(dev):

@@ -1,8 +1,10 @@
 """The port's loss machinery against gcl_tpu: stratified sampling (exact,
-given the same uniforms), the negative hinge with pinned subsets, and the
-finest contrastive loss with its gradient for both block_finest_gradient
-values. The two packages cannot share a generator, so the tests draw
-gcl_tpu's uniforms from its keys and hand them to the port.
+given the same uniforms), the negative hinge with pinned subsets in its
+three filter forms, the reverse membership index and the pair list
+(exact), and the finest, location and circle losses with their gradients
+for both block_finest_gradient values. The two packages cannot share a
+generator, so the tests draw gcl_tpu's uniforms from its keys and hand
+them to the port.
 
 Tolerance: losses 1e-5 absolute, d loss / d f_out within 1e-5 of its max
 (float32 sums in another order).
@@ -99,10 +101,110 @@ def test_negative_loss_with_pinned_subsets(hard):
 
 
 def test_other_negative_filters_are_not_ported():
-    with pytest.raises(NotImplementedError, match="SpatialNegFilter"):
-        tgcl.negative_loss_from_sel(None, None, None, None, None,
-                                    torch.zeros(4, 2), None,
-                                    tgcl.GCLLossConfig())
+    """(Kept under its first name.) The membership-index and pair-list
+    forms of the filter are ported: with pinned subsets each gives
+    gcl_tpu's loss, and the three forms differ from one another."""
+    n, s, g_cap, kc = 600, 96, 150, 6
+    f = _features(0, n)
+    f[300:] = f[:300] + 0.02 * _features(7, 300)  # near twins: live hinge
+    gr = _groups(8, n, g_cap, kc)
+    # groups of twins, so that sampled hardest pairs are co-members
+    gr["member_idx"][:, 1] = np.where(gr["member_mask"][:, 1],
+                                      (gr["member_idx"][:, 0] + 300) % n, -1)
+    rng = np.random.RandomState(2)
+    sel1 = gr["member_idx"][gr["valid"], 0][:s].astype(np.int64)
+    sel2 = (sel1 + 300) % n
+    sel2[::3] = rng.permutation(n)[:len(sel2[::3])]
+    v1, v2 = rng.rand(len(sel1)) > 0.1, rng.rand(len(sel1)) > 0.1
+    jg = JGroups(**{k: jnp.asarray(v) for k, v in gr.items()})
+    tg = ColocationGroups(**{k: torch.from_numpy(v) for k, v in gr.items()})
+    xyz, sid, radius = _neg_filter(1, n, 2)
+    jpairs, jpm = jgcl.intra_group_pairs(jg, 4096)
+    forms = {
+        "spatial": ((jgcl.SpatialNegFilter(jnp.asarray(xyz), jnp.asarray(sid),
+                                           jnp.asarray(radius)), None),
+                    tgcl.SpatialNegFilter(torch.from_numpy(xyz),
+                                          torch.from_numpy(sid),
+                                          torch.from_numpy(radius))),
+        "membership": ((jgcl.member_group_index(jg, n, 8), None),
+                       tgcl.member_group_index(tg, n, 8)),
+        "pairs": ((jpairs, jpm),
+                  tgcl.PairListNegFilter(*tgcl.intra_group_pairs(tg, 4096)))}
+    got = {}
+    for name, ((jpp, jmask), tpp) in forms.items():
+        ref = jgcl.negative_loss_from_sel(
+            jnp.asarray(f), jnp.asarray(sel1), jnp.asarray(v1),
+            jnp.asarray(sel2), jnp.asarray(v2), jpp, jmask,
+            jax.random.PRNGKey(0), jgcl.GCLLossConfig())
+        got[name] = float(tgcl.negative_loss_from_sel(
+            torch.from_numpy(f), torch.from_numpy(sel1),
+            torch.from_numpy(v1), torch.from_numpy(sel2),
+            torch.from_numpy(v2), tpp, None, tgcl.GCLLossConfig()))
+        np.testing.assert_allclose(got[name], float(ref), rtol=0, atol=1e-5,
+                                   err_msg=name)
+    assert got["membership"] == pytest.approx(got["pairs"], abs=1e-6)
+    assert abs(got["spatial"] - got["membership"]) > 1e-3
+
+
+@pytest.mark.parametrize("r_cap", [2, 32])
+def test_member_group_index_exact(r_cap):
+    gr = _groups(5, 300, 120, 6)
+    ref = jgcl.member_group_index(
+        JGroups(**{k: jnp.asarray(v) for k, v in gr.items()}), 300, r_cap)
+    got = tgcl.member_group_index(
+        ColocationGroups(**{k: torch.from_numpy(v) for k, v in gr.items()}),
+        300, r_cap)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(to_np(got), np.asarray(ref))
+    assert (to_np(got)[:, -1] >= 0).any() == (r_cap == 2)  # 2 truncates
+
+
+@pytest.mark.parametrize("pair_cap", [4096, 300])
+def test_intra_group_pairs_exact(pair_cap):
+    """Padded (cap above the 120 * 15 candidate pairs) and compacted and
+    cut (cap below the valid ones); sort_pairs and pair_isin agree too."""
+    gr = _groups(6, 300, 120, 6)
+    jp, jm = jgcl.intra_group_pairs(
+        JGroups(**{k: jnp.asarray(v) for k, v in gr.items()}), pair_cap)
+    tp, tm = tgcl.intra_group_pairs(
+        ColocationGroups(**{k: torch.from_numpy(v) for k, v in gr.items()}),
+        pair_cap)
+    np.testing.assert_array_equal(to_np(tm), np.asarray(jm))
+    np.testing.assert_array_equal(to_np(tp)[to_np(tm)],
+                                  np.asarray(jp)[np.asarray(jm)])
+    assert tp.shape == (pair_cap, 2) and int(tm.sum()) > 250
+    ja, jb = jlc.sort_pairs(jp, jm)
+    ta, tb = tlc.sort_pairs(tp, tm)
+    np.testing.assert_array_equal(to_np(ta), np.asarray(ja))
+    np.testing.assert_array_equal(to_np(tb), np.asarray(jb))
+    rng = np.random.RandomState(0)
+    qa = np.concatenate([np.asarray(jp)[:40, 0], rng.randint(0, 300, 60)])
+    qb = np.concatenate([np.asarray(jp)[:40, 1], rng.randint(0, 300, 60)])
+    want = jlc.pair_isin(ja, jb, jnp.asarray(qa, jnp.int32),
+                         jnp.asarray(qb, jnp.int32))
+    got = tlc.pair_isin(ta, tb, torch.from_numpy(qa).int(),
+                        torch.from_numpy(qb).int())
+    np.testing.assert_array_equal(to_np(got), np.asarray(want))
+    assert 0 < int(got.sum()) < 100
+
+
+def test_square_distance_and_masked_logsumexp():
+    rng = np.random.RandomState(3)
+    a, b = _features(1, 40), _features(2, 50)
+    for normalised in (False, True):
+        np.testing.assert_allclose(
+            to_np(tlc.square_distance(torch.from_numpy(a), torch.from_numpy(b),
+                                      normalised)),
+            np.asarray(jlc.square_distance(jnp.asarray(a), jnp.asarray(b),
+                                           normalised)), rtol=1e-6, atol=1e-6)
+    x = rng.randn(30, 12).astype(np.float32) * 5
+    m = rng.rand(30, 12) > 0.5
+    m[0] = False
+    got = to_np(tlc.masked_logsumexp(torch.from_numpy(x),
+                                     torch.from_numpy(m)))
+    want = np.asarray(jlc.masked_logsumexp(jnp.asarray(x), jnp.asarray(m)))
+    assert got[0] == want[0] == -np.inf
+    np.testing.assert_allclose(got[1:], want[1:], rtol=1e-6, atol=1e-6)
 
 
 def _groups(seed, n, g_cap, kc):
@@ -119,10 +221,11 @@ def _groups(seed, n, g_cap, kc):
                      for m in member_mask])
     finest_pos = np.where(rng.rand(g_cap) > 0.5, first, pick).astype(
         np.int32)
+    # anchors: integer voxel coords a few voxels apart, two samples
     return dict(member_idx=member_idx, member_mask=member_mask,
                 finest_pos=finest_pos, valid=valid,
-                anchor_xyz=np.zeros((g_cap, 3), np.float32),
-                anchor_item=np.zeros(g_cap, np.int32))
+                anchor_xyz=rng.randint(-3, 4, (g_cap, 3)).astype(np.float32),
+                anchor_item=(np.arange(g_cap) % 2).astype(np.int32))
 
 
 @pytest.fixture(scope="module")
@@ -166,6 +269,82 @@ def test_finest_contrastive_loss_and_gradient(j_loss_and_grad, block, seed):
         assert want > 1e-3, name  # every term is live
         np.testing.assert_allclose(float(getattr(out, name).detach()), want, rtol=0,
                                    atol=1e-5, err_msg=name)
+    assert_close_to_max(to_np(ft.grad), rgrad, 1e-5)
+
+
+_J_LOSSES = {"location": jgcl.location_contrastive_loss,
+             "circle": jgcl.location_circle_loss}
+_T_LOSSES = {"location": tgcl.location_contrastive_loss,
+             "circle": tgcl.location_circle_loss}
+
+
+@pytest.fixture(scope="module")
+def j_kind_loss_and_grad():
+    cache = {}
+
+    def get(kind, block, form):
+        if (kind, block, form) not in cache:
+            cfg = jgcl.GCLLossConfig(block_finest_gradient=block)
+
+            def total(f, mask, groups, pp, ppm, key):
+                out = _J_LOSSES[kind](f, mask, groups, pp, ppm, key, 64, 96,
+                                      cfg)
+                return out.pos_loss + out.finest_loss + out.neg_loss, out
+            cache[kind, block, form] = jax.jit(
+                jax.value_and_grad(total, has_aux=True))
+        return cache[kind, block, form]
+    return get
+
+
+@pytest.mark.parametrize("kind,block,form", [
+    ("location", True, "spatial"), ("location", True, "membership"),
+    ("location", True, "pairs"), ("circle", True, "spatial"),
+    ("circle", False, "spatial"), ("circle", True, "membership"),
+    ("circle", True, "pairs")])
+def test_location_and_circle_losses_and_gradients(j_kind_loss_and_grad, kind,
+                                                  block, form):
+    """Pinned selections (gcl_tpu's uniforms replayed); gcl_tpu's
+    location_circle_loss is the reference as it stands. The circle loss
+    ignores the filter; it is handed over all the same."""
+    n, g_cap, kc = 800, 200, 6
+    # features near one direction, so that group centroids lie within
+    # neg_thresh of one another and the circle negative is live
+    f = _features(10, n) * 0.35 + np.float32(1.0) / 4
+    f /= np.linalg.norm(f, axis=1, keepdims=True)
+    mask = np.random.RandomState(1).rand(n) > 0.1
+    gr = _groups(21, n, g_cap, kc)
+    jg = JGroups(**{k: jnp.asarray(v) for k, v in gr.items()})
+    tg = ColocationGroups(**{k: torch.from_numpy(v) for k, v in gr.items()})
+    xyz, sid, radius = _neg_filter(31, n, 2)
+    if form == "spatial":
+        jpp, jpm = jgcl.SpatialNegFilter(jnp.asarray(xyz), jnp.asarray(sid),
+                                         jnp.asarray(radius)), None
+        tpp = tgcl.SpatialNegFilter(torch.from_numpy(xyz),
+                                    torch.from_numpy(sid),
+                                    torch.from_numpy(radius))
+    elif form == "membership":
+        jpp, jpm = jgcl.member_group_index(jg, n, 16), None
+        tpp = tgcl.member_group_index(tg, n, 16)
+    else:
+        jpp, jpm = jgcl.intra_group_pairs(jg, 4096)
+        tpp = tgcl.PairListNegFilter(*tgcl.intra_group_pairs(tg, 4096))
+    key = jax.random.PRNGKey(41)
+    (_, ref), rgrad = j_kind_loss_and_grad(kind, block, form)(
+        jnp.asarray(f), jnp.asarray(mask), jg, jpp, jpm, key)
+
+    ft = torch.from_numpy(f).requires_grad_()
+    out = _T_LOSSES[kind](
+        ft, torch.from_numpy(mask), tg, tpp, None, 64, 96,
+        tgcl.GCLLossConfig(block_finest_gradient=block),
+        replay_loss_draws(key, g_cap, n, 64, 96))
+    (out.pos_loss + out.finest_loss + out.neg_loss).backward()
+    for name in ("pos_loss", "finest_loss", "neg_loss"):
+        want = float(getattr(ref, name))
+        if not (kind == "location" and name == "finest_loss"):
+            assert want > 1e-3, name  # the term is live
+        np.testing.assert_allclose(float(getattr(out, name).detach()), want,
+                                   rtol=0, atol=1e-5, err_msg=name)
+    assert bool(torch.isfinite(ft.grad).all())
     assert_close_to_max(to_np(ft.grad), rgrad, 1e-5)
 
 

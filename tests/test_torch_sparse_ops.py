@@ -142,6 +142,65 @@ def test_occupancy_sbits_match_pallas_kernel():
     np.testing.assert_allclose(to_np(out), np.asarray(out_p), **TOL)
 
 
+@pytest.mark.parametrize("gate_open", [True, False])
+def test_c1z_jittered_matches_jax(gate_open):
+    """sparse_conv_c1z_jittered (jitter_mode 'c1z') against gcl_tpu's, which
+    rides its Pallas occupancy kernels (interpret mode): the gate uniform
+    and the normals gcl_tpu draws from its key are handed to the port.
+    Values and dW (which flows through the noise term too) within 1e-5 of
+    the max; centre-cloud rows only."""
+    from gcl_tpu.core.sparse_ops import sparse_conv_c1z_jittered as j_jit
+    from gcl_tpu.testing import kernel_interpret
+
+    pts, pmask = clouds(9, 2, 300)
+    vox = voxelize_per_cloud(torch.from_numpy(pts), torch.from_numpy(pmask),
+                             VOXEL, 256)
+    flat = vox.flatten()
+    specs = [ConvSpec("conv1", 1, 1, 5)]
+    key_name = "s1->s1/k5d1"
+    g = build_graph(flat.coords, flat.mask, specs, {}, 2)
+    lv, cmap = g.levels[1], g.maps[key_name]
+    rng = np.random.RandomState(3)
+    w = (rng.randn(125, 1, 32) * 0.1).astype(np.float32)
+    up = rng.randn(512, 32).astype(np.float32)
+    row_sel = to_np((lv.coords[:, 0] == 0).to(torch.float32))
+    sigma, p = 0.05, 0.95
+    # a key whose gate uniform falls on the wanted side of p
+    key = next(k for k in map(jax.random.PRNGKey, range(200))
+               if (float(jax.random.uniform(jax.random.split(k)[0])) < p)
+               == gate_open)
+    k_gate, k_eps = jax.random.split(key)
+    with kernel_interpret():
+        gj = jax_graph(to_np(flat.coords), to_np(flat.mask), specs, {}, 2)
+        fm = gj.fused[key_name]
+        ref, vjp = jax.vjp(lambda w: j_jit(w, fm, jnp.float32, key, sigma, p,
+                                           jnp.asarray(row_sel)),
+                           jnp.asarray(w))
+        (rdw,) = vjp(jnp.asarray(up))
+    wt = torch.from_numpy(w).requires_grad_()
+    out = sparse_ops.sparse_conv_c1z_jittered(
+        wt, cmap, lv, None, sigma, p, torch.from_numpy(row_sel),
+        gate_u=torch.tensor(float(jax.random.uniform(k_gate))),
+        normal=torch.from_numpy(np.array(
+            jax.random.normal(k_eps, (512, 125), jnp.float32))))
+    out.backward(torch.from_numpy(up))
+    scale = float(np.abs(np.asarray(ref)).max())
+    np.testing.assert_allclose(to_np(out), np.asarray(ref), rtol=0,
+                               atol=1e-5 * scale)
+    np.testing.assert_allclose(to_np(wt.grad), np.asarray(rdw), rtol=0,
+                               atol=1e-5 * float(np.abs(rdw).max()))
+    clean = sparse_ops.sparse_conv_c1z(torch.from_numpy(w), cmap.c1z, lv)
+    noise = (out.detach() - clean).abs().max(dim=1)[0]
+    assert float(noise[torch.from_numpy(row_sel) == 0].max()) == 0
+    assert (float(noise.max()) > 1e-3) == gate_open
+    # from a generator: same mean, other numbers
+    gen = torch.Generator().manual_seed(0)
+    drawn = sparse_ops.sparse_conv_c1z_jittered(
+        torch.from_numpy(w), cmap, lv, gen, sigma, 1.0,
+        torch.from_numpy(row_sel))
+    assert float((drawn - clean).abs().max()) > 1e-3
+
+
 def test_wrappers_refuse_other_devices():
     """A non-CPU tensor never takes the plain version: meta tensors (no
     CUDA here) are refused outright."""

@@ -1,6 +1,7 @@
 """Gradients of the port's three conv Functions (SparseConvImplicit,
-OccupancyConv, ScalarConv: plain K6 + K7, K2 + K3, K4 + K5 on the CPU)
-against gcl_tpu's sparse_conv and its reverse-map VJP.
+OccupancyConv, ScalarConv: plain K6 + K7, K2 + K3, K4 + K5 + K9 on the CPU)
+against gcl_tpu's sparse_conv and its reverse-map VJP, and ScalarConv's dX
+also against gcl_tpu's Cout == 1 Pallas kernel in interpret mode.
 
 Tolerance: values, dX and dW within 1e-5 of each tensor's max. Both sides
 sum the same float32 products, in another order (per-offset matmuls here,
@@ -136,15 +137,87 @@ def test_occupancy_and_scalar_conv_grads_match_jax(graphs, key, k):
     assert_close_to_max(to_np(wt.grad), rdw, REL)
 
 
-def test_scalar_conv_refuses_dx(graphs):
+def test_scalar_conv_refuses_dx(graphs, monkeypatch):
+    """(Kept under its first name.) ScalarConv no longer refuses dX: an x
+    that requires a gradient gets it from K9 (plain version here), against
+    gcl_tpu's reverse-map VJP; an x that does not never reaches K9."""
+    g, gj = graphs
+    key = "s1->s1/k3d1"
+    lv, cmap = g.levels[1], g.maps[key]
+    n = lv.coords.shape[0]
+    rng = np.random.RandomState(4)
+    x = rng.randn(n, 1).astype(np.float32) * to_np(lv.mask)[:, None]
+    w = (rng.randn(27, 1, 6) * 0.3).astype(np.float32)       # not symmetric
+    up = rng.randn(n, 6).astype(np.float32)
+    calls = []
+    real = sparse_ops.scalar_conv_dx
+    monkeypatch.setattr(sparse_ops, "scalar_conv_dx",
+                        lambda *a: calls.append(1) or real(*a))
+    for needs in (False, True):
+        xt = torch.from_numpy(x).requires_grad_(needs)
+        wt = torch.from_numpy(w).requires_grad_()
+        sparse_ops.ScalarConv.apply(xt, wt, cmap.c1z, lv.skeys, lv.srow,
+                                    None).backward(torch.from_numpy(up))
+        assert len(calls) == int(needs)
+    _, rdx, rdw = _j_conv_vjp(jnp.asarray(x), jnp.asarray(w), gj.kmaps[key],
+                              gj.kmaps[key], jnp.asarray(up))
+    assert_close_to_max(to_np(xt.grad), rdx, REL)
+    assert_close_to_max(to_np(wt.grad), rdw, REL)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_scalar_conv_dx_is_the_adjoint_of_the_forward(graphs, gated):
+    """<K4(x), g> == <x, K9(g)> for random x, g and weights, with and
+    without a row flag that is NOT constant over a cloud (K9 leaves out the
+    rows of g that K4 skipped); 1e-5 of the inner product's scale."""
     g, _ = graphs
-    lv = g.levels[1]
-    x = torch.randn(lv.coords.shape[0], 1, requires_grad=True)
-    w = torch.randn(27, 1, 4, requires_grad=True)
-    out = sparse_ops.ScalarConv.apply(x, w, g.maps["s1->s1/k3d1"].c1z,
-                                      lv.skeys, lv.srow, None)
-    with pytest.raises(NotImplementedError, match="Cout == 1"):
-        out.sum().backward()
+    lv, cmap = g.levels[1], g.maps["s1->s1/k5d1"]
+    n = lv.coords.shape[0]
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randn(n, 1, generator=gen) * lv.mask[:, None]
+    up = torch.randn(n, 32, generator=gen)
+    w = torch.randn(125, 1, 32, generator=gen)
+    sel = (torch.rand(n, generator=gen) > 0.4).float() if gated else None
+    geo = (cmap.c1z, lv.skeys, lv.srow, sel)
+    out = kernels.scalar_conv_fwd(x, w, *geo)
+    dx = kernels.scalar_conv_dx(up, w, *geo)
+    assert dx.shape == (n, 1)
+    lhs, rhs = float((out * up).sum()), float((x * dx).sum())
+    scale = float((out.abs() * up.abs()).sum())
+    assert abs(lhs - rhs) <= 1e-5 * scale and abs(lhs) > 1e-3 * scale
+    if gated:
+        assert not torch.equal(dx, kernels.scalar_conv_dx(up, w, *geo[:3]))
+
+
+def test_scalar_conv_dx_matches_pallas_co1_kernel():
+    """The port's plain K9 against gcl_tpu's own route to it: jax.grad of
+    sparse_conv_fused with Cin == 1 w.r.t. the features, whose backward
+    runs the Cout == 1 Pallas kernel (_conv_co1_fwd) through the reverse
+    queries, in interpret mode; 1e-5 of the max."""
+    from gcl_tpu.core.sparse_ops import sparse_conv_fused
+    from gcl_tpu.testing import kernel_interpret
+
+    pts, pmask = clouds(8, 2, 300)
+    vox = voxelize_per_cloud(torch.from_numpy(pts), torch.from_numpy(pmask),
+                             VOXEL, 256)
+    flat = vox.flatten()
+    specs = [ConvSpec("c", 1, 1, 5)]
+    key = "s1->s1/k5d1"
+    g = build_graph(flat.coords, flat.mask, specs, {}, 2)
+    lv, cmap = g.levels[1], g.maps[key]
+    rng = np.random.RandomState(6)
+    x = rng.randn(512, 1).astype(np.float32) * to_np(lv.mask)[:, None]
+    w = (rng.randn(125, 1, 32) * 0.1).astype(np.float32)
+    up = rng.randn(512, 32).astype(np.float32)
+    with kernel_interpret():
+        gj = jax_graph(to_np(flat.coords), to_np(flat.mask), specs, {}, 2)
+        fm = gj.fused[key]
+        rdx = jax.grad(lambda x: jnp.sum(
+            sparse_conv_fused(x, jnp.asarray(w), fm, fm) * jnp.asarray(up)))(
+                jnp.asarray(x))
+    dx = kernels.scalar_conv_dx(torch.from_numpy(up), torch.from_numpy(w),
+                                cmap.c1z, lv.skeys, lv.srow)
+    assert_close_to_max(to_np(dx), rdx, REL)
 
 
 def test_exact_jitter_matches_jax_and_row_flag_is_exact(graphs):
@@ -200,7 +273,8 @@ def test_float32_only():
 def plain_wrappers(monkeypatch):
     """Route the Functions to the plain versions (which take float64)."""
     for fn, plain in kernels.KERNELS.values():
-        monkeypatch.setattr(sparse_ops, fn.__name__, plain)
+        if hasattr(sparse_ops, fn.__name__):   # the conv kernels
+            monkeypatch.setattr(sparse_ops, fn.__name__, plain)
 
 
 def test_gradcheck_float64(plain_wrappers):
@@ -223,13 +297,14 @@ def test_gradcheck_float64(plain_wrappers):
     lv, cmap = g.levels[1], g.maps["s1->s1/k3d1"]
     w = rand(27, 1, 3).requires_grad_()
     assert torch.autograd.gradcheck(
-        lambda w: sparse_ops.OccupancyConv.apply(w, cmap.c1z, lv.skeys), (w,))
-    x = rand(lv.coords.shape[0], 1)
+        lambda w: sparse_ops.OccupancyConv.apply(w, cmap.c1z, lv.skeys)[0],
+        (w,))
+    x = rand(lv.coords.shape[0], 1).requires_grad_()
     sel = (lv.coords[:, 0] == 1).to(torch.float64)
     for row_sel in (None, sel):
         assert torch.autograd.gradcheck(
-            lambda w: sparse_ops.ScalarConv.apply(
-                x, w, cmap.c1z, lv.skeys, lv.srow, row_sel), (w,))
+            lambda x, w: sparse_ops.ScalarConv.apply(
+                x, w, cmap.c1z, lv.skeys, lv.srow, row_sel), (x, w))
 
 
 def test_plain_backward_matches_pallas_kernels():

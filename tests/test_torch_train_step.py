@@ -1,10 +1,15 @@
 """The port's train step against gcl_tpu: model gradients in train mode,
 two whole GCL steps without jitter (loss terms, gradients, parameters,
-momentum buffers, BN running stats after each), and one step's gradients
-with the exact input jitter on a pinned eps.
+momentum buffers, BN running stats after each), one step's gradients
+with the exact input jitter on a pinned eps, one step with the hash-grid
+group search (search_cell set), gradient accumulation over two
+micro-batches (AccumStepper, with the location loss and the membership
+filter) and the distance-error validation step.
 
 JAX runs on the CPU in float32 through its XLA route (sort-join maps, the
-scan sparse_conv with its reverse-map VJP, the brute-force radius_knn).
+scan sparse_conv with its reverse-map VJP, the brute-force radius_knn);
+where search_cell is set its group search runs the Pallas windowed top-k
+kernel in interpret mode (data.device_pipeline.FORCE_INTERPRET).
 The two packages cannot share a generator: the tests replay gcl_tpu's key
 splits (train/steps.py, losses/gcl.py) and hand the port the same
 uniforms.
@@ -106,10 +111,17 @@ def _caps():
     return default_level_caps(N, strides_of(fatbn_specs()), 0.7)
 
 
-def _step_cfg(mod):
-    return mod.StepConfig(voxel_size=VOXEL, nv_cap=NV, level_caps=_caps(),
-                          knn_chunk=128, search_cell=None, momentum=MOM,
-                          weight_decay=WD)
+def _step_cfg(mod, **kw):
+    return mod.StepConfig(**{**dict(
+        voxel_size=VOXEL, nv_cap=NV, level_caps=_caps(), knn_chunk=128,
+        search_cell=None, momentum=MOM, weight_decay=WD), **kw})
+
+
+@pytest.fixture
+def grid_interpret(monkeypatch):
+    """gcl_tpu's group search with a cell takes its Pallas kernel in
+    interpret mode (off a TPU it would fall to grid_radius_knn)."""
+    monkeypatch.setattr(jdp, "FORCE_INTERPRET", True)
 
 
 def _compare_trees(got: dict, want_tree, rel=REL, what=""):
@@ -316,7 +328,8 @@ def test_float32_gradients_match_float64(weights, monkeypatch):
     g32 = {k: v.clone() for k, v in gradients_by_name(model).items()}
 
     for fn, plain in kernels.KERNELS.values():
-        monkeypatch.setattr(sparse_ops, fn.__name__, plain)
+        if hasattr(sparse_ops, fn.__name__):   # the conv kernels
+            monkeypatch.setattr(sparse_ops, fn.__name__, plain)
     monkeypatch.setattr(sparse_ops, "_require_f32", lambda *a: None)
     m64 = _port_model(after_one).double()
     forward = m64.forward
@@ -382,23 +395,211 @@ def test_train_step_with_exact_jitter_matches_jax(weights, oracle):
     assert float((g0 - g1).abs().max()) > 1e-2 * float(g0.abs().max())
 
 
+LOSS_ARGS = dict(max_pos_cluster=MAX_POS, max_hn_samples=MAX_HN,
+                 pos_weight=1.0, finest_weight=1.0, neg_weight=1.0)
+
+
+def _tree_np(t):
+    return flatten_tree(jax.tree_util.tree_map(np.asarray, t))
+
+
+def _loss_draws(k, kind="finest"):
+    """The loss's uniforms as gcl_tpu's grad_fn draws them from its key k
+    (k_loss, _ = split(k))."""
+    k_loss, _ = jax.random.split(k)
+    d = replay_loss_draws(k_loss, B * NV, N, MAX_POS, MAX_HN)
+    return tsteps.StepDraws(loss=d)
+
+
+def test_train_step_on_the_grid_matches_jax(weights, grid_interpret):
+    """search_cell = 1.2 (radii 0.45 and 0.6 = cell / 2): the groups come
+    out in home-cell order in both packages, so the pinned group picks
+    select the same groups. Loss terms, gradients (from the momentum
+    trace), momentum, parameters and BN stats after one step."""
+    state, (params, stats) = weights
+    batch = _batch(41)
+    cfg_kw = dict(search_cell=1.2)
+    tx, jstep = jsteps.make_gcl_train_step(
+        _jax_model(), jax_specs(fatbn_specs()), _step_cfg(jsteps, **cfg_kw),
+        jgcl.GCLLossConfig(block_finest_gradient=False), "finest",
+        jitter=False, **LOSS_ARGS)
+    jstate = jsteps.TrainState(params, stats, tx.init(params),
+                               jax.random.PRNGKey(9),
+                               jnp.zeros((), jnp.int32))
+    model = _port_model(state)
+    opt, step = tsteps.make_gcl_train_step(
+        model, fatbn_specs(), _step_cfg(tsteps, **cfg_kw),
+        GCLLossConfig(block_finest_gradient=False), "finest", jitter=False,
+        **LOSS_ARGS)
+    _, k = jax.random.split(jstate.rng)
+    prev_p = _tree_np(jstate.params)
+    jstate, jm = jstep(jstate, LRS[0], *(jnp.asarray(a) for a in batch))
+    tm = step(LRS[0], *(torch.from_numpy(a) for a in batch),
+              draws=_loss_draws(k))
+    for name in ("loss", "pos_loss", "finest_loss", "neg_loss"):
+        assert float(jm[name]) > 1e-3, name
+        np.testing.assert_allclose(float(tm[name]), float(jm[name]), rtol=0,
+                                   atol=1e-5, err_msg=name)
+    for name in ("num_groups", "num_valid_voxels"):
+        assert float(tm[name]) == float(jm[name]) > 0
+    trace = _tree_np(jstate.opt_state[1].trace)
+    got = gradients_by_name(model)
+    for name, want in trace.items():   # trace_1 = g_1 + wd * p_0
+        assert_close_to_max(to_np(got[name]), want - WD * prev_p[name], REL,
+                            f"grad {name}")
+    _compare_trees(momentum_by_name(model, opt), jstate.opt_state[1].trace,
+                   what="momentum")
+    _compare_trees(dict(model.named_parameters()), jstate.params, rel=1e-4,
+                   what="param")
+    _compare_stats(model, jstate.batch_stats)
+    # the brute-force step finds the same number of groups in other slots
+    model2 = _port_model(state)
+    _, step2 = tsteps.make_gcl_train_step(
+        model2, fatbn_specs(), _step_cfg(tsteps),
+        GCLLossConfig(block_finest_gradient=False), "finest", jitter=False,
+        **LOSS_ARGS)
+    tm2 = step2(LRS[0], *(torch.from_numpy(a) for a in batch),
+                draws=_loss_draws(k))
+    assert float(tm2["num_groups"]) == float(tm["num_groups"])
+    assert abs(float(tm2["loss"]) - float(tm["loss"])) > 1e-4
+
+
+def test_accum_stepper_matches_jax(weights, grid_interpret):
+    """iter_size = 2 with the location loss, the membership filter and the
+    grid search: BN stats move after each micro-batch and the parameters do
+    not; after the second, ONE SGD step on the mean gradient. The
+    accumulator is a gradient tree: it is compared through the bridge's
+    gradient-tree layout (flatten_tree) with gcl_tpu's."""
+    state, (params, stats) = weights
+    cfg_kw = dict(search_cell=1.2, neg_filter="membership", member_r_cap=8)
+    loss_cfg = dict(block_finest_gradient=True)
+    args = (MAX_POS, MAX_HN, 1.0, 1.0, 1.0)
+    jcfg = _step_cfg(jsteps, **cfg_kw)
+    jgrad = jsteps.make_gcl_grad_fn(
+        _jax_model(), jax_specs(fatbn_specs()), jcfg,
+        jgcl.GCLLossConfig(**loss_cfg), "location", *args, jitter=False)
+    tx = jsteps.make_optimizer(jcfg)
+    jstepper = jsteps.AccumStepper(tx, jgrad, 2)
+    jstate = jsteps.TrainState(params, stats, tx.init(params),
+                               jax.random.PRNGKey(11),
+                               jnp.zeros((), jnp.int32))
+
+    model = _port_model(state)
+    tcfg = _step_cfg(tsteps, **cfg_kw)
+    tgrad = tsteps.make_gcl_grad_fn(
+        model, fatbn_specs(), tcfg, GCLLossConfig(**loss_cfg), "location",
+        *args, jitter=False)
+    opt = tsteps.make_optimizer(model.parameters(), tcfg)
+    stepper = tsteps.AccumStepper(opt, tgrad, 2)
+    names = [n for n, _ in model.named_parameters()]
+
+    p0 = {k: v.clone() for k, v in model.named_parameters()}
+    for i, seed in enumerate((41, 31)):
+        batch = _batch(seed)
+        _, k = jax.random.split(jstate.rng)
+        jstate, jm = jstepper(jstate, LRS[0],
+                              *(jnp.asarray(a) for a in batch))
+        tm = stepper(LRS[0], *(torch.from_numpy(a) for a in batch),
+                     draws=_loss_draws(k))
+        assert float(tm["finest_loss"]) == float(jm["finest_loss"]) == 0
+        for name in ("loss", "pos_loss", "neg_loss"):
+            assert float(jm[name]) > 1e-3, name
+            np.testing.assert_allclose(float(tm[name]), float(jm[name]),
+                                       rtol=0, atol=1e-5,
+                                       err_msg=f"micro {i} {name}")
+        _compare_stats(model, jstate.batch_stats)
+        assert stepper.boundary == jstepper.boundary == (i == 1)
+        if i == 0:
+            assert all(torch.equal(p, p0[n])
+                       for n, p in model.named_parameters())
+            _compare_trees(dict(zip(names, stepper.accumulated)),
+                           jstepper._acc, what="accumulator")
+    assert int(jstate.step) == 1
+    _compare_trees(momentum_by_name(model, opt), jstate.opt_state[1].trace,
+                   what="momentum")
+    _compare_trees(dict(model.named_parameters()), jstate.params, rel=1e-4,
+                   what="param")
+    assert not torch.equal(model.conv1.kernel, p0["conv1.kernel"])
+
+
+def test_dist_err_step_matches_jax(weights, grid_interpret):
+    """make_dist_err_step (eval mode, the same group search): the mask
+    equal, the distance offsets within 1e-5 m and the feature errors of
+    unit-norm features within 2e-4 where the mask holds."""
+    state, (params, stats) = weights
+    batch = _batch(54)
+    jdiag = jsteps.make_dist_err_step(
+        _jax_model(), jax_specs(fatbn_specs()),
+        _step_cfg(jsteps, search_cell=1.2))
+    jd, jf, jmask = (np.asarray(a) for a in jdiag(
+        params, stats, *(jnp.asarray(a) for a in batch)))
+    model = _port_model(state).train()
+    diag = tsteps.make_dist_err_step(model, fatbn_specs(),
+                                     _step_cfg(tsteps, search_cell=1.2))
+    d, f, mask = (to_np(a) for a in diag(
+        *(torch.from_numpy(a) for a in batch)))
+    assert not model.training
+    np.testing.assert_array_equal(mask, jmask)
+    assert d.shape == jd.shape == (B * NV * C * 5,) and mask.sum() > 500
+    np.testing.assert_allclose(d[mask], jd[mask], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(f[mask], jf[mask], rtol=0, atol=2e-4)
+    assert np.abs(jd[mask]).max() > 0.5 and jf[mask].max() > 0.05
+
+
+def test_c1z_jitter_step_runs(weights):
+    """jitter_mode 'c1z' through the whole step, from a generator: finite
+    loss, gradients on every parameter, and conv1's gradient differs from
+    the jitter-free step's (its parity with gcl_tpu is held in
+    test_torch_sparse_ops.py on pinned draws)."""
+    state, _ = weights
+    tbatch = tuple(torch.from_numpy(a) for a in _batch(54))
+    gen = torch.Generator().manual_seed(0)
+    draws = tsteps.StepDraws(
+        sample_gate_u=torch.tensor([0.5, 0.99]),
+        loss=tsteps.LossDraws(*(torch.rand(n, generator=gen)
+                                for n in (MAX_POS, MAX_HN, MAX_HN))))
+    grads = []
+    for jitter in (True, False):
+        model = _port_model(state)
+        out = tsteps.make_gcl_grad_fn(
+            model, fatbn_specs(),
+            _step_cfg(tsteps, jitter_mode="c1z", jitter_sigma=0.05),
+            GCLLossConfig(), "circle", MAX_POS, MAX_HN, 1.0, 1.0, 1.0,
+            jitter=jitter)(*tbatch, generator=gen, draws=draws)
+        assert all(bool(torch.isfinite(v)) for v in out.values())
+        assert float(out["neg_loss"]) > 0 and float(out["finest_loss"]) > 0
+        got = gradients_by_name(model)
+        assert len(got) == 66 and all(
+            bool(torch.isfinite(g).all()) for g in got.values())
+        grads.append(got["conv1.kernel"])
+    assert float((grads[0] - grads[1]).abs().max()) > 1e-3 * float(
+        grads[1].abs().max())
+
+
 def test_unported_options_raise():
+    """(Kept under its first name.) What still is not ported raises, and an
+    option's unknown value is a ValueError; the options ported since
+    (jitter_mode 'c1z', neg_filter 'membership', the location and circle
+    losses, search_cell) build."""
     cfg = _step_cfg(tsteps)
     import dataclasses
     args = (GCLLossConfig(), "finest", 8, 8, 1.0, 1.0, 1.0)
     model = torch.nn.Linear(1, 1)
-    for bad, match in ((dict(compute_dtype=torch.bfloat16), "float32"),
-                       (dict(jitter_mode="c1z"), "jitter_mode"),
-                       (dict(neg_filter="membership"), "neg_filter")):
-        with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match="float32"):
+        tsteps.make_gcl_grad_fn(
+            model, fatbn_specs(),
+            dataclasses.replace(cfg, compute_dtype=torch.bfloat16), *args)
+    for bad, match in ((dict(jitter_mode="output"), "jitter_mode"),
+                       (dict(neg_filter="hash"), "neg_filter")):
+        with pytest.raises(ValueError, match=match):
             tsteps.make_gcl_grad_fn(model, fatbn_specs(),
                                     dataclasses.replace(cfg, **bad), *args)
-    with pytest.raises(NotImplementedError, match="finest"):
+    with pytest.raises(ValueError, match="triplet"):
         tsteps.make_gcl_grad_fn(model, fatbn_specs(), cfg, GCLLossConfig(),
-                                "circle", 8, 8, 1.0, 1.0, 1.0)
-    batch = _batch(61)
-    grad_fn = tsteps.make_gcl_grad_fn(
-        _port_model_shapes(), fatbn_specs(),
-        dataclasses.replace(cfg, search_cell=1.2), *args)
-    with pytest.raises(NotImplementedError, match="K1"):
-        grad_fn(*(torch.from_numpy(a) for a in batch))
+                                "triplet", 8, 8, 1.0, 1.0, 1.0)
+    for ok in (dict(jitter_mode="c1z"), dict(neg_filter="membership"),
+               dict(search_cell=1.2, member_r_cap=4)):
+        for kind in ("finest", "location", "circle"):
+            assert callable(tsteps.make_gcl_grad_fn(
+                model, fatbn_specs(), dataclasses.replace(cfg, **ok),
+                GCLLossConfig(), kind, 8, 8, 1.0, 1.0, 1.0))
