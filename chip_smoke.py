@@ -1,4 +1,5 @@
-"""Smoke run of gcl_tpu_torch's serving path and train step on one CUDA card.
+"""Smoke run of gcl_tpu_torch's serving path and train steps (the implicit
+and the explicit conv-map route) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -27,7 +28,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
    weights, K3, K4 (a dense random x, and the gated eps case bit for bit
    against the ungated kernel), K5, and K6 / K2 again at these shapes. It
    times each with CUDA events and works out each kernel's bound from the
-   bytes it must move and the FMAs of its matched (offset, row) pairs;
+   bytes it must move and the FMAs of its matched (offset, row) pairs.
+   Per conv it also sets the one-pass backward (K7) beside the two-pass
+   one (K6 through the reverse map for dX + K8 over the forward map for
+   dW): dX and dW of both within 1e-4 of each other's max, the times of
+   both and their sums per step; and it holds the explicit tables of this
+   batch (K10) equal to the rows the implicit maps' keys resolve to;
+   then the group kernels K1 and K11 (see group_kernel_checks);
 6. train step: make_gcl_train_step at gcl_tpu_torch.bench's settings,
    float32: one step on the kernel path and one on the plain path from
    the same weights and the same draws (loss within 1e-4, every gradient
@@ -38,8 +45,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
    K7 20 launches per step, then 3 timed steps (finite losses, groups found,
    a parameter of every module changed), one timed plain-path step and
    the peak device memory;
-7. prints {"kernels": [...]} (six kernels), the card line and, last, the
-   {"ok": true, "device": {...}} line.
+7. explicit-route kernels at the batch above 31 clouds (8 x 7 clouds,
+   1,032,192 stride-1 rows, unblocked levels): K10 for each of the 11
+   distinct geometries of ResUNetFatBN (conv1 k = 5, the k = 3 same-level,
+   strided and transposed maps with their twins), tables equal to the
+   plain version's; the index-table forward K12 for conv1 and the 20 k = 3
+   convs at their real Cin / Cout, K12 through the reverse table (the dX
+   of the two-pass backward) against the scatter-add backward, and K8 over
+   the tables, each within 1e-4 of the plain tensor's max; times and
+   bounds as above;
+8. explicit-route train step at 8 x 7: as phase 6 with exactly K1 1, K10
+   11, K12 41 (21 forward + 20 dX), K8 21 launches per step and none of
+   K2-K7; then the 4 x 7 step on the explicit route, one timed step, so
+   that the two routes stand side by side on one batch;
+9. prints {"kernels": [...]} (twelve kernels), the card line and, last,
+   the {"ok": true, "device": {...}} line.
 """
 import contextlib
 import json
@@ -54,6 +74,7 @@ N_KEY = 5000
 SEED = 0
 REPS = 5
 BATCH = 4          # the train step's batch: 4 samples x 7 clouds
+BATCH_EXPLICIT = 8  # 56 clouds: above the 31 the implicit maps address
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_FLOP_PER_S = 67e12     # float32 outside the tensor cores, published
 REL_TOL = 1e-4     # kernel vs plain, relative to the plain tensor's max
@@ -85,13 +106,14 @@ def _ms(fn, reps: int) -> float:
 def _routed(route):
     """Put route(K, wrapper, plain) in each kernel wrapper's place where
     its callers look it up: core.sparse_ops for the convs of the model,
+    core.kernel_maps for the join of the explicit tables,
     kernels.radius_topk for the group search of data.device_pipeline."""
-    from gcl_tpu_torch.core import sparse_ops
+    from gcl_tpu_torch.core import kernel_maps, sparse_ops
     from gcl_tpu_torch.kernels import KERNELS, radius_topk
 
     saved = []
     for k, (fn, plain) in KERNELS.items():
-        for mod in (sparse_ops, radius_topk):
+        for mod in (sparse_ops, kernel_maps, radius_topk):
             if hasattr(mod, fn.__name__):
                 saved.append((mod, fn.__name__, fn))
                 setattr(mod, fn.__name__, route(k, fn, plain))
@@ -124,6 +146,7 @@ def checked_path(errs: dict):
                     _require(b is None, f"{k}: both leave dX out")
                 elif a.dtype == torch.int32:
                     _require(torch.equal(a, b), f"{k}: equal integers")
+                    errs.setdefault(k, 0.0)
                 elif k in ("K1", "K11"):
                     _require(_bit_equal(a, b), f"{k}: d2 bit for bit")
                     errs.setdefault(k, 0.0)
@@ -173,6 +196,79 @@ def _rte_rre(t_est, t_gt):
             float(np.degrees(np.arccos(cos))))
 
 
+def _records(*names) -> dict:
+    return {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bytes=0, flops=0)
+            for k in names}
+
+
+def _runner(rec: dict):
+    """run(name, args, ...): kernel ``name`` and its plain version on the
+    same inputs; checks the outputs (floats within REL_TOL of the plain
+    tensor's max, integers equal), times both with CUDA events and adds
+    ``mult`` launches' worth of time, bytes and operations to rec[name].
+    Returns (the kernel's output, worst relative error, ms, plain ms)."""
+    import torch
+
+    from gcl_tpu_torch.kernels import KERNELS
+
+    def run(name, args, mult=1, n_bytes=0, flops=0, outs=lambda o: o,
+            kw=None):
+        fn, plain = KERNELS[name]
+        kw = kw or {}
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        ref = plain(*args, **kw)
+        torch.cuda.synchronize()
+        errs = []
+        for i, (a, b) in enumerate(zip(outs(got), outs(ref))):
+            if a.dtype == torch.int32:
+                _require(torch.equal(a, b), f"{name} output {i}: equal "
+                                            f"integers")
+                errs.append((0.0, 0.0))
+            else:
+                errs.append((_rel_err(a, b, f"{name} output {i}"),
+                             float((a - b).abs().max())))
+        del ref
+        ms = _ms(lambda: fn(*args, **kw), 3)
+        pms = _ms(lambda: plain(*args, **kw), 3)
+        r = rec[name]
+        r["max_abs_err"] = max([r["max_abs_err"]] + [e[1] for e in errs])
+        r["ms"] += mult * ms
+        r["plain_ms"] += mult * pms
+        r["bytes"] += mult * n_bytes
+        r["flops"] += mult * flops
+        return got, max(e[0] for e in errs), ms, pms
+
+    return run
+
+
+def _k3_convs() -> dict:
+    """{(map key, in stride, out stride, Cin, Cout): count} over the 20
+    k = 3 convs of the train step's ResUNetFatBN."""
+    from gcl_tpu_torch import bench
+    from gcl_tpu_torch.models.common import SparseConv
+
+    convs = {}
+    for m in bench.bench_model(SEED, "cpu").modules():
+        if isinstance(m, SparseConv) and m.spec.kernel_size == 3:
+            sig = (m.spec.key, m.spec.in_stride, m.spec.out_stride, m.in_ch,
+                   m.out_ch)
+            convs[sig] = convs.get(sig, 0) + 1
+    _require(sum(convs.values()) == 20, f"20 k=3 convs, got {convs}")
+    return convs
+
+
+def _bounds(rec: dict, what: str) -> None:
+    """Give every record its bound and print it."""
+    for name, r in rec.items():
+        r["bound_ms"], r["bound_by"] = _bound(r["bytes"], r["flops"])
+        print(f"{name} per {what}: kernel {r['ms']:.3f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms by "
+              f"{r['bound_by']} ({r['bytes'] / 1e6:.1f} MB, "
+              f"{r['flops'] / 1e9:.2f} GFLOP), max_abs_err "
+              f"{r['max_abs_err']:.3g}")
+
+
 def train_kernel_checks(dev) -> dict:
     """Phase 5: every kernel of the train step against its plain version
     at the step's shapes. Returns {K: {max_abs_err, ms, plain_ms, bytes,
@@ -184,7 +280,6 @@ def train_kernel_checks(dev) -> dict:
     from gcl_tpu_torch.core.kernel_maps import build_graph
     from gcl_tpu_torch.data.device_pipeline import voxelize_per_cloud
     from gcl_tpu_torch.kernels import KERNELS, c1z_unpack_bits
-    from gcl_tpu_torch.models.common import SparseConv
 
     points, pmask, _, _ = bench.bench_batch(SEED, BATCH, N_POINTS, dev)
     n_clouds = BATCH * bench.N_CLOUDS
@@ -200,38 +295,10 @@ def train_kernel_checks(dev) -> dict:
         f"s{s} {lv.coords.shape[0]} rows / {lv.skeys.shape[0]} valid"
         for s, lv in sorted(graph.levels.items())))
 
-    rec = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bytes=0, flops=0)
-           for k in KERNELS if k not in ("K1", "K11")}
-
-    def run(name, args, mult=1, n_bytes=0, flops=0, outs=lambda o: o,
-            kw=None):
-        """Kernel and plain version on the same inputs: errors, times."""
-        fn, plain = KERNELS[name]
-        kw = kw or {}
-        got = fn(*args, **kw)
-        torch.cuda.synchronize()
-        ref = plain(*args, **kw)
-        torch.cuda.synchronize()
-        errs = [(_rel_err(a, b, f"{name} output {i}"),
-                 float((a - b).abs().max()))
-                for i, (a, b) in enumerate(zip(outs(got), outs(ref)))]
-        ms = _ms(lambda: fn(*args, **kw), 3)
-        pms = _ms(lambda: plain(*args, **kw), 3)
-        r = rec[name]
-        r["max_abs_err"] = max([r["max_abs_err"]] + [e[1] for e in errs])
-        r["ms"] += mult * ms
-        r["plain_ms"] += mult * pms
-        r["bytes"] += mult * n_bytes
-        r["flops"] += mult * flops
-        return got, max(e[0] for e in errs), ms, pms
-
-    convs = {}
-    for m in bench.bench_model(SEED, "cpu").modules():
-        if isinstance(m, SparseConv) and m.spec.kernel_size == 3:
-            sig = (m.spec.key, m.spec.in_stride, m.spec.out_stride, m.in_ch,
-                   m.out_ch)
-            convs[sig] = convs.get(sig, 0) + 1
-    _require(sum(convs.values()) == 20, f"20 k=3 convs, got {convs}")
+    rec = _records("K2", "K3", "K4", "K5", "K6", "K7", "K9")
+    run = _runner(rec)
+    convs = _k3_convs()
+    two_pass = dict(k7_ms=0.0, k6_rev_ms=0.0, k8_ms=0.0, convs=[])
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     for (key, s_in, s_out, cin, cout), mult in sorted(convs.items()):
         lv_in, lv_out = graph.levels[s_in], graph.levels[s_out]
@@ -255,16 +322,48 @@ def train_kernel_checks(dev) -> dict:
         (dx, dw), e7, ms7, p7 = run(
             "K7", bwd_args, mult, flops=4 * matched * cin * cout,
             n_bytes=_nbytes(*bwd_args) + _nbytes(x, w))
-        two_pass = KERNELS["K6"][0](
-            g, w.flip(0).transpose(1, 2).contiguous(), cmap.rqkey,
-            lv_out.skeys, lv_out.srow)
-        e2 = _rel_err(dx, two_pass, f"K7 {key} dX against K6 through the "
-                                    f"reverse map")
+        # the two-pass backward beside it: dX = K6 through the reverse map
+        # with flipped, transposed weights, dW = K8 over the forward map
+        k6, k8 = KERNELS["K6"][0], KERNELS["K8"][0]
+        wt = w.flip(0).transpose(1, 2).contiguous()
+        rev_args = (g, wt, cmap.rqkey, lv_out.skeys, lv_out.srow)
+        dw_args = (x, g, cmap.qkey, lv_in.skeys, lv_in.srow)
+        dx2, dw2 = k6(*rev_args), k8(*dw_args)
+        e2 = max(_rel_err(dx, dx2, f"K7 {key} dX against K6 through the "
+                                   f"reverse map"),
+                 _rel_err(dx2, dx, f"{key} two-pass dX against K7"))
+        e8 = max(_rel_err(dw2, KERNELS["K8"][1](*dw_args),
+                          f"K8 {key} over the implicit map against plain"),
+                 _rel_err(dw2, dw, f"{key} two-pass dW against K7"),
+                 _rel_err(dw, dw2, f"K7 {key} dW against K8"))
+        ms6r, ms8 = _ms(lambda: k6(*rev_args), 3), _ms(lambda: k8(*dw_args), 3)
+        two_pass["k7_ms"] += mult * ms7
+        two_pass["k6_rev_ms"] += mult * ms6r
+        two_pass["k8_ms"] += mult * ms8
+        two_pass["convs"].append(dict(
+            conv=f"{key} {cin}->{cout}", count=mult, k7_ms=ms7,
+            k6_rev_ms=ms6r, k8_ms=ms8, k7_plain_ms=p7))
         print(f"{key} {cin}->{cout} x{mult} ({matched} pairs): "
               f"K6 rel_err {e6:.3g} {ms6:.3f} ms (plain {p6:.3f}); "
-              f"K7 rel_err {e7:.3g} {ms7:.3f} ms (plain {p7:.3f}), "
-              f"dX vs two-pass {e2:.3g}")
-        del x, g, w, out, dx, dw, two_pass
+              f"K7 rel_err {e7:.3g} {ms7:.3f} ms (plain {p7:.3f}); two-pass "
+              f"{ms6r + ms8:.3f} ms (K6 reverse {ms6r:.3f} + K8 {ms8:.3f}), "
+              f"dX rel_err {e2:.3g}, dW rel_err {e8:.3g}")
+        del x, g, w, wt, out, dx, dw, dx2, dw2
+
+    # the explicit tables of this batch (blocked levels): K10's equal the
+    # rows that the implicit maps' keys resolve to
+    ge = build_graph(flat.coords, flat.mask, specs, cfg.level_caps, n_clouds,
+                     method="explicit")
+    _require(sorted(ge.kmaps) == sorted(graph.maps) and len(ge.kmaps) == 11,
+             f"11 tables for the 11 implicit maps, got {sorted(ge.kmaps)}")
+    for key, kmap in ge.kmaps.items():
+        lv_in = graph.levels[int(key.split("->")[0][1:])]
+        _require(torch.equal(kmap, lookup(lv_in.skeys, lv_in.srow,
+                                          graph.maps[key].qkey)),
+                 f"explicit table {key} equals the implicit map's rows")
+    print(f"explicit tables at {n_clouds} clouds equal the implicit maps' "
+          f"rows: {len(ge.kmaps)} geometries")
+    del ge
 
     # the Cin == 1 kernels on conv1 (k = 5, 1 -> 32)
     lv = graph.levels[1]
@@ -336,13 +435,13 @@ def train_kernel_checks(dev) -> dict:
     print(f"conv1 k5 1->32 ({present} present pairs, {sel_pairs} on the "
           f"centre clouds): K3 rel_err {e3:.3g}, K4 gated {e4:.3g}, "
           f"K5 gated {e5:.3g}, K9 {e9:.3g} (adjoint identity {adj:.3g})")
-    for name, r in rec.items():
-        r["bound_ms"], r["bound_by"] = _bound(r["bytes"], r["flops"])
-        print(f"{name} per train step: kernel {r['ms']:.3f} ms, plain "
-              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms by "
-              f"{r['bound_by']} ({r['bytes'] / 1e6:.1f} MB, "
-              f"{r['flops'] / 1e9:.2f} GFLOP), max_abs_err "
-              f"{r['max_abs_err']:.3g}")
+    _bounds(rec, "train step")
+    print(f"backward of the 20 k=3 convs per train step: one pass (K7) "
+          f"{two_pass['k7_ms']:.3f} ms; two passes "
+          f"{two_pass['k6_rev_ms'] + two_pass['k8_ms']:.3f} ms (K6 through "
+          f"the reverse map {two_pass['k6_rev_ms']:.3f} + K8 "
+          f"{two_pass['k8_ms']:.3f})")
+    rec["K7"]["two_pass"] = two_pass
     return rec
 
 
@@ -506,33 +605,171 @@ def group_kernel_checks(dev) -> dict:
     return rec
 
 
-def train_step_checks(dev, gpu: str) -> dict:
-    """Phase 7: the train step at full width and full batch, with the
-    grid group search. Returns the launch counts of one step."""
+def explicit_kernel_checks(dev) -> dict:
+    """Phase 7: K10, K12 and K8 against their plain versions at the shapes
+    of the explicit-route train step (8 x 7 clouds). Returns their records,
+    summed over the step's launches of each."""
     import torch
 
     from gcl_tpu_torch import bench
+    from gcl_tpu_torch.core.coords import kernel_offsets
+    from gcl_tpu_torch.core.kernel_maps import (ConvSpec, build_graph,
+                                                two_word_query_keys)
+    from gcl_tpu_torch.core.sparse_ops import sparse_conv
+    from gcl_tpu_torch.data.device_pipeline import voxelize_per_cloud
     from gcl_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    batch = BATCH_EXPLICIT
+    points, pmask, _, _ = bench.bench_batch(SEED, batch, N_POINTS, dev)
+    n_clouds = batch * bench.N_CLOUDS
+    specs, cfg = bench.bench_config(batch, NV_CAP)
+    vox = voxelize_per_cloud(points.reshape(n_clouds, N_POINTS, 3),
+                             pmask.reshape(n_clouds, N_POINTS),
+                             cfg.voxel_size, NV_CAP)
+    flat = vox.flatten()
+    del points, pmask, vox
+    reset_launch_counts()
+    graph = build_graph(flat.coords, flat.mask, specs, cfg.level_caps,
+                        n_clouds)
+    torch.cuda.synchronize()
+    _require(not graph.maps and len(graph.kmaps) == 11
+             and launch_counts()["K10"] == 11,
+             f"{n_clouds} clouds take the explicit route: 11 tables by 11 "
+             f"K10 launches, got {sorted(graph.kmaps)}, {launch_counts()}")
+    print(f"explicit levels at {n_clouds} clouds: " + ", ".join(
+        f"s{s} {lv.coords.shape[0]} rows / {int(lv.mask.sum())} valid"
+        for s, lv in sorted(graph.levels.items())))
+
+    rec = _records("K8", "K10", "K12")
+    run = _runner(rec)
+
+    def strides(key):                      # "s1->s2/k3d1" -> (1, 2, 3)
+        a, b = key.split("/")[0].split("->")
+        return int(a[1:]), int(b[1:]), int(key.split("/k")[1][0])
+
+    # K10, geometry by geometry
+    for key in sorted(graph.kmaps):
+        s_in, s_out, ksize = strides(key)
+        sp = ConvSpec("geometry", s_in, s_out, ksize)
+        lv = graph.levels[s_in]
+        qhi, qlo = two_word_query_keys(
+            graph.levels[s_out], s_in,
+            kernel_offsets(ksize) * sp.offset_scale)
+        args = (lv.key_hi, lv.key_lo, lv.perm, qhi, qlo)
+        kmap, _, ms, pms = run("K10", args, outs=lambda o: (o,),
+                               n_bytes=_nbytes(*args) + 4 * qhi.numel())
+        _require(torch.equal(kmap, graph.kmaps[key]),
+                 f"K10 {key}: the graph's table")
+        found = int((kmap >= 0).sum())
+        _require(found > 0, f"K10 {key} finds rows")
+        print(f"K10 {key}: {qhi.shape[0]} x {qhi.shape[1]} queries, "
+              f"{int((qhi != 0x7FFFFFFF).sum())} live, {found} found, "
+              f"{lv.key_hi.shape[0]} keys: equal to plain; kernel "
+              f"{ms:.3f} ms, plain {pms:.3f} ms")
+        del qhi, qlo, kmap, args
+
+    # K12 (forward, and the dX of the two-pass backward through the reverse
+    # table) and K8 over the tables, conv by conv
+    convs = dict(_k3_convs())
+    convs[("s1->s1/k5d1", 1, 1, 1, 32)] = 1                      # conv1
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    for (key, s_in, s_out, cin, cout), mult in sorted(convs.items()):
+        lv_in, lv_out = graph.levels[s_in], graph.levels[s_out]
+        kmap = graph.kmaps[key]
+        kvol = kmap.shape[0]
+        rev = graph.kmaps[f"s{s_out}->s{s_in}/{key.split('/')[1]}"]
+        x = (torch.randn(lv_in.coords.shape[0], cin, generator=gen)
+             .to(dev) * lv_in.mask[:, None])
+        g = (torch.randn(lv_out.coords.shape[0], cout, generator=gen)
+             .to(dev) * lv_out.mask[:, None])
+        w = (torch.randn(kvol, cin, cout, generator=gen).to(dev)
+             / (kvol * cin) ** .5)
+        matched = int((kmap >= 0).sum())
+        _require(matched == int((rev >= 0).sum()) > 0,
+                 f"{key}: forward and reverse tables hold the same pairs")
+        flops = 2 * matched * cin * cout
+        out, e12, ms12, p12 = run(
+            "K12", (x, w, kmap), mult, flops=flops, outs=lambda o: (o,),
+            n_bytes=_nbytes(x, w, kmap) + 4 * g.numel())
+        dw, e8, ms8, p8 = run(
+            "K8", (x, g, kmap), mult, flops=flops, outs=lambda o: (o,),
+            n_bytes=_nbytes(x, g, kmap, w))
+        line = (f"{key} {cin}->{cout} x{mult} ({matched} pairs): K12 rel_err "
+                f"{e12:.3g} {ms12:.3f} ms (plain {p12:.3f}); K8 rel_err "
+                f"{e8:.3g} {ms8:.3f} ms (plain {p8:.3f})")
+        if kvol == 27:  # conv1's input takes no gradient: no dX in the step
+            wt = w.flip(0).transpose(1, 2).contiguous()
+            dx, ex, msx, px = run(
+                "K12", (g, wt, rev), mult, flops=flops, outs=lambda o: (o,),
+                n_bytes=_nbytes(g, wt, rev, x))
+            # against the scatter-add backward (the table has no twin there)
+            xr = x.clone().requires_grad_()
+            sparse_conv(xr, w, kmap, None).backward(g)
+            es = _rel_err(dx, xr.grad, f"{key} dX through the reverse table "
+                                       f"against the scatter-add")
+            line += (f"; dX through the reverse table rel_err {ex:.3g} "
+                     f"{msx:.3f} ms (plain {px:.3f}), against the "
+                     f"scatter-add {es:.3g}")
+            del wt, dx, xr
+        print(line)
+        del x, g, w, out, dw
+    _bounds(rec, "explicit train step")
+    return rec
+
+
+# launches per train step, worked out from the model: one group search;
+# implicit route: conv1 = K2 (presence) + K4 (eps), its dW = K3 + K5, 20 k=3
+# convs forward (K6) and backward (K7); explicit route: a join per distinct
+# geometry (11), conv1 and the 20 k=3 convs forward plus the 20 dX (conv1's
+# input takes no gradient) through K12, 21 dW through K8
+LAUNCHES = {
+    "implicit": {"K1": 1, "K2": 1, "K3": 1, "K4": 1, "K5": 1, "K6": 20,
+                 "K7": 20},
+    "explicit": {"K1": 1, "K8": 21, "K10": 11, "K12": 41}}
+
+
+def train_step_checks(dev, gpu: str, batch_size: int, route: str,
+                      compare: bool = True) -> dict:
+    """Phases 6 and 8: the train step at full width and ``batch_size`` x 7
+    clouds, with the grid group search, on ``route`` ('implicit' or
+    'explicit'). With ``compare``: a kernel-path step against a plain-path
+    step and a step with every launch held to its plain version, three
+    timed steps and a timed plain-path step (on the implicit route also
+    the plain path against itself with nudged weights and a step with the
+    brute-force group search); without: the launch counts and one timed
+    step. Returns the launch counts of one step."""
+    import torch
+
+    from gcl_tpu_torch import bench
+    from gcl_tpu_torch.kernels import (KERNELS, launch_counts,
+                                       reset_launch_counts)
     from gcl_tpu_torch.losses.gcl import LossDraws
     from gcl_tpu_torch.models.weights import gradients_by_name
     from gcl_tpu_torch.train.steps import StepDraws
 
-    batch = bench.bench_batch(SEED, BATCH, N_POINTS, dev)
-    n_rows = BATCH * bench.N_CLOUDS * NV_CAP
+    tag = f"{batch_size} x {bench.N_CLOUDS} clouds, {route} route"
+    want = {**{k: 0 for k in KERNELS}, **LAUNCHES[route]}
+    batch = bench.bench_batch(SEED, batch_size, N_POINTS, dev)
+    n_rows = batch_size * bench.N_CLOUDS * NV_CAP
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def rand(*shape):
         return torch.rand(shape, generator=gen, device=dev)
 
     draws = StepDraws(
-        sample_gate_u=rand(BATCH),
+        sample_gate_u=rand(batch_size),
         jitter=(rand(), torch.randn((n_rows, 1), generator=gen, device=dev)),
-        loss=LossDraws(rand(256 * BATCH), rand(256 * BATCH),
-                       rand(256 * BATCH)))
+        loss=LossDraws(rand(256 * batch_size), rand(256 * batch_size),
+                       rand(256 * batch_size)))
     lr = 0.1
     runs = {}
     in_step_errs = {}
-    for name in ("kernel", "plain", "checked", "plain_nudged"):
+    names = ("kernel",)
+    if compare:
+        names += ("plain", "checked")
+        if route == "implicit":
+            names += ("plain_nudged",)
+    for name in names:
         model = bench.bench_model(SEED, dev)
         if name == "plain_nudged":  # weights moved by 1e-7 of themselves
             with torch.no_grad():
@@ -540,7 +777,7 @@ def train_step_checks(dev, gpu: str) -> dict:
                     p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=gen,
                                                   device=dev))
         before = {k: v.clone() for k, v in model.state_dict().items()}
-        _, step = bench.bench_step(model, BATCH, NV_CAP)
+        _, step = bench.bench_step(model, batch_size, NV_CAP, graph=route)
         reset_launch_counts()
         ctx = {"kernel": contextlib.nullcontext(),
                "checked": checked_path(in_step_errs)}.get(name) or plain_path()
@@ -553,10 +790,23 @@ def train_step_checks(dev, gpu: str) -> dict:
                                  gradients_by_name(model).items()},
                           launches=launch_counts())
     launches = runs["kernel"]["launches"]
-    print(f"launches per train step: {launches}")
-    want = {"K1": 1, "K2": 1, "K3": 1, "K4": 1, "K5": 1, "K6": 20, "K7": 20,
-            "K9": 0, "K11": 0}
+    print(f"launches per train step ({tag}): {launches}")
     _require(launches == want, f"launches per step {want}, got {launches}")
+    model, step = runs["kernel"]["model"], runs["kernel"]["step"]
+    if not compare:
+        t0 = time.perf_counter()
+        metrics = step(lr, *batch, generator=gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        _require(all(bool(torch.isfinite(v)) for v in metrics.values()),
+                 f"finite metrics, got {metrics}")
+        n_vox = float(metrics["num_valid_voxels"])
+        print(f"train step ({tag}), kernel path: step_time_s {dt:.4f} (1 "
+              f"step after a warm-up), {n_vox / dt:.1f} voxel/s, loss "
+              f"{float(metrics['loss']):.6f}, num_groups "
+              f"{int(metrics['num_groups'])}, voxels_per_step {int(n_vox)} "
+              f"on {gpu}")
+        return launches
     _require(not any(runs["plain"]["launches"].values()),
              "the plain path launches no kernel")
     mk, mp = runs["kernel"]["metrics"], runs["plain"]["metrics"]
@@ -587,19 +837,19 @@ def train_step_checks(dev, gpu: str) -> dict:
     print(f"kernel vs plain inside the step, worst rel_err per kernel: "
           f"{ {k: float(f'{v:.3g}') for k, v in sorted(in_step_errs.items())} }")
     _require(sorted(in_step_errs) == sorted(k for k, n in want.items() if n),
-             f"all seven kernels of the step were checked inside it: "
+             f"every kernel of the step was checked inside it: "
              f"{in_step_errs}")
     free = worst_gradient("kernel", "plain")
-    nudged = worst_gradient("plain_nudged", "plain")
     print(f"gradients of whole steps over {len(runs['kernel']['grads'])} "
           f"tensors, worst error relative to the tensor's max: kernel path "
-          f"vs plain path {free[1]:.3g} ({free[0]}); plain path with "
-          f"weights moved by 1e-7 vs plain path {nudged[1]:.3g} "
-          f"({nudged[0]})")
+          f"vs plain path {free[1]:.3g} ({free[0]})")
+    if "plain_nudged" in runs:
+        nudged = worst_gradient("plain_nudged", "plain")
+        print(f"  the yardstick: plain path with weights moved by 1e-7 vs "
+              f"plain path {nudged[1]:.3g} ({nudged[0]})")
     _require(free[1] <= 0.1, f"gradient of {free[0]} on the kernel path "
                              f"within 0.1 of its max, got {free[1]}")
 
-    model, step = runs["kernel"]["model"], runs["kernel"]["step"]
     torch.cuda.reset_peak_memory_stats()
     times = []
     for _ in range(3):  # the first step above was the warm-up
@@ -611,17 +861,18 @@ def train_step_checks(dev, gpu: str) -> dict:
                  f"finite metrics, got {metrics}")
         _require(float(metrics["num_groups"]) > 0, "groups were found")
     peak = torch.cuda.max_memory_allocated()
-    # the same step with the brute-force group search, beside it
-    brute_model = bench.bench_model(SEED, dev)
-    _, brute_step = bench.bench_step(brute_model, BATCH, NV_CAP,
-                                     search="brute_force")
-    brute_step(lr, *batch, generator=gen)  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    brute_metrics = brute_step(lr, *batch, generator=gen)
-    torch.cuda.synchronize()
-    brute_dt = time.perf_counter() - t0
-    del brute_model, brute_step
+    if route == "implicit":
+        # the same step with the brute-force group search, beside it
+        brute_model = bench.bench_model(SEED, dev)
+        _, brute_step = bench.bench_step(brute_model, batch_size, NV_CAP,
+                                         search="brute_force")
+        brute_step(lr, *batch, generator=gen)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        brute_metrics = brute_step(lr, *batch, generator=gen)
+        torch.cuda.synchronize()
+        brute_dt = time.perf_counter() - t0
+        del brute_model, brute_step
     with plain_path():
         t0 = time.perf_counter()
         runs["plain"]["step"](lr, *batch, generator=gen)
@@ -636,18 +887,20 @@ def train_step_checks(dev, gpu: str) -> dict:
             for k in own), f"a parameter of {mname} changed")
     dt = sorted(times)[1]
     n_vox = float(metrics["num_valid_voxels"])
-    print(f"train step, kernel path: step_time_s {dt:.4f} (min "
+    print(f"train step ({tag}), kernel path: step_time_s {dt:.4f} (min "
           f"{min(times):.4f}, max {max(times):.4f}; 3 steps after a "
           f"warm-up), {n_vox / dt:.1f} voxel/s, loss "
           f"{float(metrics['loss']):.6f}, num_groups "
           f"{int(metrics['num_groups'])}, voxels_per_step {int(n_vox)} "
           f"on {gpu}")
-    print(f"train step, kernel path, brute-force group search: step_time_s "
-          f"{brute_dt:.4f} (1 step after a warm-up), num_groups "
-          f"{int(brute_metrics['num_groups'])}")
-    print(f"train step, plain path: step_time_s {plain_dt:.4f} (1 step "
-          f"after a warm-up), {n_vox / plain_dt:.1f} voxel/s")
-    print(f"peak device memory over the timed steps: {peak / 2**30:.2f} GiB")
+    if route == "implicit":
+        print(f"train step ({tag}), kernel path, brute-force group search: "
+              f"step_time_s {brute_dt:.4f} (1 step after a warm-up), "
+              f"num_groups {int(brute_metrics['num_groups'])}")
+    print(f"train step ({tag}), plain path: step_time_s {plain_dt:.4f} (1 "
+          f"step after a warm-up), {n_vox / plain_dt:.1f} voxel/s")
+    print(f"peak device memory over the timed steps ({tag}): "
+          f"{peak / 2**30:.2f} GiB")
     return launches
 
 
@@ -825,10 +1078,19 @@ def main() -> None:
         print(f"{name} path: {1.0 / dt:.3f} pairs/s, {dt * 1e3:.2f} ms "
               f"per pair ({REPS} pairs after a warm-up) on {gpu}")
 
-    # 5., 6. and 7. the train step's kernels, its group search, the step
+    # 5. and 6. the train step's kernels, its group search, the step
     rec = train_kernel_checks(dev)
     rec.update(group_kernel_checks(dev))
-    step_launches = train_step_checks(dev, gpu)
+    step_launches = train_step_checks(dev, gpu, BATCH, "implicit")
+    torch.cuda.empty_cache()
+    # 7. and 8. the explicit route: its kernels at 8 x 7, the step there,
+    # and the 4 x 7 step beside the implicit route's
+    rec.update(explicit_kernel_checks(dev))
+    torch.cuda.empty_cache()
+    explicit_launches = train_step_checks(dev, gpu, BATCH_EXPLICIT,
+                                          "explicit")
+    torch.cuda.empty_cache()
+    train_step_checks(dev, gpu, BATCH, "explicit", compare=False)
 
     conv, radius = "pallas_conv.py", "pallas_radius.py"
     table = [
@@ -840,26 +1102,39 @@ def main() -> None:
         ("K5", "scalar_conv_dw", "scalar_conv.cu", conv, 973),
         ("K1", "windowed_cell_topk_packed", "radius_topk.cu", radius, 183),
         ("K11", "windowed_cell_topk_exact", "radius_topk.cu", radius, 136),
-        ("K9", "scalar_conv_dx", "scalar_conv.cu", conv, 944)]
-    # K9 and K11 are not on the train step's path: their launches are those
+        ("K9", "scalar_conv_dx", "scalar_conv.cu", conv, 944),
+        ("K8", "sparse_conv_dw", "sparse_conv_dw.cu", conv, 798),
+        ("K10", "join_kmap", "join_kmap.cu", "pallas_join.py", 58),
+        ("K12", "sparse_conv_table_fwd", "sparse_conv_fwd.cu", conv, 549)]
+    # K9 and K11 are not on a train step's path: their launches are those
     # of the path that does reach them, driven above with the counts set
-    # to 0 just before (ScalarConv's backward with dX; the large-T search)
+    # to 0 just before (ScalarConv's backward with dX; the large-T search).
+    # K8, K10 and K12 are the explicit route's: their launches and times
+    # are the 8 x 7 step's, the other rows' the 4 x 7 step's.
+    explicit = f"train step {BATCH_EXPLICIT} x 7, explicit route"
     paths = {"K9": "ScalarConv backward with dX at conv1's shape",
-             "K11": "batched_grid_radius_knn, T = 589,824"}
+             "K11": "batched_grid_radius_knn, T = 589,824",
+             "K8": explicit, "K10": explicit, "K12": explicit}
     kernels = []
     for k, name, src, jsrc, line in table:
         r = rec[k]
+        on_explicit = paths.get(k) == explicit
         kernels.append({
             "name": f"{name} ({k})", "route": "cuda",
             "source": f"gcl_tpu_torch/csrc/{src}",
             "replaces": f"gcl_tpu/core/{jsrc}:{line}",
-            "launches": r.get("launches", step_launches[k]),
+            "launches": r.get("launches", (explicit_launches if on_explicit
+                                           else step_launches)[k]),
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             # no single PyTorch call computes any of these functions
-            "library_ms": None, "path": paths.get(k, "train step"),
-            "train_step_launches": step_launches[k]})
+            # (torch.searchsorted takes one-word keys: K10's plain version
+            # fuses the two words into an int64 first and compares after)
+            "library_ms": None,
+            "path": paths.get(k, f"train step {BATCH} x 7, implicit route"),
+            "train_step_launches": step_launches[k],
+            "explicit_step_launches": explicit_launches[k]})
     kernels[6].update(
         brute_force_search_ms=rec["K1"]["brute_force_search_ms"],
         grid_search_ms=rec["K1"]["grid_search_ms"])
@@ -871,6 +1146,7 @@ def main() -> None:
                       serving_max_abs_err=k2_err, serving_ms=k2_ms,
                       serving_plain_ms=k2_plain_ms,
                       serving_bound_ms=k2_bound[0])
+    kernels[1].update(two_pass=rec["K7"].pop("two_pass"))
     print(json.dumps({"kernels": kernels}))
     print(f"{gpu}")
     print(json.dumps({"ok": True, "device": {

@@ -13,14 +13,20 @@ windowed cell top-k kernel, printed as ``"search": "grid_1.08"``) for the
 brute-force O(QT) one (``"search": "brute_force"``), the step this
 benchmark timed before the grid search was ported.
 
+``--batch_size 8`` is 56 clouds a step, above the 31 that the implicit
+conv maps address: the step then builds explicit index tables with the
+join kernel and runs the index-table conv kernels, as the root bench.py
+does at that batch (``"graph": "explicit"`` in the output; ``"implicit"``
+up to batch 4). ``--graph explicit`` asks for the tables at any batch.
+
 With ``--profile`` it first prints a JSON line of where one step's time
 goes (host-clock stage times with a synchronize after each stage's range,
 device time by stage and by op from torch.profiler, the device's idle
 share). It then prints, last, ONE JSON line with bench.py's keys (``metric:
 gcl_train_voxels_per_sec``, ``value``, ``unit``, ``vs_baseline``,
 ``step_time_s`` with min and max, ``voxels_per_step``, ``device``) plus
-``compute_dtype``, ``search`` and ``gpu`` (the card's name and power
-limit). ``vs_baseline`` divides by the upstream project's own figure for
+``compute_dtype``, ``search``, ``graph`` and ``gpu`` (the card's name and
+power limit). ``vs_baseline`` divides by the upstream project's own figure for
 this batch shape on an RTX 3090 (~0.81 s/step = 6.4e5 voxel/s).
 """
 from __future__ import annotations
@@ -32,7 +38,7 @@ import time
 import numpy as np
 import torch
 
-from .core.kernel_maps import default_level_caps
+from .core.kernel_maps import default_level_caps, graph_route
 from .data.synthetic import synth_lidar
 from .losses.gcl import GCLLossConfig
 from .models.resunet import ResUNetFatBN
@@ -53,9 +59,10 @@ def bench_model(seed: int, device) -> ResUNetFatBN:
 
 
 def bench_config(batch_size: int, nv_cap: int = 18432,
-                 search: str = "grid"):
+                 search: str = "grid", graph: str = "auto"):
     """(conv specs, StepConfig) at the root bench.py's settings; ``search``
-    is 'grid' (its search_cell) or 'brute_force'."""
+    is 'grid' (its search_cell) or 'brute_force', ``graph`` the conv maps'
+    route (build_graph's method)."""
     if search not in ("grid", "brute_force"):
         raise ValueError(f"search {search!r}: 'grid' or 'brute_force'")
     specs = ResUNetFatBN.conv_specs(5)
@@ -66,13 +73,14 @@ def bench_config(batch_size: int, nv_cap: int = 18432,
         voxel_size=0.3, nv_cap=nv_cap,
         level_caps=default_level_caps(n_flat, strides, 0.55),
         knn_chunk=1024,
-        search_cell=SEARCH_CELL if search == "grid" else None)
+        search_cell=SEARCH_CELL if search == "grid" else None,
+        graph_method=graph)
 
 
 def bench_step(model, batch_size: int, nv_cap: int = 18432,
-               search: str = "grid"):
+               search: str = "grid", graph: str = "auto"):
     """(optimizer, step_fn) at the root bench.py's settings."""
-    specs, cfg = bench_config(batch_size, nv_cap, search)
+    specs, cfg = bench_config(batch_size, nv_cap, search, graph)
     return make_gcl_train_step(
         model, specs, cfg, GCLLossConfig(block_finest_gradient=False),
         "finest", max_pos_cluster=256 * batch_size,
@@ -156,6 +164,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--search", default="grid",
                     choices=["grid", "brute_force"])
+    ap.add_argument("--graph", default="auto",
+                    choices=["auto", "implicit", "explicit"])
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -171,7 +181,8 @@ def main(argv=None):
             torch.cuda.synchronize()
 
     model = bench_model(args.seed, dev)
-    _, step = bench_step(model, args.batch_size, args.nv, args.search)
+    _, step = bench_step(model, args.batch_size, args.nv, args.search,
+                         args.graph)
     batch = bench_batch(args.seed, args.batch_size, args.points, dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
@@ -206,6 +217,7 @@ def main(argv=None):
         "compute_dtype": "float32",
         "search": (f"grid_{SEARCH_CELL}" if args.search == "grid"
                    else "brute_force"),
+        "graph": graph_route(args.graph, args.batch_size * N_CLOUDS),
     }
     if on_card:
         from .infer import gpu_identity

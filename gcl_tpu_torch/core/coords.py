@@ -3,7 +3,8 @@
 Two key schemes, as in the JAX package:
 
 * composite (hi, lo) keys (``coord_keys``) order voxels for the
-  multi-cloud voxelizer;
+  multi-cloud voxelizer and address them in the explicit kernel maps
+  (``searchsorted2`` / ``lookup2``), for any number of clouds;
 * packed single-int32 keys (``pack_keys`` / ``pack_query_keys``) address
   voxels in the conv kernels: ``cloud << 27 | ux << 17 | uy << 7 | uz``
   with per-axis offsets ``u = xyz // stride + 2^(bits-1)``.
@@ -132,6 +133,36 @@ def lookup(skeys: torch.Tensor, srow: torch.Tensor,
     pos_c = pos.clamp(max=n - 1)
     found = (pos < n) & (skeys[pos_c] == q)
     return torch.where(found, srow[pos_c], -1).to(torch.int32)
+
+
+def _key64(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """One int64 whose signed order is the lexicographic signed order of
+    the int32 pair (hi, lo)."""
+    return (hi.long() << 32) + (lo.long() + (1 << 31))
+
+
+def searchsorted2(key_hi: torch.Tensor, key_lo: torch.Tensor,
+                  q_hi: torch.Tensor, q_lo: torch.Tensor) -> torch.Tensor:
+    """Lower bound of each (q_hi, q_lo) among the lexicographically sorted
+    (key_hi, key_lo): the first position p with keys[p] >= query, int64 of
+    the queries' shape. All four are int32, compared as signed."""
+    return torch.searchsorted(_key64(key_hi, key_lo),
+                              _key64(q_hi, q_lo).contiguous())
+
+
+def lookup2(key_hi: torch.Tensor, key_lo: torch.Tensor, perm: torch.Tensor,
+            q_hi: torch.Tensor, q_lo: torch.Tensor) -> torch.Tensor:
+    """Two-word lookup: perm[p] where (key_hi[p], key_lo[p]) equals the
+    query, else -1 (int32). Padded keys and sentinel queries are both
+    0x7FFFFFFF on hi; a sentinel query never finds a padded row."""
+    n = key_hi.shape[0]
+    if n == 0:
+        return torch.full_like(q_hi, -1, dtype=torch.int32)
+    pos = searchsorted2(key_hi, key_lo, q_hi, q_lo)
+    pos_c = pos.clamp(max=n - 1)
+    found = ((pos < n) & (key_hi[pos_c] == q_hi) & (key_lo[pos_c] == q_lo)
+             & (q_hi != _INT32_MAX))
+    return torch.where(found, perm[pos_c], -1).to(torch.int32)
 
 
 def kernel_offsets(kernel_size: int) -> np.ndarray:

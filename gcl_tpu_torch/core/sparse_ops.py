@@ -1,15 +1,22 @@
-"""Sparse tensor compute primitives with their gradients (port of the
-implicit-map part of gcl_tpu/core/sparse_ops.py).
+"""Sparse tensor compute primitives with their gradients (port of
+gcl_tpu/core/sparse_ops.py).
 
-A sparse convolution over an implicit map is
+A sparse convolution is
 
-    out[i] = sum_k  X[row whose key == qkey[k, i]] @ W[k]   (missing -> 0)
+    out[i] = sum_k  X[row(k, i)] @ W[k]                     (missing -> 0)
 
-Three torch.autograd.Functions wire the kernels of gcl_tpu_torch.kernels to
-the graph records:
+with row(k, i) the row whose key equals qkey[k, i] (an implicit map) or
+kmap[k, i] (an index table). Four torch.autograd.Functions wire the
+kernels of gcl_tpu_torch.kernels to the graph records:
 
 * ``SparseConvImplicit``: forward K6; backward K7, one pass over the
-  reverse map for dX and dW (dX only when the input asks for it);
+  reverse map for dX and dW (dX only when the input asks for it), or on
+  request two passes: K6 through the reverse map with flipped, transposed
+  weights for dX and K8 over the forward map for dW;
+* ``SparseConvTable`` (``sparse_conv``, the explicit route): forward K12;
+  backward with a reverse table K12 through it for dX and K8 for dW, and
+  without one (even kernels) a scatter-add in plain torch, as it is plain
+  XLA in gcl_tpu;
 * ``OccupancyConv`` (conv1 of an in_ch == 1 model on all-ones features):
   forward K2, which also leaves the presence bitmasks; backward K3 from
   those bitmasks; there is no dX;
@@ -25,11 +32,13 @@ import torch
 
 from ..kernels import (c1z_unpack_bits, occupancy_conv_dw, occupancy_conv_fwd,
                        scalar_conv_dw, scalar_conv_dx, scalar_conv_fwd,
-                       sparse_conv_implicit_bwd, sparse_conv_implicit_fwd)
+                       sparse_conv_dw, sparse_conv_implicit_bwd,
+                       sparse_conv_implicit_fwd, sparse_conv_table_fwd)
 from .types import ConvMap, LevelCoords
 
-__all__ = ["SparseConvImplicit", "OccupancyConv", "ScalarConv",
-           "sparse_conv_implicit", "sparse_conv_c1z", "c1z_unpack_bits",
+__all__ = ["SparseConvImplicit", "SparseConvTable", "OccupancyConv",
+           "ScalarConv", "sparse_conv_implicit", "sparse_conv",
+           "sparse_conv_c1z", "c1z_unpack_bits",
            "draw_input_eps", "sparse_conv_c1z_exact_jitter",
            "sparse_conv_c1z_jittered",
            "masked_mean_var", "l2_normalize", "apply_mask"]
@@ -41,13 +50,20 @@ def _require_f32(name: str, t: torch.Tensor) -> None:
                         f"float32 only), got {t.dtype}")
 
 
+def _flipped_transposed(w: torch.Tensor) -> torch.Tensor:
+    """W[K-1-k']^T, the weights of the dX conv through a reverse map."""
+    return w.flip(0).transpose(1, 2).contiguous()
+
+
 class SparseConvImplicit(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, qkey, rqkey, in_skeys, in_srow, out_skeys,
-                out_srow):
+                out_srow, two_pass=False):
         x, w = x.contiguous(), w.contiguous()
         ctx.save_for_backward(x, w)
+        ctx.fwd = (qkey, in_skeys, in_srow)
         ctx.rev = (rqkey, out_skeys, out_srow)
+        ctx.two_pass = two_pass
         return sparse_conv_implicit_fwd(x, w, qkey, in_skeys, in_srow)
 
     @staticmethod
@@ -55,13 +71,61 @@ class SparseConvImplicit(torch.autograd.Function):
         x, w = ctx.saved_tensors
         rqkey, out_skeys, out_srow = ctx.rev
         if rqkey is None:
-            raise NotImplementedError(
-                "this conv map has no reverse twin (even kernel): its "
-                "backward is not ported")
-        dx, dw = sparse_conv_implicit_bwd(
-            x, g, w, rqkey, out_skeys, out_srow,
-            want_dx=ctx.needs_input_grad[0])
-        return (dx, dw if ctx.needs_input_grad[1] else None) + (None,) * 6
+            raise ValueError(
+                "this implicit map has no reverse twin (build_graph gives "
+                "an even kernel an index table instead)")
+        want_dx, want_dw = ctx.needs_input_grad[:2]
+        if ctx.two_pass:
+            g = g.contiguous()
+            dx = dw = None
+            if want_dx:
+                dx = sparse_conv_implicit_fwd(g, _flipped_transposed(w),
+                                              rqkey, out_skeys, out_srow)
+            if want_dw:
+                dw = sparse_conv_dw(x, g, *ctx.fwd)
+        else:
+            dx, dw = sparse_conv_implicit_bwd(
+                x, g, w, rqkey, out_skeys, out_srow, want_dx=want_dx)
+        return ((dx, dw if want_dw else None)
+                + (None,) * (len(ctx.needs_input_grad) - 2))
+
+
+class SparseConvTable(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, kmap, rev_kmap):
+        x, w = x.contiguous(), w.contiguous()
+        ctx.save_for_backward(x, w)
+        ctx.maps = (kmap, rev_kmap)
+        return sparse_conv_table_fwd(x, w, kmap)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        kmap, rev_kmap = ctx.maps
+        want_dx, want_dw = ctx.needs_input_grad[:2]
+        g = g.contiguous()
+        dx = dw = None
+        if rev_kmap is not None:
+            if want_dx:
+                dx = sparse_conv_table_fwd(g, _flipped_transposed(w),
+                                           rev_kmap)
+            if want_dw:
+                dw = sparse_conv_dw(x, g, kmap)
+            return dx, dw, None, None
+        # no reverse table: dX by scatter-add, dW from the gathered rows,
+        # offset by offset (gcl_tpu's _sparse_conv_bwd, plain XLA there)
+        n_in, cin = x.shape
+        idx = torch.where(kmap < 0, n_in, kmap).long()
+        xp = torch.cat([x, x.new_zeros((1, cin))])
+        dxp = x.new_zeros((n_in + 1, cin)) if want_dx else None
+        dws = []
+        for k in range(w.shape[0]):
+            if want_dw:
+                dws.append(xp[idx[k]].T @ g)
+            if want_dx:
+                dxp.index_add_(0, idx[k], g @ w[k].T)  # row n_in: the pads
+        return (dxp[:n_in] if want_dx else None,
+                torch.stack(dws) if want_dw else None, None, None)
 
 
 class OccupancyConv(torch.autograd.Function):
@@ -102,16 +166,36 @@ class ScalarConv(torch.autograd.Function):
 
 
 def sparse_conv_implicit(x: torch.Tensor, w: torch.Tensor, cmap: ConvMap,
-                         in_level: LevelCoords,
-                         out_level: LevelCoords) -> torch.Tensor:
+                         in_level: LevelCoords, out_level: LevelCoords,
+                         two_pass_backward: bool = False) -> torch.Tensor:
     """Sparse (transpose) convolution of x [N_in, Cin] (the input level's
     rows) with w [K, Cin, Cout] over the map's query keys; differentiable
-    in x and w."""
+    in x and w. ``two_pass_backward`` takes dX and dW in two kernels (K6
+    through the reverse map, K8 over the forward map) instead of K7's one
+    pass; the gradients are the same to rounding."""
     _require_f32("x", x)
     _require_f32("w", w)
     return SparseConvImplicit.apply(
         x, w, cmap.qkey, cmap.rqkey, in_level.skeys, in_level.srow,
-        out_level.skeys, out_level.srow)
+        out_level.skeys, out_level.srow, two_pass_backward)
+
+
+def sparse_conv(x: torch.Tensor, w: torch.Tensor, kmap: torch.Tensor,
+                rev_kmap: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sparse (transpose) convolution over an index table; differentiable
+    in x and w.
+
+    x f32[N_in, Cin] (padded rows MUST be zero), w f32[K, Cin, Cout], kmap
+    int32[K, N_out] the input row of each (offset, output row), -1 where
+    there is none. rev_kmap: optional int32[K, N_in] table of the reverse
+    direction (the output level looked up at in_coords + offset; a full
+    odd stencil only): with it dX is a conv of the gradient through it
+    with flipped weights, without it a scatter-add. Returns f32[N_out,
+    Cout]; padded output rows are zero.
+    """
+    _require_f32("x", x)
+    _require_f32("w", w)
+    return SparseConvTable.apply(x, w, kmap, rev_kmap)
 
 
 def sparse_conv_c1z(w: torch.Tensor, c1z: torch.Tensor,

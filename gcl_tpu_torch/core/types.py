@@ -2,9 +2,12 @@
 
 Fixed-capacity padded tensors plus validity masks, as in the JAX package,
 so levels and features compare row for row with it. The TPU's window
-tables (``FusedMap``) are not ported: a level carries its sorted packed
-keys, and each conv geometry carries its query keys (``ConvMap``); the
-CUDA kernels resolve the map by binary search over the sorted keys.
+tables (``FusedMap``) are not ported. On the implicit route a level
+carries its sorted packed keys and each conv geometry its query keys
+(``ConvMap``); the CUDA kernels resolve the map by binary search. On the
+explicit route (more than 31 clouds, or an even kernel) a level carries
+its sorted two-word keys and each geometry an index table
+(``SparseGraph.kmaps``).
 """
 from __future__ import annotations
 
@@ -37,16 +40,25 @@ class LevelCoords:
     """Voxel coordinates at one stride level.
 
     coords: int32[N_l, 4] in level-0 voxel units, exact multiples of the
-    stride (cloud-blocked rows, pads inline). mask: bool[N_l].
+    stride (rows in key order; cloud-blocked with pads inline up to 31
+    clouds, one compacted run above). mask: bool[N_l].
+    The implicit route's index (None on a graph that has none):
     skeys: int32[n_valid] packed keys (cloud ids folded mod 31) of the
     VALID rows only, sorted ascending as signed int32.
     srow: int32[n_valid] the row in ``coords`` of each sorted key.
+    The explicit route's index (None where no map is joined):
+    key_hi, key_lo: int32[N_l] the (hi, lo) keys of coords.coord_keys of
+    the valid rows in lexicographic order, 0x7FFFFFFF on the padded tail.
+    perm: int32[N_l] the row in ``coords`` of each sorted key.
     """
 
     coords: torch.Tensor
     mask: torch.Tensor
-    skeys: torch.Tensor
-    srow: torch.Tensor
+    skeys: Optional[torch.Tensor] = None
+    srow: Optional[torch.Tensor] = None
+    key_hi: Optional[torch.Tensor] = None
+    key_lo: Optional[torch.Tensor] = None
+    perm: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -76,12 +88,16 @@ class SparseGraph:
     """The static geometry of one U-Net forward pass.
 
     levels: stride -> LevelCoords. maps: map_key -> ConvMap for every
-    conv geometry with a kernel and its reverse twin (1x1 same-level convs
-    need none).
+    conv geometry on the implicit route and its reverse twin. kmaps:
+    map_key -> int32[K, N_out] index table (the input level's row at
+    out_coords + offset_k, -1 where there is none) for every geometry on
+    the explicit route and, for odd kernels, its reverse twin. 1x1
+    same-level convs need neither.
     """
 
     levels: Dict[int, LevelCoords]
     maps: Dict[str, ConvMap]
+    kmaps: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass

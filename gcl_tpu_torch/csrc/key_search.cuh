@@ -1,4 +1,4 @@
-// Key searches over a level's sorted packed keys, shared by the kernels.
+// Key searches over a level's sorted keys, shared by the kernels.
 //
 // The keys are signed int32 in the ascending order torch.sort gives them
 // (packed keys of clouds >= 16 are negative), so the search compares as
@@ -31,6 +31,28 @@ __device__ __forceinline__ int find_key(const int* __restrict__ keys, int n,
                                         int q) {
   const int p = lower_bound(keys, n, q);
   return (p < n && __ldg(keys + p) == q) ? p : -1;
+}
+
+// The same over two-word keys (hi, lo) in lexicographic order, each word
+// compared as signed int32 (the words of coords.coord_keys; hi wraps
+// negative for cloud ids >= 2^21). Position in the keys of the pair equal
+// to (qh, ql), or -1.
+__device__ __forceinline__ int find_key2(const int* __restrict__ key_hi,
+                                         const int* __restrict__ key_lo,
+                                         int n, int qh, int ql) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const int mh = __ldg(key_hi + mid);
+    if (mh < qh || (mh == qh && __ldg(key_lo + mid) < ql)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return (lo < n && __ldg(key_hi + lo) == qh && __ldg(key_lo + lo) == ql)
+             ? lo
+             : -1;
 }
 
 // Position in skeys of the voxel at offset (dx, dy, dz) of a stride-1 row,

@@ -1,4 +1,5 @@
-// Implicit-map sparse convolution, forward, for Hopper (sm_90a).
+// Sparse convolution, forward, over an implicit map or an index table,
+// for Hopper (sm_90a).
 //
 // Replaces gcl_tpu/core/pallas_conv.py:_fwd_kernel_h + _windowed_gather_h
 // (TPU kernel K6, reached through fused_conv_fwd -> _conv_half_fwd):
@@ -7,6 +8,15 @@
 //
 // and zero where no key matches. skeys are the packed keys of the input
 // level's valid rows, sorted ascending as signed int32; srow their rows.
+//
+// The same kernel with the row read from a table in place of the key
+// search replaces pallas_conv_fwd (K12: _fused_from_idx -> fused_conv_fwd
+// -> _fwd_kernel, the index-table API of the explicit route):
+//
+//   out[i, :] = sum_k x[idx[k, i], :] @ W[k]
+//
+// with an entry outside [0, n_in) contributing zero. The row resolver is a
+// template parameter; everything after it is shared.
 //
 // What bounds it on this card: the products. A ResUNetFatBN pair at the
 // serving shapes runs ~1.8e11 multiply-adds through the 20 k=3 convs
@@ -38,14 +48,19 @@ constexpr int kTileN = 64;    // output channels per block
 constexpr int kTileK = 32;    // input channels per shared-memory stage
 constexpr int kThreads = 256;  // 16 x 16 threads, a 4 x 4 outputs each
 
+// kTable false: qkey holds packed query keys, resolved against skeys /
+// srow (n_keys of them). kTable true: qkey holds input rows, valid in
+// [0, n_keys) where n_keys is the input level's row count; skeys and srow
+// are not read.
+template <bool kTable>
 __global__ void __launch_bounds__(kThreads)
-sparse_conv_implicit_fwd_kernel(const float* __restrict__ x,
-                                const float* __restrict__ w,
-                                const int* __restrict__ qkey,
-                                const int* __restrict__ skeys,
-                                const int* __restrict__ srow,
-                                float* __restrict__ out, int cin, int cout,
-                                int kvol, int n_out, int n_keys) {
+sparse_conv_fwd_kernel(const float* __restrict__ x,
+                       const float* __restrict__ w,
+                       const int* __restrict__ qkey,
+                       const int* __restrict__ skeys,
+                       const int* __restrict__ srow,
+                       float* __restrict__ out, int cin, int cout,
+                       int kvol, int n_out, int n_keys) {
   __shared__ int rows_s[kTileM];
   // +4 floats per row keeps float4 alignment and spreads the
   // transposed stores over more banks
@@ -71,8 +86,13 @@ sparse_conv_implicit_fwd_kernel(const float* __restrict__ x,
       const int i = row0 + tid;
       int r = -1;
       if (i < n_out) {
-        const int p = find_key(skeys, n_keys, qkey[(size_t)k * n_out + i]);
-        if (p >= 0) r = __ldg(srow + p);
+        const int q = qkey[(size_t)k * n_out + i];
+        if (kTable) {
+          if (q >= 0 && q < n_keys) r = q;
+        } else {
+          const int p = find_key(skeys, n_keys, q);
+          if (p >= 0) r = __ldg(srow + p);
+        }
       }
       rows_s[tid] = r;
       found = r >= 0;
@@ -144,8 +164,22 @@ extern "C" int sparse_conv_implicit_fwd(const float* x, const float* w,
                                         void* stream) {
   const dim3 grid((n_out + kTileM - 1) / kTileM,
                   (cout + kTileN - 1) / kTileN);
-  sparse_conv_implicit_fwd_kernel<<<grid, kThreads, 0,
-                                    static_cast<cudaStream_t>(stream)>>>(
+  sparse_conv_fwd_kernel<false><<<grid, kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
       x, w, qkey, skeys, srow, out, cin, cout, kvol, n_out, n_keys);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The index-table form: idx int32[kvol, n_out] holds rows of x (n_in of
+// them), anything outside [0, n_in) meaning no input. Otherwise as above.
+extern "C" int sparse_conv_table_fwd(const float* x, const float* w,
+                                     const int* idx, float* out, int cin,
+                                     int cout, int kvol, int n_out, int n_in,
+                                     void* stream) {
+  const dim3 grid((n_out + kTileM - 1) / kTileM,
+                  (cout + kTileN - 1) / kTileN);
+  sparse_conv_fwd_kernel<true><<<grid, kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      x, w, idx, nullptr, nullptr, out, cin, cout, kvol, n_out, n_in);
   return static_cast<int>(cudaGetLastError());
 }

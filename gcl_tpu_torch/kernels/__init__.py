@@ -4,6 +4,7 @@ Each module holds its kernels' wrappers, their plain PyTorch versions and
 their launch counters (``wrapper.launches``): a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises.
 """
+from .join_kmap import join_kmap, join_kmap_plain
 from .occupancy_conv import (c1z_unpack_bits, occupancy_conv_dw,
                              occupancy_conv_dw_plain, occupancy_conv_fwd,
                              occupancy_conv_fwd_plain)
@@ -12,10 +13,12 @@ from .radius_topk import (windowed_cell_topk, windowed_cell_topk_exact,
 from .scalar_conv import (scalar_conv_dw, scalar_conv_dw_plain,
                           scalar_conv_dx, scalar_conv_dx_plain,
                           scalar_conv_fwd, scalar_conv_fwd_plain)
-from .sparse_conv import (sparse_conv_implicit_bwd,
+from .sparse_conv import (sparse_conv_dw, sparse_conv_dw_plain,
+                          sparse_conv_implicit_bwd,
                           sparse_conv_implicit_bwd_plain,
                           sparse_conv_implicit_fwd,
-                          sparse_conv_implicit_fwd_plain)
+                          sparse_conv_implicit_fwd_plain,
+                          sparse_conv_table_fwd, sparse_conv_table_fwd_plain)
 
 # TPU kernel number -> (wrapper, plain version)
 KERNELS = {
@@ -26,8 +29,11 @@ KERNELS = {
     "K5": (scalar_conv_dw, scalar_conv_dw_plain),
     "K6": (sparse_conv_implicit_fwd, sparse_conv_implicit_fwd_plain),
     "K7": (sparse_conv_implicit_bwd, sparse_conv_implicit_bwd_plain),
+    "K8": (sparse_conv_dw, sparse_conv_dw_plain),
     "K9": (scalar_conv_dx, scalar_conv_dx_plain),
+    "K10": (join_kmap, join_kmap_plain),
     "K11": (windowed_cell_topk_exact, windowed_cell_topk_plain),
+    "K12": (sparse_conv_table_fwd, sparse_conv_table_fwd_plain),
 }
 
 

@@ -25,7 +25,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry point -> argtypes (pointers and the stream as void*, ints as int)
+_L = ctypes.c_longlong
+# C entry point -> argtypes (pointers and the stream as void*, ints as int,
+# a count of queries as long long)
 SIGNATURES = {
     "sparse_conv_implicit_fwd": [_P] * 6 + [_I] * 5 + [_P],
     "occupancy_conv_fwd": [_P] * 5 + [_I] * 4 + [_P],
@@ -35,6 +37,10 @@ SIGNATURES = {
     "scalar_conv_dw": [_P] * 7 + [_I] * 4 + [_P],
     "scalar_conv_dx": [_P] * 7 + [_I] * 4 + [_P],
     "windowed_cell_topk": [_P] * 10 + [_I] * 5 + [ctypes.c_float, _P],
+    "join_kmap": [_P] * 6 + [_I, _L, _P],
+    "sparse_conv_table_fwd": [_P] * 4 + [_I] * 5 + [_P],
+    "sparse_conv_implicit_dw": [_P] * 6 + [_I] * 5 + [_P],
+    "sparse_conv_table_dw": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 _lib = None

@@ -1,4 +1,5 @@
-"""K6 and K7: the implicit-map sparse convolution, forward and backward.
+"""K6, K7, K8 and K12: the sparse convolution over an implicit map or an
+index table, forward, backward and standalone weight gradient.
 
 ``sparse_conv_implicit_fwd`` launches the CUDA kernel of
 ``csrc/sparse_conv_fwd.cu`` on a CUDA tensor and takes the plain PyTorch
@@ -6,9 +7,16 @@ version below on a CPU tensor. It replaces
 gcl_tpu/core/pallas_conv.py:_conv_half_fwd (kernel body _fwd_kernel_h).
 ``sparse_conv_implicit_bwd`` does the same with ``csrc/sparse_conv_bwd.cu``
 (dX and dW in one pass over the reverse map) and replaces _conv_half_bwd
-(kernel body _bwd_kernel_h).
+(kernel body _bwd_kernel_h). ``sparse_conv_dw`` (``csrc/sparse_conv_dw.cu``,
+K8) is the standalone dW of the two-pass backward: over the implicit
+forward map it replaces _conv_half_dw (kernel body _dw_kernel_h), over an
+index table pallas_conv_dw. ``sparse_conv_table_fwd`` (K12, the forward
+kernel with its rows read from a table) replaces pallas_conv_fwd, the
+index-table API that gcl_tpu reaches through _fused_from_idx.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -164,3 +172,149 @@ def sparse_conv_implicit_bwd(x: torch.Tensor, g: torch.Tensor,
 
 
 sparse_conv_implicit_bwd.launches = 0
+
+
+def sparse_conv_table_fwd_plain(x: torch.Tensor, w: torch.Tensor,
+                                idx: torch.Tensor) -> torch.Tensor:
+    """Plain version: a gather and one matmul per offset, summed in offset
+    order (gcl_tpu's scan _conv_forward)."""
+    n_in, cin = x.shape
+    xp = torch.cat([x, x.new_zeros((1, cin))])
+    rows = idx.long()
+    rows = torch.where((rows < 0) | (rows >= n_in), n_in, rows)
+    out = x.new_zeros((idx.shape[1], w.shape[2]))
+    for k in range(w.shape[0]):
+        out = out + xp[rows[k]] @ w[k]
+    return out
+
+
+def sparse_conv_dw_plain(x: torch.Tensor, g: torch.Tensor,
+                         qkey: torch.Tensor,
+                         skeys: Optional[torch.Tensor] = None,
+                         srow: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Plain version: the forward rows (by searchsorted, or read from the
+    table when skeys is None), then per offset a gather of x and one
+    matmul."""
+    n_in, cin = x.shape
+    rows = (qkey if skeys is None else lookup(skeys, srow, qkey)).long()
+    rows = torch.where((rows < 0) | (rows >= n_in), n_in, rows)
+    xp = torch.cat([x, x.new_zeros((1, cin))])
+    return torch.stack([xp[rows[k]].T @ g for k in range(qkey.shape[0])])
+
+
+def _check_map(x, idx):
+    if x.dim() != 2 or idx.dim() != 2:
+        raise ValueError(f"expected x [N_in, Cin] and a map [K, N_out], got "
+                         f"{tuple(x.shape)} and {tuple(idx.shape)}")
+    if x.dtype != torch.float32 or idx.dtype != torch.int32:
+        raise TypeError(f"x must be float32 and the map int32, got {x.dtype} "
+                        f"and {idx.dtype}")
+    if idx.device != x.device:
+        raise ValueError(f"the map on {idx.device}, x on {x.device}")
+
+
+def sparse_conv_table_fwd(x: torch.Tensor, w: torch.Tensor,
+                          idx: torch.Tensor) -> torch.Tensor:
+    """out[i] = sum_k x[idx[k, i]] @ w[k], an entry outside [0, N_in)
+    (a missing input is -1) contributing zero.
+
+    x f32[N_in, Cin], w f32[K, Cin, Cout], idx int32[K, N_out] (a kernel
+    map of SparseGraph.kmaps). Returns f32[N_out, Cout]. Through the
+    reverse table with flipped, transposed weights it is also the dX of
+    the conv.
+    """
+    _check_map(x, idx)
+    if w.dim() != 3 or w.shape[:2] != (idx.shape[0], x.shape[1]):
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, "
+                         f"w {tuple(w.shape)}, idx {tuple(idx.shape)}")
+    if w.dtype != torch.float32 or w.device != x.device:
+        raise TypeError(f"w must be float32 on {x.device}, got {w.dtype} "
+                        f"on {w.device}")
+    if x.device.type == "cpu":
+        return sparse_conv_table_fwd_plain(x, w, idx)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    for name, t in (("x", x), ("w", w), ("idx", idx)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    kvol, cin, cout = w.shape
+    n_out = idx.shape[1]
+    out = torch.empty((n_out, cout), dtype=torch.float32, device=x.device)
+    if n_out == 0:
+        return out
+    lib = load_library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.sparse_conv_table_fwd(
+        x.data_ptr(), w.data_ptr(), idx.data_ptr(), out.data_ptr(), cin,
+        cout, kvol, n_out, x.shape[0], stream)
+    check(err, "sparse_conv_table_fwd")
+    sparse_conv_table_fwd.launches += 1
+    return out
+
+
+sparse_conv_table_fwd.launches = 0
+
+
+def sparse_conv_dw(x: torch.Tensor, g: torch.Tensor, qkey: torch.Tensor,
+                   skeys: Optional[torch.Tensor] = None,
+                   srow: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dW[k] = sum_i x[row(k, i)]^T g[i] over the forward map, f32[K, Cin,
+    Cout]: the standalone weight gradient.
+
+    x f32[N_in, Cin], g f32[N_out, Cout] (any strides: made contiguous
+    here). The map comes in one of two forms. Implicit: qkey int32[K,
+    N_out] the forward query keys (ConvMap.qkey) with skeys / srow the
+    INPUT level's sorted valid keys and their rows. Index table: qkey
+    int32[K, N_out] holds the rows themselves (a kernel map of
+    SparseGraph.kmaps; outside [0, N_in) means no input) and skeys / srow
+    stay None.
+    """
+    _check_map(x, qkey)
+    kvol = qkey.shape[0]
+    if g.dim() != 2 or g.shape[0] != qkey.shape[1]:
+        raise ValueError(f"g {tuple(g.shape)} does not cover the map "
+                         f"{tuple(qkey.shape)}")
+    if g.dtype != torch.float32 or g.device != x.device:
+        raise TypeError(f"g must be float32 on {x.device}, got {g.dtype} "
+                        f"on {g.device}")
+    if (skeys is None) != (srow is None):
+        raise ValueError("skeys and srow come together or not at all")
+    if skeys is not None:
+        if skeys.dim() != 1 or srow.shape != skeys.shape:
+            raise ValueError("skeys and srow must be 1-D of one length")
+        for name, t in (("skeys", skeys), ("srow", srow)):
+            if t.dtype != torch.int32 or t.device != x.device:
+                raise TypeError(f"{name} must be int32 on {x.device}, got "
+                                f"{t.dtype} on {t.device}")
+    if x.device.type == "cpu":
+        return sparse_conv_dw_plain(x, g, qkey, skeys, srow)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    for name, t in (("x", x), ("qkey", qkey), ("skeys", skeys),
+                    ("srow", srow)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    g = g.contiguous()
+    cin, cout = x.shape[1], g.shape[1]
+    n_out = qkey.shape[1]
+    dw = torch.zeros((kvol, cin, cout), dtype=torch.float32, device=x.device)
+    if n_out == 0 or x.shape[0] == 0 or dw.numel() == 0:
+        return dw
+    lib = load_library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if skeys is None:
+        err = lib.sparse_conv_table_dw(
+            x.data_ptr(), g.data_ptr(), qkey.data_ptr(), dw.data_ptr(), cin,
+            cout, kvol, n_out, x.shape[0], stream)
+    else:
+        err = lib.sparse_conv_implicit_dw(
+            x.data_ptr(), g.data_ptr(), qkey.data_ptr(), skeys.data_ptr(),
+            srow.data_ptr(), dw.data_ptr(), cin, cout, kvol, n_out,
+            skeys.shape[0], stream)
+    check(err, "sparse_conv_dw")
+    sparse_conv_dw.launches += 1
+    return dw
+
+
+sparse_conv_dw.launches = 0

@@ -14,19 +14,22 @@ import torch
 from torch import nn
 
 from ..core.kernel_maps import ConvSpec
-from ..core.sparse_ops import (draw_input_eps, masked_mean_var,
+from ..core.sparse_ops import (draw_input_eps, masked_mean_var, sparse_conv,
                                sparse_conv_c1z, sparse_conv_c1z_exact_jitter,
                                sparse_conv_c1z_jittered, sparse_conv_implicit)
-from ..core.types import SparseGraph
+from ..core.types import SparseGraph, map_key
 
 
 class SparseConv(nn.Module):
-    """Sparse (transpose) convolution over a graph's implicit map.
+    """Sparse (transpose) convolution over a graph's map.
 
-    Dispatch: a 1x1x1 same-level conv is a plain matmul (no map); an
-    ``occupancy`` conv with in_ch == 1 runs the K2 presence kernel (its
-    input must be the all-ones occupancy features); every other conv runs
-    the K6 implicit-map kernel. The kernel weight is [K, Cin, Cout] with
+    Dispatch, as in gcl_tpu: a 1x1x1 same-level conv is a plain matmul (no
+    map); an ``occupancy`` conv with in_ch == 1 whose implicit map carries
+    the occupancy aux runs the K2 presence kernel (its input must be the
+    all-ones occupancy features); a conv whose geometry is in
+    ``graph.maps`` runs the K6 implicit-map kernel; every other conv runs
+    the index-table kernel over ``graph.kmaps``, with its reverse twin's
+    table for an odd kernel. The kernel weight is [K, Cin, Cout] with
     offsets in kernel_offsets order ([Cin, Cout] for 1x1).
     """
 
@@ -47,29 +50,43 @@ class SparseConv(nn.Module):
     def forward(self, x: torch.Tensor, graph: SparseGraph, c1z_jitter=None,
                 generator=None, jitter_draws=None) -> torch.Tensor:
         """``c1z_jitter``: optional (sigma, p, row_sel, exact) -- the conv
-        owns the train-time feature jitter of its all-ones input. Only an
-        occupancy conv takes it. exact=True: conv(1 + eps) = presence
-        conv(1) + scalar conv(eps)
-        (sparse_ops.sparse_conv_c1z_exact_jitter); exact=False:
-        distribution-matched noise on the output
-        (sparse_ops.sparse_conv_c1z_jittered). The noise comes from
-        ``generator`` unless ``jitter_draws`` = (gate_u, normal) hands in
-        the numbers already drawn (normal f32[N, 1] for the exact jitter,
-        f32[N, K] for the other)."""
+        owns the train-time feature jitter of its all-ones input. On the
+        occupancy path, exact=True: conv(1 + eps) = presence conv(1) +
+        scalar conv(eps) (sparse_ops.sparse_conv_c1z_exact_jitter);
+        exact=False: distribution-matched noise on the output
+        (sparse_ops.sparse_conv_c1z_jittered). On any route that reads its
+        features the conv adds the literal input jitter to ``x`` first.
+        The noise comes from ``generator`` unless ``jitter_draws`` =
+        (gate_u, normal) hands in the numbers already drawn (normal of
+        x's shape, f32[N, 1], for the exact and the input jitter, f32[N,
+        K] for the other)."""
+        gate_u, normal = jitter_draws or (None, None)
+
+        def input_jitter(x):
+            sigma, p, row_sel, _ = c1z_jitter
+            lv_mask = graph.levels[self.spec.in_stride].mask
+            u = gate_u if gate_u is not None else torch.rand(
+                (), generator=generator, device=x.device)
+            z = normal if normal is not None else torch.randn(
+                x.shape, generator=generator, device=x.device)
+            noise = z * sigma * lv_mask.to(x.dtype)[:, None]
+            if row_sel is not None:
+                noise = noise * row_sel.to(x.dtype)[:, None]
+            return x + (u < p).to(x.dtype) * noise
+
         if self.spec.is_identity_map:
+            if c1z_jitter is not None:
+                x = input_jitter(x)
             y = torch.matmul(x, self.kernel)
         else:
-            cmap = graph.maps[self.spec.key]
+            cmap = graph.maps.get(self.spec.key)
             in_level = graph.levels[self.spec.in_stride]
             on_c1z = (self.occupancy and self.in_ch == 1
-                      and cmap.c1z is not None)
-            if c1z_jitter is not None:
+                      and cmap is not None and cmap.c1z is not None)
+            if c1z_jitter is not None and not on_c1z:
+                x = input_jitter(x)
+            if on_c1z and c1z_jitter is not None:
                 sigma, p, row_sel, exact = c1z_jitter
-                if not on_c1z:
-                    raise NotImplementedError(
-                        "input jitter is ported for the occupancy conv1 "
-                        "only")
-                gate_u, normal = jitter_draws or (None, None)
                 if exact:
                     eps = draw_input_eps(generator, sigma, p, in_level.mask,
                                          row_sel, gate_u, normal)
@@ -81,9 +98,17 @@ class SparseConv(nn.Module):
                                                  row_sel, gate_u, normal)
             elif on_c1z:
                 y = sparse_conv_c1z(self.kernel, cmap.c1z, in_level)
-            else:
+            elif cmap is not None:
                 y = sparse_conv_implicit(x, self.kernel, cmap, in_level,
                                          graph.levels[self.spec.out_stride])
+            else:
+                # only odd kernels have a reverse twin
+                rev = (graph.kmaps.get(map_key(
+                    self.spec.out_stride, self.spec.in_stride,
+                    self.spec.kernel_size, self.spec.dilation))
+                    if self.spec.kernel_size % 2 == 1 else None)
+                y = sparse_conv(x, self.kernel, graph.kmaps[self.spec.key],
+                                rev)
         if self.bias is not None:
             y = y + self.bias
         return y

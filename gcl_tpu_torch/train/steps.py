@@ -23,7 +23,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 from torch.profiler import record_function
 
-from ..core.kernel_maps import ConvSpec, build_graph
+from ..core.kernel_maps import METHODS, ConvSpec, build_graph
 from ..data.device_pipeline import (VoxelizedClouds, batch_colocation_groups,
                                     voxelize_per_cloud)
 from ..losses.gcl import (GCLLossConfig, LossDraws, SpatialNegFilter,
@@ -65,14 +65,19 @@ class StepConfig:
     # output instead (sparse_ops.sparse_conv_c1z_jittered).
     jitter_mode: str = "input"
     compute_dtype: torch.dtype = torch.float32
+    # How the convs get their maps (core.kernel_maps.build_graph): 'auto'
+    # is implicit maps up to 31 clouds a batch (B * C) and explicit index
+    # tables above; 'explicit' asks for the tables at any batch.
+    graph_method: str = "auto"
 
 
 class StepDraws(NamedTuple):
     """The random numbers of one train step, already drawn (tests hand the
     same numbers to gcl_tpu): sample_gate_u f32[B] the per-sample jitter
     gates, jitter (gate_u scalar, normal) conv1's noise (normal f32[N, 1]
-    for jitter_mode 'input', f32[N, K] for 'c1z'), loss the loss's
-    uniforms. Unused fields may be None."""
+    for jitter_mode 'input' and on the explicit route, where conv1 reads
+    its jittered input; f32[N, K] for 'c1z' on the occupancy path), loss
+    the loss's uniforms. Unused fields may be None."""
 
     sample_gate_u: Optional[torch.Tensor] = None
     jitter: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
@@ -109,6 +114,9 @@ def _check_config(step_cfg: StepConfig, loss_kind: str) -> None:
     if step_cfg.jitter_mode not in ("input", "c1z"):
         raise ValueError(f"jitter_mode {step_cfg.jitter_mode!r}: 'input' or "
                          f"'c1z'")
+    if step_cfg.graph_method not in METHODS:
+        raise ValueError(f"graph_method {step_cfg.graph_method!r}: one of "
+                         f"{METHODS}")
     if loss_kind not in _GROUP_LOSSES:
         raise ValueError(f"loss {loss_kind!r}: one of "
                          f"{sorted(_GROUP_LOSSES)}")
@@ -136,7 +144,8 @@ def _geometry(points, pmask, transforms, radius, conv_specs,
             chunk=step_cfg.knn_chunk, cell=step_cfg.search_cell)
     with record_function("gcl/graph"):
         graph = build_graph(flat.coords, flat.mask, conv_specs,
-                            step_cfg.level_caps, n_clouds=b * c)
+                            step_cfg.level_caps, n_clouds=b * c,
+                            method=step_cfg.graph_method)
     return flat, graph, groups, vox_b
 
 

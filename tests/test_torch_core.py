@@ -172,10 +172,19 @@ def test_graph_upmap_scale_exact():
 
 
 def test_more_than_31_clouds_raises():
+    """(Kept under its first name.) Above 31 clouds the implicit route
+    raises, since its packed keys fold cloud ids mod 31; 'auto' builds
+    index tables over unblocked levels instead."""
     coords, mask = _voxelized(4, 2, 64)
+    args = (torch.from_numpy(coords), torch.from_numpy(mask), fatbn_specs(),
+            {2: 64, 4: 64, 8: 64})
     with pytest.raises(ValueError, match="31"):
-        build_graph(torch.from_numpy(coords), torch.from_numpy(mask),
-                    fatbn_specs(), {2: 64, 4: 64, 8: 64}, n_clouds=32)
+        build_graph(*args, n_clouds=32, method="implicit")
+    with pytest.raises(ValueError, match="method"):
+        build_graph(*args, n_clouds=2, method="sortjoin")
+    g = build_graph(*args, n_clouds=32)
+    assert not g.maps and len(g.kmaps) == 11
+    assert g.levels[2].coords.shape[0] == 64 and g.levels[1].skeys is None
 
 
 def test_fold_clouds_exact():

@@ -1,4 +1,4 @@
-"""CUDA legs of the port's kernels (K1-K7, K9, K11): each kernel against its
+"""CUDA legs of the port's kernels (K1-K12): each kernel against its
 plain PyTorch version on the card, at small shapes with ragged tile edges.
 
 A CUDA kernel has no CPU mode, so these skip where
@@ -17,7 +17,12 @@ from gcl_tpu_torch.data.device_pipeline import (_batched_grid_core,
                                                 batch_colocation_groups,
                                                 batched_grid_radius_knn,
                                                 radius_knn)
-from gcl_tpu_torch.kernels import (occupancy_conv_dw,
+from gcl_tpu_torch.core import kernel_maps, sparse_ops
+from gcl_tpu_torch.kernels import (join_kmap, join_kmap_plain,
+                                   sparse_conv_dw, sparse_conv_dw_plain,
+                                   sparse_conv_table_fwd,
+                                   sparse_conv_table_fwd_plain,
+                                   occupancy_conv_dw,
                                    occupancy_conv_dw_plain,
                                    occupancy_conv_fwd,
                                    occupancy_conv_fwd_plain, scalar_conv_dw,
@@ -374,3 +379,205 @@ def test_features_on_card_match_cpu(dev):
                        torch.from_numpy(pmask).to(d))
         feats.append(f.cpu())
     torch.testing.assert_close(feats[0], feats[1], rtol=0, atol=1e-4)
+
+
+# --- the explicit route: K10, the index-table forward (K12) and K8 ---
+
+TABLE_SPECS = SPECS + [ConvSpec("block2", 2, 2, 3), ConvSpec("even", 1, 2, 2)]
+
+
+def _table_graph(dev, n_clouds, seed=0, n_points=900, nv=600, cap2=500):
+    """The clouds and capacities of _graph by default, on the explicit
+    route."""
+    pts, pmask = clouds(seed, n_clouds, n_points)
+    vox = voxelize_per_cloud(torch.from_numpy(pts).to(dev),
+                             torch.from_numpy(pmask).to(dev), VOXEL, nv)
+    flat = vox.flatten()
+    return build_graph(flat.coords, flat.mask, TABLE_SPECS,
+                       {2: cap2}, n_clouds, method="explicit")
+
+
+@pytest.mark.parametrize("n_clouds,n_points,nv", [(3, 900, 600),
+                                                  (40, 200, 90)])
+def test_join_kernel_matches_plain(dev, n_clouds, n_points, nv):
+    """K10: every table of a graph equals the plain version's, on blocked
+    levels (3 clouds) and unblocked ones (40 clouds); sentinel queries and
+    the padded tail of the keys give -1."""
+    before = join_kmap.launches
+    g = _table_graph(dev, n_clouds, 4, n_points, nv, nv * n_clouds)
+    torch.cuda.synchronize()
+    assert join_kmap.launches == before + 6 and len(g.kmaps) == 6
+    for sp in TABLE_SPECS:
+        lv = g.levels[sp.in_stride]
+        offs = kernel_maps.kernel_offsets(sp.kernel_size) * sp.offset_scale
+        qhi, qlo = kernel_maps.two_word_query_keys(g.levels[sp.out_stride],
+                                                   sp.in_stride, offs)
+        ref = join_kmap_plain(lv.key_hi, lv.key_lo, lv.perm, qhi, qlo)
+        assert torch.equal(g.kmaps[sp.key], ref), sp.key
+        assert int((ref >= 0).sum()) > 100
+        assert (ref[qhi == 0x7FFFFFFF] == -1).all()
+    if n_clouds > 31:
+        cloud = g.levels[1].coords[:, 0]
+        late = (cloud >= 31) & g.levels[1].mask
+        assert (g.kmaps["s1->s1/k3d1"][13][late]
+                == torch.nonzero(late).flatten()).all()
+
+
+TABLE_CASES = [("s1->s1/k3d1", 32, 32), ("s1->s2/k3d1", 40, 72),
+               ("s2->s1/k3d1", 100, 24), ("s1->s1/k3d1", 130, 200),
+               ("s1->s2/k3d1", 70, 300), ("s1->s1/k3d1", 1, 1),
+               ("s1->s1/k5d1", 1, 32), ("s1->s2/k2d1", 8, 12)]
+
+
+def _table_inputs(g, key, cin, cout, dev):
+    s_in, s_out = (int(t[1:]) for t in key.split("/")[0].split("->"))
+    kvol = g.kmaps[key].shape[0]
+    gen = torch.Generator().manual_seed(cin + cout)
+    x = torch.randn(g.levels[s_in].coords.shape[0], cin, generator=gen)
+    up = torch.randn(cout, g.levels[s_out].coords.shape[0], generator=gen)
+    w = torch.randn(kvol, cin, cout, generator=gen)
+    return x.to(dev), up.to(dev).T, w.to(dev), (s_in, s_out)
+
+
+@pytest.mark.parametrize("key,cin,cout", TABLE_CASES)
+def test_table_conv_kernel_matches_plain(dev, key, cin, cout):
+    """The index-table forward within 1e-4 of the plain version's max
+    (float32 FMAs in another order than its per-offset matmuls)."""
+    g = _table_graph(dev, 3)
+    x, _, w, _ = _table_inputs(g, key, cin, cout, dev)
+    before = sparse_conv_table_fwd.launches
+    out = sparse_conv_table_fwd(x, w, g.kmaps[key])
+    torch.cuda.synchronize()
+    assert sparse_conv_table_fwd.launches == before + 1
+    _close_to_max(out, sparse_conv_table_fwd_plain(x, w, g.kmaps[key]), 1e-4)
+
+
+@pytest.mark.parametrize("key,cin,cout", TABLE_CASES)
+def test_dw_kernel_matches_plain(dev, key, cin, cout):
+    """K8 over an index table and, for the odd kernels, over the implicit
+    map of the same geometry: within 1e-4 of the plain version's max (dW
+    summed over blocks by atomics), and of each other."""
+    g = _table_graph(dev, 3)
+    x, up, _, (s_in, _) = _table_inputs(g, key, cin, cout, dev)
+    assert cout == 1 or not up.is_contiguous()
+    before = sparse_conv_dw.launches
+    dw = sparse_conv_dw(x, up, g.kmaps[key])
+    torch.cuda.synchronize()
+    assert sparse_conv_dw.launches == before + 1
+    assert dw.shape == (g.kmaps[key].shape[0], cin, cout)
+    _close_to_max(dw, sparse_conv_dw_plain(x, up, g.kmaps[key]), 1e-4)
+    if "k2" in key:
+        return
+    gi = _graph(dev)  # the same clouds on the implicit route
+    lv = gi.levels[s_in]
+    dwi = sparse_conv_dw(x, up, gi.maps[key].qkey, lv.skeys, lv.srow)
+    _close_to_max(dwi, sparse_conv_dw_plain(x, up, gi.maps[key].qkey,
+                                            lv.skeys, lv.srow), 1e-4)
+    _close_to_max(dwi, dw, 1e-4)
+
+
+@pytest.mark.parametrize("key,cin,cout", TABLE_CASES[:3] + TABLE_CASES[-2:])
+def test_table_conv_gradients_on_card(dev, key, cin, cout):
+    """sparse_conv through autograd on the card (K12 + K12 through the
+    reverse table + K8, or the scatter-add for the even kernel) against the
+    same Function on the plain versions; and the implicit route's two-pass
+    backward (K6 + K8) against its one-pass backward (K7)."""
+    g = _table_graph(dev, 3)
+    x, up, w, (s_in, s_out) = _table_inputs(g, key, cin, cout, dev)
+    rev = g.kmaps.get(f"s{s_out}->s{s_in}/{key.split('/')[1]}") \
+        if "k2" not in key else None
+
+    def grads(fn):
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        out = fn(xr, wr)
+        out.backward(up)
+        return out.detach(), xr.grad, wr.grad
+
+    got = grads(lambda x, w: sparse_ops.sparse_conv(x, w, g.kmaps[key], rev))
+    saved = {n: getattr(sparse_ops, n) for n in ("sparse_conv_table_fwd",
+                                                 "sparse_conv_dw")}
+    try:
+        sparse_ops.sparse_conv_table_fwd = sparse_conv_table_fwd_plain
+        sparse_ops.sparse_conv_dw = sparse_conv_dw_plain
+        ref = grads(lambda x, w: sparse_ops.sparse_conv(x, w, g.kmaps[key],
+                                                        rev))
+    finally:
+        for n, fn in saved.items():
+            setattr(sparse_ops, n, fn)
+    for a, b in zip(got, ref):
+        _close_to_max(a, b, 1e-4)
+    if rev is None or "k5" in key:
+        return
+    gi = _graph(dev)
+    lv_in, lv_out = gi.levels[s_in], gi.levels[s_out]
+    one, two = (grads(lambda x, w: sparse_ops.sparse_conv_implicit(
+        x, w, gi.maps[key], lv_in, lv_out, two_pass_backward=tp))
+        for tp in (False, True))
+    for a, b, c in zip(one, two, got):
+        _close_to_max(b, a, 1e-4)
+        _close_to_max(c, a, 1e-4)
+
+
+def test_explicit_route_gradients_on_card_match_cpu(dev, monkeypatch):
+    """ResUNetFatBN in train mode on the explicit route, 40 clouds, with
+    the input jitter, forward and backward on the card.
+
+    Every launch of K10, K12 and K8 inside it is held to its plain version
+    on the very same inputs (integers equal, floats within 1e-4 of the
+    max); the features agree with the plain versions on the CPU within
+    1e-4 (unit-norm rows). The parameter gradients of the two whole runs
+    are held to 0.1 of each tensor's max only: a ReLU input within float32
+    rounding of zero opens on one machine and not on the other and moves a
+    channel's gradient by percents (2e-2 was seen here between the plain
+    versions on the card and on the CPU; the card against itself repeats
+    to 5e-7)."""
+    calls = {}
+
+    def checked(name, fn, plain):
+        def both(*args):
+            got, ref = fn(*args), plain(*args)
+            if got.dtype == torch.int32:
+                assert torch.equal(got, ref), name
+            else:
+                _close_to_max(got, ref, 1e-4)
+            calls[name] = calls.get(name, 0) + 1
+            return got
+        return both
+
+    n_clouds, nv = 40, 90
+    pts, pmask = clouds(3, n_clouds, 200)
+    specs = fatbn_specs()
+    n = n_clouds * nv
+    caps = {2: n, 4: n, 8: n}
+    rng = torch.Generator().manual_seed(0)
+    normal = torch.randn(n, 1, generator=rng)
+    target = torch.randn(n, 32, generator=rng)
+    feats, grads = [], []
+    for d in (dev, torch.device("cpu")):
+        if d.type == "cuda":
+            monkeypatch.setattr(kernel_maps, "join_kmap", checked(
+                "K10", join_kmap, join_kmap_plain))
+            monkeypatch.setattr(sparse_ops, "sparse_conv_table_fwd", checked(
+                "K12", sparse_conv_table_fwd, sparse_conv_table_fwd_plain))
+            monkeypatch.setattr(sparse_ops, "sparse_conv_dw", checked(
+                "K8", sparse_conv_dw, sparse_conv_dw_plain))
+        model = ResUNetFatBN(1, 32, bn_momentum=0.05,
+                             normalize_feature=True, conv1_kernel_size=5)
+        model.load_state_dict(random_state_dict(model, seed=5))
+        model.to(d).train()
+        vox = voxelize_per_cloud(torch.from_numpy(pts).to(d),
+                                 torch.from_numpy(pmask).to(d), VOXEL, nv)
+        flat = vox.flatten()
+        gr = build_graph(flat.coords, flat.mask, specs, caps, n_clouds)
+        assert not gr.maps and len(gr.kmaps) == 11
+        sel = (flat.coords[:, 0] % 7 == 0).to(torch.float32)
+        f = model(gr, flat.feats, conv1_jitter=(0.01, 1.0, sel, True),
+                  jitter_draws=(torch.zeros((), device=d), normal.to(d)))
+        ((f * target.to(d)) * flat.mask[:, None]).sum().backward()
+        feats.append(f.detach().cpu())
+        grads.append({k: p.grad.cpu() for k, p in model.named_parameters()})
+        monkeypatch.undo()
+    assert calls == {"K10": 11, "K12": 41, "K8": 21}
+    torch.testing.assert_close(feats[0], feats[1], rtol=0, atol=1e-4)
+    for name in grads[0]:
+        _close_to_max(grads[0][name], grads[1][name], 0.1)

@@ -114,8 +114,14 @@ def test_duality_at_upmap_scale():
 
 
 def test_even_kernel_has_no_reverse_twin():
+    """An even kernel has no twin, so inside an implicit graph it gets an
+    index table and no implicit map (gcl_tpu's per-spec fallback); the odd
+    geometry beside it stays implicit."""
     flat = _flat(4, 1, 128)
-    g = build_graph(flat.coords, flat.mask, [ConvSpec("e", 1, 2, 2)],
+    g = build_graph(flat.coords, flat.mask,
+                    [ConvSpec("e", 1, 2, 2), ConvSpec("b", 1, 1, 3)],
                     {2: 128}, 1)
-    assert g.maps["s1->s2/k2d1"].rqkey is None
-    assert list(g.maps) == ["s1->s2/k2d1"]
+    assert list(g.kmaps) == ["s1->s2/k2d1"]
+    assert list(g.maps) == ["s1->s1/k3d1"]
+    assert g.kmaps["s1->s2/k2d1"].shape == (8, g.levels[2].coords.shape[0])
+    assert (g.kmaps["s1->s2/k2d1"] >= 0).any()

@@ -4,7 +4,12 @@ momentum buffers, BN running stats after each), one step's gradients
 with the exact input jitter on a pinned eps, one step with the hash-grid
 group search (search_cell set), gradient accumulation over two
 micro-batches (AccumStepper, with the location loss and the membership
-filter) and the distance-error validation step.
+filter), the distance-error validation step, and the explicit route: a
+whole step over index tables at 2 x 3 clouds (against gcl_tpu's 'auto',
+which is the explicit route off a TPU), its conv1 under the literal input
+jitter, and a whole step at 5 x 7 = 35 clouds, above the implicit route's
+31 (gcl_tpu's graph pinned to method='bsearch' there: its 'auto' loses the
+clouds from 31 on off a TPU, see tests/test_torch_join_kmap.py).
 
 JAX runs on the CPU in float32 through its XLA route (sort-join maps, the
 scan sparse_conv with its reverse-map VJP, the brute-force radius_knn);
@@ -544,6 +549,158 @@ def test_dist_err_step_matches_jax(weights, grid_interpret):
     np.testing.assert_allclose(d[mask], jd[mask], rtol=0, atol=1e-5)
     np.testing.assert_allclose(f[mask], jf[mask], rtol=0, atol=2e-4)
     assert np.abs(jd[mask]).max() > 0.5 and jf[mask].max() > 0.05
+
+
+def _one_step_against_jax(state, params, stats, batch, jcfg, tcfg, key,
+                          n_groups, n_rows):
+    """One jitter-free 'finest' step in both packages from one key: loss
+    terms, gradients (read back from gcl_tpu's momentum trace: trace_1 =
+    g_1 + wd * p_0), momentum, parameters and BN stats."""
+    tx, jstep = jsteps.make_gcl_train_step(
+        _jax_model(), jax_specs(fatbn_specs()), jcfg,
+        jgcl.GCLLossConfig(block_finest_gradient=False), "finest",
+        jitter=False, **LOSS_ARGS)
+    jstate = jsteps.TrainState(params, stats, tx.init(params), key,
+                               jnp.zeros((), jnp.int32))
+    model = _port_model(state)
+    opt, step = tsteps.make_gcl_train_step(
+        model, fatbn_specs(), tcfg,
+        GCLLossConfig(block_finest_gradient=False), "finest", jitter=False,
+        **LOSS_ARGS)
+    _, k = jax.random.split(jstate.rng)
+    k_loss, _ = jax.random.split(k)
+    draws = tsteps.StepDraws(loss=replay_loss_draws(k_loss, n_groups, n_rows,
+                                                    MAX_POS, MAX_HN))
+    prev_p = _tree_np(jstate.params)
+    jstate, jm = jstep(jstate, LRS[0], *(jnp.asarray(a) for a in batch))
+    tm = step(LRS[0], *(torch.from_numpy(a) for a in batch), draws=draws)
+    for name in ("loss", "pos_loss", "finest_loss", "neg_loss"):
+        assert float(jm[name]) > 1e-3, name
+        np.testing.assert_allclose(float(tm[name]), float(jm[name]), rtol=0,
+                                   atol=1e-5, err_msg=name)
+    for name in ("num_groups", "num_valid_voxels"):
+        assert float(tm[name]) == float(jm[name]) > 0
+    trace = _tree_np(jstate.opt_state[1].trace)
+    got = gradients_by_name(model)
+    assert len(got) == 66
+    for name, want in trace.items():
+        assert_close_to_max(to_np(got[name]), want - WD * prev_p[name], REL,
+                            f"grad {name}")
+    _compare_trees(momentum_by_name(model, opt), jstate.opt_state[1].trace,
+                   what="momentum")
+    _compare_trees(dict(model.named_parameters()), jstate.params, rel=1e-4,
+                   what="param")
+    _compare_stats(model, jstate.batch_stats)
+    return tm
+
+
+def test_explicit_route_train_step_matches_jax(weights, monkeypatch):
+    """graph_method='explicit' at 2 x 3 clouds: every conv runs over an
+    index table (K12 forward; K12 through the reverse table and K8
+    backward), conv1 reading its all-ones features. gcl_tpu's 'auto' is
+    the explicit route on the CPU (sort-join tables on the same blocked
+    levels)."""
+    from gcl_tpu_torch.core import sparse_ops
+
+    state, (params, stats) = weights
+    calls = {}
+    for name in ("sparse_conv_table_fwd", "sparse_conv_dw",
+                 "sparse_conv_implicit_fwd", "occupancy_conv_fwd"):
+        real = getattr(sparse_ops, name)
+        monkeypatch.setattr(
+            sparse_ops, name, lambda *a, _r=real, _n=name, **kw: (
+                calls.__setitem__(_n, calls.get(_n, 0) + 1) or _r(*a, **kw)))
+    tm = _one_step_against_jax(
+        state, params, stats, _batch(41), _step_cfg(jsteps),
+        _step_cfg(tsteps, graph_method="explicit"), jax.random.PRNGKey(7),
+        B * NV, N)
+    # 21 forwards + 20 dX (conv1's input asks for none); 21 dW
+    assert calls == {"sparse_conv_table_fwd": 41, "sparse_conv_dw": 21}
+    # the implicit route gives the same step to rounding
+    model = _port_model(state)
+    _, step = tsteps.make_gcl_train_step(
+        model, fatbn_specs(), _step_cfg(tsteps),
+        GCLLossConfig(block_finest_gradient=False), "finest", jitter=False,
+        **LOSS_ARGS)
+    _, k = jax.random.split(jax.random.PRNGKey(7))
+    tm2 = step(LRS[0], *(torch.from_numpy(a) for a in _batch(41)),
+               draws=_loss_draws(k))
+    assert abs(float(tm2["loss"]) - float(tm["loss"])) < 1e-5
+    assert calls["sparse_conv_implicit_fwd"] == 20
+
+
+def test_explicit_route_input_jitter_matches_jax(weights, oracle):
+    """jitter=True on the explicit route: conv1 is off the occupancy path,
+    so it adds the literal input jitter to its features and reads them
+    (models.common.SparseConv). gcl_tpu's oracle feeds 1 + eps through
+    its feature-reading conv, eps from the same pinned draws."""
+    state, (params, stats) = weights
+    batch = _batch(54)
+    key = jax.random.PRNGKey(13)
+    normal = torch.from_numpy(
+        np.random.RandomState(5).randn(N, 1).astype(np.float32))
+    gate_u = torch.tensor([0.5, 0.99])  # jitter_p = 0.95: sample 1 is off
+    model = _port_model(state)
+    grad_fn = tsteps.make_gcl_grad_fn(
+        model, fatbn_specs(), _step_cfg(tsteps, graph_method="explicit"),
+        GCLLossConfig(block_finest_gradient=False), "finest", MAX_POS,
+        MAX_HN, 1.0, 1.0, 1.0, jitter=True)
+    draws = tsteps.StepDraws(
+        sample_gate_u=gate_u, jitter=(torch.tensor(0.3), normal),
+        loss=replay_loss_draws(key, B * NV, N, MAX_POS, MAX_HN))
+    tm = grad_fn(*(torch.from_numpy(a) for a in batch), draws=draws)
+    flat, _ = _port_geometry(batch)
+    cloud = flat.coords[:, 0]
+    rows = ((cloud % C == 0) & (cloud // C == 0)).to(torch.float32)
+    eps = draw_input_eps(None, SIGMA, 1.0, flat.mask, rows,
+                         gate_u=torch.tensor(0.3), normal=normal)
+    total, (out, new_stats, _), grads = oracle(
+        params, stats, *map(jnp.asarray, batch), jnp.asarray(to_np(eps)),
+        jnp.zeros((N, 32)), key, 0.0, 1.0)
+    np.testing.assert_allclose(float(tm["loss"]), float(total), rtol=0,
+                               atol=1e-5)
+    for name in ("pos_loss", "finest_loss", "neg_loss"):
+        np.testing.assert_allclose(float(tm[name]), float(getattr(out, name)),
+                                   rtol=0, atol=1e-5, err_msg=name)
+    _compare_trees(gradients_by_name(model), grads, what="jitter grad")
+    _compare_stats(model, new_stats)
+    # a generator draws noise of the same shape on this route
+    gen = torch.Generator().manual_seed(1)
+    tm2 = grad_fn(*(torch.from_numpy(a) for a in batch), generator=gen,
+                  draws=tsteps.StepDraws(loss=draws.loss))
+    assert bool(torch.isfinite(tm2["loss"]))
+    assert abs(float(tm2["loss"]) - float(tm["loss"])) > 1e-7
+
+
+def test_train_step_above_31_clouds_matches_jax(weights, monkeypatch):
+    """5 x 7 = 35 tiny clouds: 'auto' leaves the implicit route (its packed
+    keys fold cloud ids mod 31) for index tables over unblocked levels.
+    gcl_tpu's step is pinned to method='bsearch' for the comparison (only
+    in this test; nothing in the package changes)."""
+    import functools
+    from gcl_tpu.core.kernel_maps import build_graph as j_build
+
+    monkeypatch.setattr(jsteps, "build_graph",
+                        functools.partial(j_build, method="bsearch"))
+    state, (params, stats) = weights
+    b, c, p, nv = 5, 7, 140, 48
+    n = b * c * nv
+    centre, pmask = clouds(61, b, p)
+    rng = np.random.RandomState(62)
+    transforms = np.broadcast_to(np.eye(4, dtype=np.float32),
+                                 (b, c, 4, 4)).copy()
+    transforms[:, 1:, :2, 3] = rng.uniform(-1.0, 1.0, (b, c - 1, 2))
+    pts = (centre[:, None] - transforms[:, :, None, :3, 3]
+           + rng.randn(b, c, p, 3).astype(np.float32) * 0.05)
+    pmask = np.repeat(pmask[:, None], c, axis=1) & (rng.rand(b, c, p) > 0.1)
+    batch = (pts.astype(np.float32), pmask, transforms,
+             np.full((b,), 0.5, np.float32))
+    caps = default_level_caps(n, strides_of(fatbn_specs()), 0.9)
+    kw = dict(nv_cap=nv, level_caps=caps)
+    tm = _one_step_against_jax(
+        state, params, stats, batch, _step_cfg(jsteps, **kw),
+        _step_cfg(tsteps, **kw), jax.random.PRNGKey(3), b * nv, n)
+    assert float(tm["num_valid_voxels"]) > 30 * 35
 
 
 def test_c1z_jitter_step_runs(weights):
