@@ -26,9 +26,16 @@ Phases, in order; any failure raises and the exit code is non-zero:
    atomics): K7's dX and dW for every k=3 geometry at its real Cin / Cout,
    K7's dX also against K6 through the reverse map with flipped transposed
    weights, K3, K4 (a dense random x, and the gated eps case bit for bit
-   against the ungated kernel), K5, and K6 / K2 again at these shapes. It
-   times each with CUDA events and works out each kernel's bound from the
-   bytes it must move and the FMAs of its matched (offset, row) pairs.
+   against the ungated kernel), K5, and K6 / K2 again at these shapes (K6
+   also against itself, bit for bit). It times each with CUDA events and
+   works out each kernel's bound from the bytes it must move and the
+   operations of its matched (offset, row) pairs: for the matrix products
+   (K6, K7, K8, K12) split TF32 on the tensor cores, printed beside the
+   CUDA-core FP32 bound. Per conv and per step it prints the matched GFLOP
+   and the GFLOP that K6 and K7's dX execute, counted by the kernels
+   themselves in a separate launch (the rows of the mma fragments they ran;
+   compacted_rows' count from the map must agree), and requires both
+   within 1.4 x the matched work.
    Per conv it also sets the one-pass backward (K7) beside the two-pass
    one (K6 through the reverse map for dX + K8 over the forward map for
    dW): dX and dW of both within 1e-4 of each other's max, the times of
@@ -52,8 +59,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    plain version's; the index-table forward K12 for conv1 and the 20 k = 3
    convs at their real Cin / Cout, K12 through the reverse table (the dX
    of the two-pass backward) against the scatter-add backward, and K8 over
-   the tables, each within 1e-4 of the plain tensor's max; times and
-   bounds as above;
+   the tables, each within 1e-4 of the plain tensor's max; times, bounds
+   and K12's matched and executed GFLOP (counted as above);
 8. explicit-route train step at 8 x 7: as phase 6 with exactly K1 1, K10
    11, K12 41 (21 forward + 20 dX), K8 21 launches per step and none of
    K2-K7; then the 4 x 7 step on the explicit route, one timed step, so
@@ -77,6 +84,10 @@ BATCH = 4          # the train step's batch: 4 samples x 7 clouds
 BATCH_EXPLICIT = 8  # 56 clouds: above the 31 the implicit maps address
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_FLOP_PER_S = 67e12     # float32 outside the tensor cores, published
+TF32_FLOP_PER_S = 495e12    # TF32 on the tensor cores, dense, published
+# the kernels whose operations are matrix products: the card can run them
+# as split TF32 on the tensor cores (K6, K7 and K12 do)
+PRODUCTS = ("K6", "K7", "K8", "K12")
 REL_TOL = 1e-4     # kernel vs plain, relative to the plain tensor's max
 
 
@@ -169,13 +180,16 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _bound(n_bytes: float, flops: float):
+def _bound(n_bytes: float, flops: float, split_tf32: bool = False):
     """(bound_ms, bound_by): the larger of bytes over the card's memory
-    rate and float32 operations over its CUDA-core peak (the inputs are
-    float32 and the kernels use no tensor cores; in TF32 the operations'
-    share would be 7.4 times smaller)."""
+    rate and the float32 operations over the fastest rate that keeps
+    float32 accuracy. Operations on the CUDA cores: FP32_FLOP_PER_S. Matrix
+    products (``split_tf32``): split TF32 on the tensor cores, three TF32
+    products per float32 one, 3 x flops / TF32_FLOP_PER_S, the lesser
+    time; _bounds prints the CUDA-core bound beside it."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = flops / FP32_FLOP_PER_S
+    t_ops = (3 * flops / TF32_FLOP_PER_S if split_tf32
+             else flops / FP32_FLOP_PER_S)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -201,12 +215,33 @@ def _records(*names) -> dict:
             for k in names}
 
 
+def _counted_rows(dev, launch, expected: int, what: str) -> int:
+    """The rows that the gather-GEMM launches of launch() multiply, as the
+    kernels count them (a launch of its own, not a timed one); required
+    equal to ``expected``, compacted_rows' count from the map."""
+    from gcl_tpu_torch.kernels import counted_gather_rows
+
+    with counted_gather_rows(dev) as counter:
+        launch()
+    rows = int(counter.item())
+    _require(rows == expected, f"{what}: the kernel multiplied {rows} rows, "
+                               f"the map's compacted count is {expected}")
+    return rows
+
+
+def _add_work(r: dict, mult: int, matched: float, executed: float) -> None:
+    """Add mult launches' matched and executed gather-GEMM operations."""
+    r["gemm_flops"] = r.get("gemm_flops", 0) + mult * matched
+    r["exec_flops"] = r.get("exec_flops", 0) + mult * executed
+
+
 def _runner(rec: dict):
     """run(name, args, ...): kernel ``name`` and its plain version on the
     same inputs; checks the outputs (floats within REL_TOL of the plain
     tensor's max, integers equal), times both with CUDA events and adds
-    ``mult`` launches' worth of time, bytes and operations to rec[name].
-    Returns (the kernel's output, worst relative error, ms, plain ms)."""
+    ``mult`` launches' worth of time, bytes and matched operations to
+    rec[name]. Returns (the kernel's output, worst relative error, ms,
+    plain ms)."""
     import torch
 
     from gcl_tpu_torch.kernels import KERNELS
@@ -261,12 +296,22 @@ def _k3_convs() -> dict:
 def _bounds(rec: dict, what: str) -> None:
     """Give every record its bound and print it."""
     for name, r in rec.items():
-        r["bound_ms"], r["bound_by"] = _bound(r["bytes"], r["flops"])
-        print(f"{name} per {what}: kernel {r['ms']:.3f} ms, plain "
-              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms by "
-              f"{r['bound_by']} ({r['bytes'] / 1e6:.1f} MB, "
-              f"{r['flops'] / 1e9:.2f} GFLOP), max_abs_err "
-              f"{r['max_abs_err']:.3g}")
+        tc = name in PRODUCTS
+        r["bound_ms"], r["bound_by"] = _bound(r["bytes"], r["flops"], tc)
+        line = (f"{name} per {what}: kernel {r['ms']:.3f} ms, plain "
+                f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms by "
+                f"{r['bound_by']} ({r['bytes'] / 1e6:.1f} MB, "
+                f"{r['flops'] / 1e9:.2f} GFLOP matched), max_abs_err "
+                f"{r['max_abs_err']:.3g}")
+        if tc:
+            line += (f"; split-TF32 bound {r['bound_ms']:.3f} ms, CUDA-core "
+                     f"FP32 bound {_bound(r['bytes'], r['flops'])[0]:.3f} ms")
+        if "exec_flops" in r:
+            line += (f"; the gather-GEMM{' (dX)' if name == 'K7' else ''} "
+                     f"executed {r['exec_flops'] / 1e9:.2f} GFLOP, counted by "
+                     f"the kernel ({r['exec_flops'] / r['gemm_flops']:.3f} x "
+                     f"its matched {r['gemm_flops'] / 1e9:.2f})")
+        print(line)
 
 
 def train_kernel_checks(dev) -> dict:
@@ -279,7 +324,7 @@ def train_kernel_checks(dev) -> dict:
     from gcl_tpu_torch.core.coords import lookup
     from gcl_tpu_torch.core.kernel_maps import build_graph
     from gcl_tpu_torch.data.device_pipeline import voxelize_per_cloud
-    from gcl_tpu_torch.kernels import KERNELS, c1z_unpack_bits
+    from gcl_tpu_torch.kernels import KERNELS, c1z_unpack_bits, compacted_rows
 
     points, pmask, _, _ = bench.bench_batch(SEED, BATCH, N_POINTS, dev)
     n_clouds = BATCH * bench.N_CLOUDS
@@ -299,6 +344,7 @@ def train_kernel_checks(dev) -> dict:
     run = _runner(rec)
     convs = _k3_convs()
     two_pass = dict(k7_ms=0.0, k6_rev_ms=0.0, k8_ms=0.0, convs=[])
+    work = dict(matched=0, k6=0, k7_dx=0)
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     for (key, s_in, s_out, cin, cout), mult in sorted(convs.items()):
         lv_in, lv_out = graph.levels[s_in], graph.levels[s_out]
@@ -308,20 +354,36 @@ def train_kernel_checks(dev) -> dict:
         g = (torch.randn(lv_out.coords.shape[0], cout, generator=gen)
              .to(dev) * lv_out.mask[:, None])
         w = torch.randn(27, cin, cout, generator=gen).to(dev) / (27 * cin) ** .5
-        matched = int((lookup(lv_in.skeys, lv_in.srow, cmap.qkey) >= 0).sum())
-        rmatched = int((lookup(lv_out.skeys, lv_out.srow, cmap.rqkey)
-                        >= 0).sum())
+        matched, ex6 = compacted_rows(
+            lookup(lv_in.skeys, lv_in.srow, cmap.qkey) >= 0)
+        rmatched, ex7 = compacted_rows(
+            lookup(lv_out.skeys, lv_out.srow, cmap.rqkey) >= 0)
         _require(matched == rmatched > 0,
                  f"{key}: forward and reverse maps hold the same pairs "
                  f"({matched} vs {rmatched})")
+        # operations: 2 x rows x Cin x Cout, matched and executed (the rows
+        # the gather-GEMM counts: compacted per (64-row tile, offset) and
+        # rounded to 16)
+        mm = 2 * cin * cout
         fwd_args = (x, w, cmap.qkey, lv_in.skeys, lv_in.srow)
-        out, e6, ms6, p6 = run(
-            "K6", fwd_args, mult, flops=2 * matched * cin * cout,
-            n_bytes=_nbytes(*fwd_args) + 4 * g.numel(), outs=lambda o: (o,))
         bwd_args = (x, g, w, cmap.rqkey, lv_out.skeys, lv_out.srow)
+        ex6 = _counted_rows(dev, lambda: KERNELS["K6"][0](*fwd_args), ex6,
+                            f"K6 {key}")
+        ex7 = _counted_rows(dev, lambda: KERNELS["K7"][0](*bwd_args), ex7,
+                            f"K7 {key} dX")
+        out, e6, ms6, p6 = run(
+            "K6", fwd_args, mult, flops=mm * matched,
+            n_bytes=_nbytes(*fwd_args) + 4 * g.numel(), outs=lambda o: (o,))
         (dx, dw), e7, ms7, p7 = run(
-            "K7", bwd_args, mult, flops=4 * matched * cin * cout,
+            "K7", bwd_args, mult, flops=2 * mm * matched,
             n_bytes=_nbytes(*bwd_args) + _nbytes(x, w))
+        _add_work(rec["K6"], mult, mm * matched, mm * ex6)
+        _add_work(rec["K7"], mult, mm * matched, mm * ex7)
+        work["matched"] += mult * mm * matched
+        work["k6"] += mult * mm * ex6
+        work["k7_dx"] += mult * mm * ex7
+        _require(torch.equal(out, KERNELS["K6"][0](*fwd_args)),
+                 f"K6 {key} repeats bit for bit")
         # the two-pass backward beside it: dX = K6 through the reverse map
         # with flipped, transposed weights, dW = K8 over the forward map
         k6, k8 = KERNELS["K6"][0], KERNELS["K8"][0]
@@ -342,8 +404,12 @@ def train_kernel_checks(dev) -> dict:
         two_pass["k8_ms"] += mult * ms8
         two_pass["convs"].append(dict(
             conv=f"{key} {cin}->{cout}", count=mult, k7_ms=ms7,
-            k6_rev_ms=ms6r, k8_ms=ms8, k7_plain_ms=p7))
-        print(f"{key} {cin}->{cout} x{mult} ({matched} pairs): "
+            k6_rev_ms=ms6r, k8_ms=ms8, k7_plain_ms=p7, k6_ms=ms6))
+        print(f"{key} {cin}->{cout} x{mult} ({matched} pairs): GFLOP per "
+              f"launch matched {mm * matched / 1e9:.2f}, executed K6 "
+              f"{mm * ex6 / 1e9:.2f} ({ex6 / matched:.3f} x), K7 dX "
+              f"{mm * ex7 / 1e9:.2f} ({ex7 / matched:.3f} x) + dW "
+              f"{mm * matched / 1e9:.2f}; "
               f"K6 rel_err {e6:.3g} {ms6:.3f} ms (plain {p6:.3f}); "
               f"K7 rel_err {e7:.3g} {ms7:.3f} ms (plain {p7:.3f}); two-pass "
               f"{ms6r + ms8:.3f} ms (K6 reverse {ms6r:.3f} + K8 {ms8:.3f}), "
@@ -436,7 +502,16 @@ def train_kernel_checks(dev) -> dict:
           f"centre clouds): K3 rel_err {e3:.3g}, K4 gated {e4:.3g}, "
           f"K5 gated {e5:.3g}, K9 {e9:.3g} (adjoint identity {adj:.3g})")
     _bounds(rec, "train step")
-    print(f"backward of the 20 k=3 convs per train step: one pass (K7) "
+    print(f"work of the 20 k=3 convs per train step: matched "
+          f"{work['matched'] / 1e9:.1f} GFLOP a direction; executed, as the "
+          f"kernels count it, K6 {work['k6'] / 1e9:.1f} "
+          f"({work['k6'] / work['matched']:.3f} x), K7 dX "
+          f"{work['k7_dx'] / 1e9:.1f} ({work['k7_dx'] / work['matched']:.3f} "
+          f"x) + dW {work['matched'] / 1e9:.1f} matched")
+    _require(work["k6"] <= 1.4 * work["matched"]
+             and work["k7_dx"] <= 1.4 * work["matched"],
+             f"K6 and K7's dX multiply at most 1.4 x the matched work: {work}")
+    print(f"backward of the 20 k=3 convs per train step: K7 (dX + dW) "
           f"{two_pass['k7_ms']:.3f} ms; two passes "
           f"{two_pass['k6_rev_ms'] + two_pass['k8_ms']:.3f} ms (K6 through "
           f"the reverse map {two_pass['k6_rev_ms']:.3f} + K8 "
@@ -617,7 +692,8 @@ def explicit_kernel_checks(dev) -> dict:
                                                 two_word_query_keys)
     from gcl_tpu_torch.core.sparse_ops import sparse_conv
     from gcl_tpu_torch.data.device_pipeline import voxelize_per_cloud
-    from gcl_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from gcl_tpu_torch.kernels import (KERNELS, compacted_rows, launch_counts,
+                                       reset_launch_counts)
 
     batch = BATCH_EXPLICIT
     points, pmask, _, _ = bench.bench_batch(SEED, batch, N_POINTS, dev)
@@ -684,24 +760,36 @@ def explicit_kernel_checks(dev) -> dict:
              .to(dev) * lv_out.mask[:, None])
         w = (torch.randn(kvol, cin, cout, generator=gen).to(dev)
              / (kvol * cin) ** .5)
-        matched = int((kmap >= 0).sum())
-        _require(matched == int((rev >= 0).sum()) > 0,
+        matched, ex12 = compacted_rows(kmap >= 0)
+        rmatched, ex12r = compacted_rows(rev >= 0)
+        _require(matched == rmatched > 0,
                  f"{key}: forward and reverse tables hold the same pairs")
         flops = 2 * matched * cin * cout
+        k12 = KERNELS["K12"][0]
+        ex12 = _counted_rows(dev, lambda: k12(x, w, kmap), ex12, f"K12 {key}")
         out, e12, ms12, p12 = run(
             "K12", (x, w, kmap), mult, flops=flops, outs=lambda o: (o,),
             n_bytes=_nbytes(x, w, kmap) + 4 * g.numel())
+        _add_work(rec["K12"], mult, flops, 2 * ex12 * cin * cout)
         dw, e8, ms8, p8 = run(
             "K8", (x, g, kmap), mult, flops=flops, outs=lambda o: (o,),
             n_bytes=_nbytes(x, g, kmap, w))
-        line = (f"{key} {cin}->{cout} x{mult} ({matched} pairs): K12 rel_err "
+        line = (f"{key} {cin}->{cout} x{mult} ({matched} pairs): GFLOP per "
+                f"launch matched {flops / 1e9:.2f}, executed K12 "
+                f"{2 * ex12 * cin * cout / 1e9:.2f} ({ex12 / matched:.3f} x)"
+                f", through the reverse table "
+                f"{2 * ex12r * cin * cout / 1e9:.2f} ({ex12r / matched:.3f} "
+                f"x); K12 rel_err "
                 f"{e12:.3g} {ms12:.3f} ms (plain {p12:.3f}); K8 rel_err "
                 f"{e8:.3g} {ms8:.3f} ms (plain {p8:.3f})")
         if kvol == 27:  # conv1's input takes no gradient: no dX in the step
             wt = w.flip(0).transpose(1, 2).contiguous()
+            ex12r = _counted_rows(dev, lambda: k12(g, wt, rev), ex12r,
+                                  f"K12 {key} through the reverse table")
             dx, ex, msx, px = run(
                 "K12", (g, wt, rev), mult, flops=flops, outs=lambda o: (o,),
                 n_bytes=_nbytes(g, wt, rev, x))
+            _add_work(rec["K12"], mult, flops, 2 * ex12r * cin * cout)
             # against the scatter-add backward (the table has no twin there)
             xr = x.clone().requires_grad_()
             sparse_conv(xr, w, kmap, None).backward(g)
@@ -942,7 +1030,9 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {build.build_info.get('seconds', 0.0):.2f} s)")
     for line in build.build_info.get("ptxas", "").splitlines():
-        if "registers" in line or "spill" in line:
+        if "Compiling entry" in line:        # the kernel the lines below
+            print(f"  ptxas: {line.split(chr(39))[1]}")  # are about
+        elif "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
 
     # 3. K6 and K2 against their plain versions at the serving shapes
@@ -1009,12 +1099,13 @@ def main() -> None:
     k2_plain_ms = _ms(lambda: occupancy_conv_fwd_plain(*k2_args), 5)
     print(f"K2 conv1 k5 1->32: max_abs_err {k2_err:.3g} kernel "
           f"{k2_ms:.3f} ms plain {k2_plain_ms:.3f} ms")
-    k6_bound = _bound(k6_bytes, k6_flops)
+    k6_bound = _bound(k6_bytes, k6_flops, split_tf32=True)
     k2_bound = _bound(_nbytes(*k2_args, out, sbits),
                       32 * int(c1z_unpack_bits(sbits, 125).sum()))
     print(f"bounds per serving pair: K6 {k6_bound[0]:.3f} ms by "
-          f"{k6_bound[1]} ({k6_bytes / 1e6:.1f} MB, {k6_flops / 1e9:.2f} "
-          f"GFLOP), K2 {k2_bound[0]:.4f} ms by {k2_bound[1]}")
+          f"{k6_bound[1]} (split TF32; CUDA-core FP32 "
+          f"{_bound(k6_bytes, k6_flops)[0]:.3f} ms; {k6_bytes / 1e6:.1f} MB, "
+          f"{k6_flops / 1e9:.2f} GFLOP), K2 {k2_bound[0]:.4f} ms by {k2_bound[1]}")
 
     # 4. the serving slice
     matcher = infer.kitti_matcher(N_KEY)

@@ -1,5 +1,5 @@
-// Implicit-map sparse convolution, backward (dX and dW in one pass), for
-// Hopper (sm_90a).
+// Implicit-map sparse convolution, backward (dX and dW), for Hopper
+// (sm_90a).
 //
 // Replaces gcl_tpu/core/pallas_conv.py:_bwd_kernel_h (TPU kernel K7,
 // reached through fused_conv_bwd -> _conv_half_bwd). With rev(k', j) the
@@ -12,255 +12,322 @@
 // dW comes out in forward offset order: the flip K-1-k' and the transpose
 // of W are index arithmetic here, not copies on the host.
 //
-// What bounds it on this card: the products. Both are float32 FMAs on the
-// CUDA cores (twice the forward's count), far above what the gathered g
+// What bounds it on this card: the products, twice the forward's, in
+// float32 (67 TFLOP/s on the CUDA cores), far above what the gathered g
 // rows, x, keys and weights cost in bytes.
 //
-// What the design does about it, and about dW. On the TPU the grid runs in
-// order and the dW block carries its sum from tile to tile; here blocks
-// run in parallel and nothing carries over. So a block owns a 64-channel
-// slice of Cin (blockIdx.y) and walks MANY 64-row tiles of the input level
-// (grid-stride over blockIdx.x). The offset k' is its outer loop: across
-// all of its tiles it keeps the partial dW[K-1-k', 64 ci, 128 co] in
-// registers (4 x 4 per thread and 64-channel Cout chunk, NCO <= 2 chunks;
-// a wider Cout takes one more walk per 128 channels, since four chunks'
-// 173 registers left one block per SM and ran slower) and adds it to
-// global memory with atomicAdd ONCE per offset -- blocks x K x 64 x Cout
-// atomics per launch instead of one per (tile, offset, element).
-// With atomics the order of the sum over blocks changes from run to run,
-// so dW agrees with the plain version to float32 rounding, not bit for bit.
+// The TPU kernel is one pass because its grid runs in order and the dW
+// block carries its sum from tile to tile. Here blocks run in parallel and
+// nothing carries over, and a one-pass kernel measured no faster than two
+// passes (533.8 ms against 523.1 for the 20 convs of a 4 x 7
+// train step on an H100), so this entry point makes two launches on the
+// same stream:
 //
-// Per (offset, tile) the block resolves rev(k', j) for its 64 rows by
-// binary search (64 threads), skips the pair when no row matched, stages
-// x[tile, ci slice] once, and per Cout chunk stages the matched g rows
-// once for BOTH products plus the W[K-1-k'] slice transposed. dX of the
-// tile accumulates over the Cout chunks in registers and is then added
-// into global memory by plain load-add-store: the block is the only
-// writer of (tile rows, ci slice), offsets are sequential inside it, and
-// the wrapper zeroes dX and dW. That read-modify-write of dX once per
-// matched (offset, tile) is the price of keeping dW in registers; tensor
-// cores, TMA and a dX tile held on chip are left to later work.
+// * dX: the gather-GEMM core of gather_gemm.cuh over rqkey, resolved
+//   against the output level's keys, with B = W[K-1-k']^T read in place:
+//   matched rows compacted per (64-row tile, offset), the full Cin per
+//   block, split TF32 on mma.sync, dX held in shared memory until one
+//   store (no read-modify-write of dX in global memory).
+// * dW: split-K over the rows. A block owns (reverse offset k', a Cin x
+//   Cout tile of up to 64 x 128 or 128 x 64, a chunk of input rows; the
+//   blocks of one chunk are launched together, so the x and g rows that
+//   each tile gathers again come from L2). It
+//   resolves rev(k', j) for 2048 rows at a time (eight searches a thread
+//   in lockstep, so that their dependent loads overlap), compacts the
+//   matched ones with __ballot_sync into a ring of (j, rev) pairs, and
+//   whenever 32 are ready gathers x[j] and g[rev] (cp.async,
+//   double-buffered: the next 32 are in flight while these multiply) and
+//   accumulates x_c^T g_c in registers with split-TF32 mma.sync: the
+//   tensor cores sum one stage (their float32 adds drop low bits, which a
+//   chain over thousands of rows piles up past 1e-4), ordinary float32
+//   adds sum the stages. The compacted rows make the executed work the
+//   matched work to within the last stage of a chunk (rounded to 8 rows).
+//   It flushes once per block with atomicAdd: a second reduction launch
+//   would need K x Cin x Cout x chunks of scratch and a pass over it,
+//   while the chunks are sized so that a (k', tile) has a handful of them
+//   (about four blocks per SM in all), far below one flush per (64-row
+//   tile, offset). With atomics the order of the sum over chunks changes
+//   from run to run, so dW agrees with the plain version to float32
+//   rounding, not bit for bit.
 
 #include <cuda_runtime.h>
 
-#include "key_search.cuh"
+#include "gather_gemm.cuh"
 
 namespace {
 
-constexpr int kTileM = 64;     // input rows per tile
-constexpr int kTileCI = 64;    // input channels per block
-constexpr int kTileCO = 64;    // output channels per shared-memory stage
-constexpr int kWsLd = kTileCI + 4;  // keeps float4 alignment of wsT rows
-constexpr int kThreads = 256;  // 16 x 16 threads
-constexpr size_t kSmemBytes =
-    sizeof(float) * (kTileM * kTileCI + kTileM * kTileCO + kTileCO * kWsLd) +
-    sizeof(int) * kTileM;
+using gg::kThreads;
 
-template <int NCO>
-__global__ void __launch_bounds__(kThreads)
-sparse_conv_implicit_bwd_kernel(const float* __restrict__ x,
-                                const float* __restrict__ g,
-                                const float* __restrict__ w,
-                                const int* __restrict__ rqkey,
-                                const int* __restrict__ skeys,
-                                const int* __restrict__ srow,
-                                float* __restrict__ dx,
-                                float* __restrict__ dw, int cin, int cout,
-                                int kvol, int n_in, int n_keys,
-                                int want_dx) {
+constexpr int kStageRows = 32;  // compacted rows per dW stage
+constexpr int kPer = 8;         // rows a thread resolves per round
+constexpr int kResolve = kPer * kThreads;  // rows resolved per round
+// capacity of the (j, rev) ring: it holds < kStageRows + kResolve pairs
+constexpr int kRing = 4096;
+
+// TM (Cin) x TN (Cout) tile per block, warps wm x wn x wk over (32 x 32
+// warp tiles, depth): wm * wn * wk == 8
+__global__ void __launch_bounds__(kThreads, 2)
+sparse_conv_dw_splitk_kernel(const float* __restrict__ x,
+                             const float* __restrict__ g,
+                             const int* __restrict__ rqkey,
+                             const int* __restrict__ skeys,
+                             const int* __restrict__ srow,
+                             float* __restrict__ dw, int cin, int cout,
+                             int kvol, int n_in, int n_keys, int tm, int tn,
+                             int chunk_rows, int vec_x, int vec_g) {
   extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                        // [kTileM][kTileCI]   x[j, ci]
-  float* gs = xs + kTileM * kTileCI;       // [kTileM][kTileCO]   g[rev, co]
-  float* wsT = gs + kTileM * kTileCO;      // [kTileCO][kWsLd]    W[ci, co]^T
-  int* rows_s = reinterpret_cast<int*>(wsT + kTileCO * kWsLd);
+  const int ldx = tm + 8;  // 8 mod 32: conflict-free fragment reads
+  const int ldg = tn + 8;
+  const int sfl = kStageRows * (ldx + ldg);
+  float* stage0 = smem;                        // 2 x {xs [64][ldx], gs [64][ldg]}
+  int* ring_j = reinterpret_cast<int*>(stage0 + 2 * sfl);
+  int* ring_r = ring_j + kRing;
+  int* wcnt = ring_r + kRing;                  // [8]
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int ci0 = blockIdx.y * kTileCI;
-  const int n_tiles = (n_in + kTileM - 1) / kTileM;
-  // dW: this thread's 4 input channels (by ty, so whole warps drop out
-  // when the Cin slice is narrower than 64) x 4 output channels per chunk
-  const bool dw_mine = ci0 + ty * 4 < cin;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  // blockIdx: x the Cin x Cout tile, y the reverse offset, z the chunk, so
+  // that the blocks in flight together share one chunk's rows and re-read
+  // them from L2
+  const int kp = blockIdx.y;
+  const int kf = kvol - 1 - kp;
+  const int n_co = (cout + tn - 1) / tn;
+  const int ci0 = (blockIdx.x / n_co) * tm;
+  const int co0 = (blockIdx.x % n_co) * tn;
+  const int j_begin = blockIdx.z * chunk_rows;
+  const int j_end = min(n_in, j_begin + chunk_rows);
 
-  // outer loops: the reverse offset, then groups of NCO 64-channel Cout
-  // chunks (one group unless Cout > NCO * 64)
-  const int n_groups = (cout + NCO * kTileCO - 1) / (NCO * kTileCO);
-  for (int it = 0; it < kvol * n_groups; ++it) {
-    const int kp = it / n_groups;
-    const int co_base = (it % n_groups) * NCO * kTileCO;
-    const int kf = kvol - 1 - kp;  // forward offset of reverse offset kp
-    const float* wk = w + (size_t)kf * cin * cout;
-    float acc_dw[NCO][4][4];
+  const int wn = tn / 32;
+  const int wm = tm / 32;
+  const int wk = 8 / (wm * wn);
+  const int wi_n = warp % wn;
+  const int wi_m = (warp / wn) % wm;
+  const int wi_k = warp / (wn * wm);
+
+  // the tensor cores add a stage's products into `part` (a short chain:
+  // their float32 adds drop low bits that a chain over thousands of rows
+  // would pile up); `acc` sums the stages with ordinary float32 adds
+  float acc[2][4][4], part[2][4][4];
 #pragma unroll
-    for (int c = 0; c < NCO; ++c) {
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc_dw[c][i][j] = 0.f;
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+
+  // the ring: entries [head, tail) are resolved and not yet staged; both
+  // counters are the same in every thread
+  int head = 0, tail = 0;
+  int next = j_begin;
+  const int* rq = rqkey + (size_t)kp * n_in;
+
+  // resolve rounds until a stage's pairs are ready or the chunk is done; a
+  // thread's kPer searches run in lockstep, and the rows j of a round go
+  // into the ring in order
+  auto fill = [&]() {
+    while (tail - head < kStageRows && next < j_end) {
+      int q[kPer], pos[kPer], r[kPer];
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int j = next + i * kThreads + tid;
+        q[i] = j < j_end ? rq[j] : 0;
+      }
+      gg::find_keys<kPer>(skeys, n_keys, q, pos);
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int j = next + i * kThreads + tid;
+        r[i] = (j < j_end && pos[i] >= 0) ? __ldg(srow + pos[i]) : -1;
+      }
+      for (int i = 0; i < kPer; ++i) {
+        const unsigned hits = __ballot_sync(0xffffffffu, r[i] >= 0);
+        if (lane == 0) wcnt[warp] = __popc(hits);
+        __syncthreads();
+        int before = 0, total = 0;
+#pragma unroll
+        for (int w = 0; w < kThreads / 32; ++w) {
+          const int c = wcnt[w];
+          before += w < warp ? c : 0;
+          total += c;
+        }
+        if (r[i] >= 0) {
+          const int at = (tail + before + __popc(hits & ((1u << lane) - 1u))) &
+                         (kRing - 1);
+          ring_j[at] = next + i * kThreads + tid;
+          ring_r[at] = r[i];
+        }
+        __syncthreads();
+        tail += total;
+      }
+      next += kResolve;
+    }
+  };
+
+  // stage the next min(kStageRows, ready) pairs into buffer `buf`; returns
+  // the number of rows staged
+  auto load_stage = [&](int buf) {
+    const int n = min(kStageRows, tail - head);
+    const int n8 = gg::round_up(n, 8);
+    float* xs = stage0 + buf * sfl;
+    float* gs = xs + kStageRows * ldx;
+    const int xv = tm / 4, gv = tn / 4;
+    for (int e = tid; e < n8 * (xv + gv); e += kThreads) {
+      const int r = e / (xv + gv);
+      const int c = (e % (xv + gv)) * 4;
+      const bool is_x = c < tm;
+      float* dst = is_x ? xs + r * ldx + c : gs + r * ldg + (c - tm);
+      const int col = is_x ? ci0 + c : co0 + (c - tm);
+      const int width = is_x ? cin : cout;
+      if (r < n && col < width) {
+        const int at = (head + r) & (kRing - 1);
+        const float* src = is_x ? x + (size_t)ring_j[at] * cin + col
+                                : g + (size_t)ring_r[at] * cout + col;
+        gg::copy4(dst, src, width - col, is_x ? vec_x : vec_g);
+      } else {
+        gg::zero4(dst);
       }
     }
+    head += n;
+    return n;
+  };
 
-    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-      const int row0 = tile * kTileM;
-      int found = 0;
-      if (tid < kTileM) {
-        const int j = row0 + tid;
-        int r = -1;
-        if (j < n_in) {
-          const int p = find_key(skeys, n_keys, rqkey[(size_t)kp * n_in + j]);
-          if (p >= 0) r = __ldg(srow + p);
-        }
-        rows_s[tid] = r;
-        found = r >= 0;
+  auto compute = [&](int buf, int n) {
+    const float* xs = stage0 + buf * sfl;
+    const float* gs = xs + kStageRows * ldx;
+    const int ksteps = (n + 7) / 8;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) part[i][j][q] = 0.f;
+    for (int ks = wi_k; ks < ksteps; ks += wk) {
+      const int kr = ks * 8 + tig;
+      uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int nn = wi_n * 32 + j * 8 + gid;
+        gg::split_tf32(gs[kr * ldg + nn], bh[j][0], bl[j][0]);
+        gg::split_tf32(gs[(kr + 4) * ldg + nn], bh[j][1], bl[j][1]);
       }
-      if (!__syncthreads_or(found)) continue;  // offset kp misses the tile
-
-      for (int e = tid; e < kTileM * kTileCI; e += kThreads) {
-        const int r = e / kTileCI;
-        const int c = e % kTileCI;
-        float v = 0.f;
-        if (row0 + r < n_in && ci0 + c < cin) {
-          v = __ldg(x + (size_t)(row0 + r) * cin + ci0 + c);
-        }
-        xs[e] = v;
-      }
-      // dX: this thread's 4 rows (by ty) x 4 input channels (by tx)
-      const bool dx_mine =
-          want_dx && ((rows_s[ty * 4] >= 0) | (rows_s[ty * 4 + 1] >= 0) |
-                      (rows_s[ty * 4 + 2] >= 0) | (rows_s[ty * 4 + 3] >= 0));
-      float acc_dx[4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < 2; ++i) {
+        // A = x_c^T: A[m = ci][k = row] = xs[row][ci]
+        const float* xr = xs + kr * ldx + wi_m * 32 + i * 16 + gid;
+        uint32_t ah[4], al[4];
+        gg::split_tf32(xr[0], ah[0], al[0]);
+        gg::split_tf32(xr[8], ah[1], al[1]);
+        gg::split_tf32(xr[4 * ldx], ah[2], al[2]);
+        gg::split_tf32(xr[4 * ldx + 8], ah[3], al[3]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc_dx[i][j] = 0.f;
-      }
-
-#pragma unroll
-      for (int c = 0; c < NCO; ++c) {
-        const int co0 = co_base + c * kTileCO;
-        if (co0 < cout) {  // uniform over the block
-          for (int e = tid; e < kTileM * kTileCO; e += kThreads) {
-            const int r = e / kTileCO;
-            const int o = e % kTileCO;
-            const int src = rows_s[r];
-            float v = 0.f;
-            if (src >= 0 && co0 + o < cout) {
-              v = __ldg(g + (size_t)src * cout + co0 + o);
-            }
-            gs[e] = v;
-          }
-          if (want_dx) {
-            for (int e = tid; e < kTileCI * kTileCO; e += kThreads) {
-              const int i = e / kTileCO;
-              const int o = e % kTileCO;
-              float v = 0.f;
-              if (ci0 + i < cin && co0 + o < cout) {
-                v = __ldg(wk + (size_t)(ci0 + i) * cout + co0 + o);
-              }
-              wsT[o * kWsLd + i] = v;
-            }
-          }
-          __syncthreads();
-          if (dx_mine) {
-#pragma unroll 8
-            for (int o = 0; o < kTileCO; ++o) {
-              const float4 b =
-                  *reinterpret_cast<const float4*>(&wsT[o * kWsLd + tx * 4]);
-              const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-              for (int i = 0; i < 4; ++i) {
-                const float a = gs[(ty * 4 + i) * kTileCO + o];
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                  acc_dx[i][j] = fmaf(a, bv[j], acc_dx[i][j]);
-                }
-              }
-            }
-          }
-          if (dw_mine) {
-#pragma unroll 8
-            for (int r = 0; r < kTileM; ++r) {
-              const float4 a =
-                  *reinterpret_cast<const float4*>(&xs[r * kTileCI + ty * 4]);
-              const float4 b =
-                  *reinterpret_cast<const float4*>(&gs[r * kTileCO + tx * 4]);
-              const float av[4] = {a.x, a.y, a.z, a.w};
-              const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-              for (int i = 0; i < 4; ++i) {
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                  acc_dw[c][i][j] = fmaf(av[i], bv[j], acc_dw[c][i][j]);
-                }
-              }
-            }
-          }
-          __syncthreads();
-        }
-      }
-
-      if (dx_mine) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = row0 + ty * 4 + i;
-          if (row >= n_in) continue;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int ci = ci0 + tx * 4 + j;
-            if (ci < cin) dx[(size_t)row * cin + ci] += acc_dx[i][j];
-          }
-        }
-      }
-    }
-
-    if (dw_mine) {
-      float* dwk = dw + (size_t)kf * cin * cout;
-#pragma unroll
-      for (int c = 0; c < NCO; ++c) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int ci = ci0 + ty * 4 + i;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int co = co_base + c * kTileCO + tx * 4 + j;
-            const float v = acc_dw[c][i][j];
-            if (ci < cin && co < cout && v != 0.f) {
-              atomicAdd(dwk + (size_t)ci * cout + co, v);
-            }
-          }
+        for (int j = 0; j < 4; ++j) {
+          gg::mma_3xtf32(part[i][j], ah, al, bh[j], bl[j]);
         }
       }
     }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][j][q] += part[i][j][q];
+  };
+
+  fill();
+  if (tail == head) return;  // no match in this chunk: nothing to add
+  int buf = 0;
+  int n_cur = load_stage(0);
+  gg::cp_async_commit();
+  for (;;) {
+    fill();
+    const bool more = tail > head;
+    const int n_next = more ? load_stage(buf ^ 1) : 0;
+    gg::cp_async_commit();
+    gg::cp_async_wait<1>();
+    __syncthreads();
+    compute(buf, n_cur);
+    __syncthreads();
+    if (!more) break;
+    buf ^= 1;
+    n_cur = n_next;
+  }
+  gg::cp_async_wait<0>();
+  __syncthreads();
+
+  // flush: the warps' partial tiles through shared memory (the stages are
+  // free now), summed over the depth split, one atomicAdd per element
+  float* red = smem;  // [8 warps][32][32], over the stages and the ring
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int ml = i * 16 + gid + (q >> 1) * 8;
+        const int nl = j * 8 + 2 * tig + (q & 1);
+        red[warp * 1024 + ml * 32 + nl] = acc[i][j][q];
+      }
+  __syncthreads();
+  float* dwk = dw + (size_t)kf * cin * cout;
+  for (int e = tid; e < tm * tn; e += kThreads) {
+    const int ci = e / tn;
+    const int co = e % tn;
+    if (ci0 + ci >= cin || co0 + co >= cout) continue;
+    const int w0 = (ci / 32) * wn + co / 32;
+    float v = 0.f;
+    for (int s = 0; s < wk; ++s) {
+      v += red[(s * wm * wn + w0) * 1024 + (ci % 32) * 32 + co % 32];
+    }
+    if (v != 0.f) atomicAdd(dwk + (size_t)(ci0 + ci) * cout + co0 + co, v);
   }
 }
 
-template <int NCO>
-int launch(const float* x, const float* g, const float* w, const int* rqkey,
-           const int* skeys, const int* srow, float* dx, float* dw, int cin,
-           int cout, int kvol, int n_in, int n_keys, int want_dx,
-           cudaStream_t stream) {
-  auto kernel = sparse_conv_implicit_bwd_kernel<NCO>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
+int next_pow2(int v) {
+  int p = 1;
+  while (p < v) p <<= 1;
+  return p;
+}
+
+int launch_dw(const float* x, const float* g, const int* rqkey,
+              const int* skeys, const int* srow, float* dw, int cin,
+              int cout, int kvol, int n_in, int n_keys,
+              cudaStream_t stream) {
+  const int tn = cout <= 32 ? 32 : cout <= 64 ? 64 : 128;
+  const int wn = tn / 32;
+  int wm = next_pow2((cin + 31) / 32);
+  if (wm > 8 / wn) wm = 8 / wn;
+  if (wm > 4) wm = 4;
+  const int tm = 32 * wm;
+  const int n_tiles = ((cin + tm - 1) / tm) * ((cout + tn - 1) / tn);
   int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_tiles = (n_in + kTileM - 1) / kTileM;
-  const int n_ci = (cin + kTileCI - 1) / kTileCI;
-  // about two resident blocks per SM over the whole grid; each walks its
-  // share of the tiles
-  int workers = (2 * sms + n_ci - 1) / n_ci;
-  if (workers > n_tiles) workers = n_tiles;
-  if (workers < 1) workers = 1;
-  const dim3 grid(workers, n_ci);
-  kernel<<<grid, kThreads, kSmemBytes, stream>>>(
-      x, g, w, rqkey, skeys, srow, dx, dw, cin, cout, kvol, n_in, n_keys,
-      want_dx);
+  // about four blocks per SM over the whole grid, a chunk at least one
+  // resolve round long
+  const int per_chunk = kvol * n_tiles;
+  int n_chunks = (4 * sms + per_chunk - 1) / per_chunk;
+  const int max_chunks = (n_in + kResolve - 1) / kResolve;
+  if (n_chunks > max_chunks) n_chunks = max_chunks;
+  if (n_chunks < 1) n_chunks = 1;
+  const int chunk_rows =
+      gg::round_up((n_in + n_chunks - 1) / n_chunks, kResolve);
+  n_chunks = (n_in + chunk_rows - 1) / chunk_rows;
+  const size_t smem = sizeof(float) * 2 * kStageRows * (tm + 8 + tn + 8) +
+                      sizeof(int) * (2 * kRing + 8);
+  err = cudaFuncSetAttribute(sparse_conv_dw_splitk_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vec_x = gg::aligned16(x) && cin % 4 == 0;
+  const int vec_g = gg::aligned16(g) && cout % 4 == 0;
+  const dim3 grid(n_tiles, kvol, n_chunks);
+  sparse_conv_dw_splitk_kernel<<<grid, kThreads, smem, stream>>>(
+      x, g, rqkey, skeys, srow, dw, cin, cout, kvol, n_in, n_keys, tm, tn,
+      chunk_rows, vec_x, vec_g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -268,10 +335,10 @@ int launch(const float* x, const float* g, const float* w, const int* rqkey,
 
 // x f32[n_in, cin], g f32[n_out, cout], w f32[kvol, cin, cout],
 // rqkey int32[kvol, n_in], skeys / srow int32[n_keys] (sorted valid keys of
-// the OUTPUT level and their rows), dx f32[n_in, cin] (read and written
-// only when want_dx), dw f32[kvol, cin, cout]; all contiguous on the
-// device, dx and dw zeroed by the caller. Launches on `stream`; returns
-// cudaGetLastError().
+// the OUTPUT level and their rows), dx f32[n_in, cin] (written only when
+// want_dx; every element is written), dw f32[kvol, cin, cout] zeroed by
+// the caller; all contiguous on the device. Launches dX (when want_dx) and
+// then dW on `stream`; returns the first cudaError_t that is not success.
 extern "C" int sparse_conv_implicit_bwd(const float* x, const float* g,
                                         const float* w, const int* rqkey,
                                         const int* skeys, const int* srow,
@@ -280,10 +347,18 @@ extern "C" int sparse_conv_implicit_bwd(const float* x, const float* g,
                                         int n_keys, int want_dx,
                                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cout <= kTileCO) {
-    return launch<1>(x, g, w, rqkey, skeys, srow, dx, dw, cin, cout, kvol,
-                     n_in, n_keys, want_dx, s);
+  if (want_dx) {
+    const int err = gg::launch<false, true>(g, w, rqkey, skeys, srow, dx,
+                                            cout, cin, kvol, n_in, n_keys, s);
+    if (err != 0) return err;
   }
-  return launch<2>(x, g, w, rqkey, skeys, srow, dx, dw, cin, cout, kvol,
-                   n_in, n_keys, want_dx, s);
+  return launch_dw(x, g, rqkey, skeys, srow, dw, cin, cout, kvol, n_in,
+                   n_keys, s);
+}
+
+// Counts the rows that this source's dX launches multiply into *counter
+// (unsigned long long on the device) from now on; nullptr stops counting.
+// For checks only. Returns a cudaError_t as int.
+extern "C" int sparse_conv_bwd_count_rows(void* counter) {
+  return gg::set_row_counter(static_cast<unsigned long long*>(counter));
 }

@@ -6,16 +6,22 @@ index table, forward, backward and standalone weight gradient.
 version below on a CPU tensor. It replaces
 gcl_tpu/core/pallas_conv.py:_conv_half_fwd (kernel body _fwd_kernel_h).
 ``sparse_conv_implicit_bwd`` does the same with ``csrc/sparse_conv_bwd.cu``
-(dX and dW in one pass over the reverse map) and replaces _conv_half_bwd
-(kernel body _bwd_kernel_h). ``sparse_conv_dw`` (``csrc/sparse_conv_dw.cu``,
-K8) is the standalone dW of the two-pass backward: over the implicit
-forward map it replaces _conv_half_dw (kernel body _dw_kernel_h), over an
-index table pallas_conv_dw. ``sparse_conv_table_fwd`` (K12, the forward
+(dX and dW over the reverse map, two launches behind one call) and
+replaces _conv_half_bwd (kernel body _bwd_kernel_h). K6, K12 and K7's dX
+are one tensor-core gather-GEMM (``csrc/gather_gemm.cuh``) that multiplies
+only the matched rows, compacted per (64-row tile, offset) and padded to
+16; ``compacted_rows`` counts that work from a map's hit mask, and
+``counted_gather_rows`` has the kernels count what they multiplied.
+``sparse_conv_dw`` (``csrc/sparse_conv_dw.cu``, K8) is the standalone dW
+of the two-pass backward: over the implicit forward map it replaces
+_conv_half_dw (kernel body _dw_kernel_h), over an index table
+pallas_conv_dw. ``sparse_conv_table_fwd`` (K12, the forward
 kernel with its rows read from a table) replaces pallas_conv_fwd, the
 index-table API that gcl_tpu reaches through _fused_from_idx.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -61,6 +67,56 @@ def sparse_conv_implicit_bwd_plain(x: torch.Tensor, g: torch.Tensor,
     return dx, torch.stack(dw[::-1])
 
 
+# a row of the gathered operand is packed beside its 6-bit tile row in one
+# 32-bit list entry (csrc/gather_gemm.cuh)
+MAX_GATHER_ROWS = 1 << 26
+
+
+def compacted_rows(hit: torch.Tensor, tile: int = 64, frag: int = 16):
+    """(matched, executed) rows of a map whose hit mask is ``hit`` bool[K,
+    N] (offset k of output row i has an input): matched counts the hits;
+    executed what the gather-GEMM multiplies, the hits of each (``tile``-row
+    tile, offset) rounded up to a multiple of ``frag``. Times Cin x Cout x 2
+    they are the matched and the executed operations."""
+    kvol, n = hit.shape
+    pad = -n % tile
+    per = torch.nn.functional.pad(hit.to(torch.int64), (0, pad))
+    per = per.reshape(kvol, -1, tile).sum(-1)
+    return int(per.sum()), int(((per + frag - 1) // frag * frag).sum())
+
+
+@contextlib.contextmanager
+def counted_gather_rows(device):
+    """While the block runs, the gather-GEMM launches (K6, K12, K7's dX)
+    on ``device`` count the rows they multiply: per (64-row tile, offset)
+    the compacted list rounded up to 16, the rows of the mma fragments the
+    block ran. Yields an int64 tensor [1] on the card that holds the sum
+    once the block has ended. For checks: the count is one atomic add per
+    block, and launches outside the block count nothing."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the kernels count on a CUDA device, not {device}")
+    lib = load_library()
+    setters = (lib.sparse_conv_fwd_count_rows, lib.sparse_conv_bwd_count_rows)
+    counter = torch.zeros(1, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        torch.cuda.synchronize()
+        for fn in setters:
+            check(fn(counter.data_ptr()), "the gather-GEMM's row counter")
+        try:
+            yield counter
+        finally:
+            torch.cuda.synchronize()
+            for fn in setters:
+                check(fn(None), "the gather-GEMM's row counter")
+
+
+def _check_gather_rows(name, t):
+    if t.shape[0] >= MAX_GATHER_ROWS:
+        raise ValueError(f"{name} has {t.shape[0]} rows; the kernel gathers "
+                         f"from fewer than {MAX_GATHER_ROWS}")
+
+
 def _check_args(x, w, qkey, skeys, srow):
     if x.dim() != 2 or w.dim() != 3 or qkey.dim() != 2:
         raise ValueError("expected x [N_in, Cin], w [K, Cin, Cout], "
@@ -99,6 +155,7 @@ def sparse_conv_implicit_fwd(x: torch.Tensor, w: torch.Tensor,
                     ("srow", srow)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    _check_gather_rows("x", x)
     kvol, cin, cout = w.shape
     n_out = qkey.shape[1]
     out = torch.empty((n_out, cout), dtype=torch.float32, device=x.device)
@@ -122,10 +179,10 @@ def sparse_conv_implicit_bwd(x: torch.Tensor, g: torch.Tensor,
                              w: torch.Tensor, rqkey: torch.Tensor,
                              skeys: torch.Tensor, srow: torch.Tensor,
                              want_dx: bool = True):
-    """(dX, dW) of sparse_conv_implicit_fwd in one pass over the reverse
-    map: dX[j] = sum_k' g[rev(k', j)] @ w[K-1-k']^T (None unless want_dx)
-    and dW[K-1-k'] = sum_j x[j]^T g[rev(k', j)], dW in forward offset
-    order.
+    """(dX, dW) of sparse_conv_implicit_fwd over the reverse map, in one
+    call (two launches: dX, then dW): dX[j] = sum_k' g[rev(k', j)] @
+    w[K-1-k']^T (None unless want_dx) and dW[K-1-k'] = sum_j x[j]^T
+    g[rev(k', j)], dW in forward offset order.
 
     x f32[N_in, Cin], g f32[N_out, Cout] (any strides: made contiguous
     here), w f32[K, Cin, Cout], rqkey int32[K, N_in] the reverse-direction
@@ -154,11 +211,12 @@ def sparse_conv_implicit_bwd(x: torch.Tensor, g: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
     kvol, cin, cout = w.shape
     g = g.contiguous()
+    _check_gather_rows("g", g)
     n_in = x.shape[0]
-    dx = torch.zeros_like(x) if want_dx else None
+    dx = torch.empty_like(x) if want_dx else None   # every row is written
     dw = torch.zeros_like(w)
     if n_in == 0 or g.shape[0] == 0:
-        return dx, dw
+        return (dx.zero_() if want_dx else None), dw
     lib = load_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.sparse_conv_implicit_bwd(
@@ -238,6 +296,7 @@ def sparse_conv_table_fwd(x: torch.Tensor, w: torch.Tensor,
     for name, t in (("x", x), ("w", w), ("idx", idx)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    _check_gather_rows("x", x)
     kvol, cin, cout = w.shape
     n_out = idx.shape[1]
     out = torch.empty((n_out, cout), dtype=torch.float32, device=x.device)

@@ -107,7 +107,8 @@ def _check_config(step_cfg: StepConfig, loss_kind: str) -> None:
     if step_cfg.compute_dtype != torch.float32:
         raise NotImplementedError(
             f"compute_dtype {step_cfg.compute_dtype}: the port computes in "
-            f"float32 only (bf16 waits for the tensor-core conv kernels)")
+            f"float32 only (bf16 compute is a later slice of the port, "
+            f"with its own accuracy gates)")
     if step_cfg.neg_filter not in ("spatial", "membership"):
         raise ValueError(f"neg_filter {step_cfg.neg_filter!r}: 'spatial' or "
                          f"'membership'")

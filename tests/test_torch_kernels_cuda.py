@@ -18,7 +18,8 @@ from gcl_tpu_torch.data.device_pipeline import (_batched_grid_core,
                                                 batched_grid_radius_knn,
                                                 radius_knn)
 from gcl_tpu_torch.core import kernel_maps, sparse_ops
-from gcl_tpu_torch.kernels import (join_kmap, join_kmap_plain,
+from gcl_tpu_torch.kernels import (compacted_rows, counted_gather_rows,
+                                   join_kmap, join_kmap_plain,
                                    sparse_conv_dw, sparse_conv_dw_plain,
                                    sparse_conv_table_fwd,
                                    sparse_conv_table_fwd_plain,
@@ -581,3 +582,159 @@ def test_explicit_route_gradients_on_card_match_cpu(dev, monkeypatch):
     torch.testing.assert_close(feats[0], feats[1], rtol=0, atol=1e-4)
     for name in grads[0]:
         _close_to_max(grads[0][name], grads[1][name], 0.1)
+
+
+# --- the tensor-core gather-GEMM (K6, K12 and K7's dX) and K7's split-K dW
+# on synthetic maps: matched rows per (64-row tile, offset) at the 16-row
+# fragment edges, a fully dense map, pads only ---
+
+def _synthetic_rows(kvol, n_rows, n_src, pattern, seed):
+    """int64 [K, n_rows]: the input row of each (offset, output row), -1
+    for none. 'edges': offset 0 matches 0, 16 and 17 rows of the first
+    three 64-row tiles (and some of the ragged last one), offset 1 one row
+    of tile 0, the rest a quarter of the pairs; 'dense': every pair;
+    'pads': none."""
+    gen = torch.Generator().manual_seed(seed)
+    rows = torch.randint(0, n_src, (kvol, n_rows), generator=gen)
+    if pattern == "dense":
+        return rows
+    if pattern == "pads":
+        return torch.full_like(rows, -1)
+    keep = torch.rand((kvol, n_rows), generator=gen) < 0.25
+    keep[0] = False
+    for tile, count in ((1, 16), (2, 17), (3, 5)):
+        pick = torch.randperm(64, generator=gen)[:count] + 64 * tile
+        keep[0, pick[pick < n_rows]] = True
+    keep[1, :64] = False
+    keep[1, 37] = True
+    return torch.where(keep, rows, -1)
+
+
+def _as_keys(rows, n_src, seed):
+    """The rows as an implicit map: sorted keys of the n_src input rows
+    (srow a permutation of them) and the query key of every pair, a key
+    that is not there for none."""
+    gen = torch.Generator().manual_seed(seed + 1)
+    skeys = (torch.arange(n_src) * 3 + 7).to(torch.int32)
+    srow = torch.randperm(n_src, generator=gen).to(torch.int32)
+    key_of_row = torch.empty(n_src, dtype=torch.int32)
+    key_of_row[srow.long()] = skeys
+    qkey = torch.where(rows >= 0, key_of_row[rows.clamp_min(0)],
+                       torch.tensor(-5, dtype=torch.int32))
+    return qkey.to(torch.int32), skeys, srow
+
+
+SYNTH_WIDTHS = [(32, 32), (32, 384), (192, 128), (384, 128), (128, 256),
+                (384, 384)]
+
+
+@pytest.mark.parametrize("pattern", ["edges", "dense", "pads"])
+@pytest.mark.parametrize("cin,cout", SYNTH_WIDTHS)
+def test_gather_gemm_forward_on_synthetic_maps(dev, pattern, cin, cout):
+    """K6 and K12 within 1e-4 of the plain version's max (exact zeros for
+    pads only), N = 3 tiles of 64 + 13 rows; K6 repeats bit for bit."""
+    kvol, n_out, n_in = 27, 3 * 64 + 13, 150
+    rows = _synthetic_rows(kvol, n_out, n_in, pattern, cin + cout)
+    qkey, skeys, srow = _as_keys(rows, n_in, cin)
+    gen = torch.Generator().manual_seed(cout)
+    x = torch.randn(n_in, cin, generator=gen).to(dev)
+    w = (torch.randn(kvol, cin, cout, generator=gen) / cin ** .5).to(dev)
+    args = (x, w, qkey.to(dev), skeys.to(dev), srow.to(dev))
+    # a miss outside [0, n_in) on the table as well as -1
+    idx = torch.where((rows < 0) & (torch.arange(n_out) % 2 == 0), n_in + 3,
+                      rows).to(torch.int32).to(dev)
+    before = (sparse_conv_implicit_fwd.launches,
+              sparse_conv_table_fwd.launches)
+    out = sparse_conv_implicit_fwd(*args)
+    again = sparse_conv_implicit_fwd(*args)
+    tab = sparse_conv_table_fwd(x, w, idx)
+    torch.cuda.synchronize()
+    assert (sparse_conv_implicit_fwd.launches,
+            sparse_conv_table_fwd.launches) == (before[0] + 2, before[1] + 1)
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+    ref = sparse_conv_implicit_fwd_plain(*args)
+    if pattern == "pads":
+        assert not out.any() and not tab.any()
+        return
+    _close_to_max(out, ref, 1e-4)
+    _close_to_max(tab, sparse_conv_table_fwd_plain(x, w, idx), 1e-4)
+    _close_to_max(tab, ref, 1e-4)
+
+
+@pytest.mark.parametrize("pattern", ["edges", "dense"])
+@pytest.mark.parametrize("cin,cout", [(1, 32), (1, 1), (4, 24)])
+@pytest.mark.parametrize("kvol", [27, 125])
+def test_gather_gemm_table_narrow_input(dev, pattern, cin, cout, kvol):
+    """K12 with Cin < 8 (conv1 of the explicit route: Cin 1, K 125)."""
+    n_out, n_in = 2 * 64 + 50, 170
+    rows = _synthetic_rows(kvol, n_out, n_in, pattern, kvol + cin)
+    gen = torch.Generator().manual_seed(cout)
+    x = torch.randn(n_in, cin, generator=gen).to(dev)
+    w = torch.randn(kvol, cin, cout, generator=gen).to(dev)
+    idx = rows.to(torch.int32).to(dev)
+    out = sparse_conv_table_fwd(x, w, idx)
+    _close_to_max(out, sparse_conv_table_fwd_plain(x, w, idx), 1e-4)
+
+
+@pytest.mark.parametrize("pattern", ["edges", "dense", "pads"])
+@pytest.mark.parametrize("cin,cout", SYNTH_WIDTHS)
+@pytest.mark.parametrize("want_dx", [True, False])
+def test_backward_on_synthetic_maps(dev, pattern, cin, cout, want_dx):
+    """K7's dX (the gather-GEMM through W[K-1-k']^T) and dW (split-K over
+    the compacted rows, atomics between chunks) within 1e-4 of the plain
+    version's max; zeros for pads only. N_in = 4 tiles of 64 + 9 rows."""
+    kvol, n_in, n_out = 27, 4 * 64 + 9, 140
+    rows = _synthetic_rows(kvol, n_in, n_out, pattern, cin * cout)
+    rqkey, skeys, srow = _as_keys(rows, n_out, cout)
+    gen = torch.Generator().manual_seed(cin)
+    x = torch.randn(n_in, cin, generator=gen).to(dev)
+    g = torch.randn(n_out, cout, generator=gen).to(dev)
+    w = (torch.randn(kvol, cin, cout, generator=gen) / cout ** .5).to(dev)
+    args = (x, g, w, rqkey.to(dev), skeys.to(dev), srow.to(dev))
+    before = sparse_conv_implicit_bwd.launches
+    dx, dw = sparse_conv_implicit_bwd(*args, want_dx=want_dx)
+    torch.cuda.synchronize()
+    assert sparse_conv_implicit_bwd.launches == before + 1
+    assert (dx is None) == (not want_dx)
+    if pattern == "pads":
+        assert not dw.any() and (dx is None or not dx.any())
+        return
+    rdx, rdw = sparse_conv_implicit_bwd_plain(*args, want_dx=want_dx)
+    _close_to_max(dw, rdw, 1e-4)
+    if want_dx:
+        _close_to_max(dx, rdx, 1e-4)
+
+
+@pytest.mark.parametrize("pattern", ["edges", "dense", "pads"])
+@pytest.mark.parametrize("cin,cout", [(32, 32), (192, 128), (128, 384)])
+def test_gather_gemm_counts_the_rows_it_multiplies(dev, pattern, cin, cout):
+    """The rows that K6, K12 and K7's dX count inside counted_gather_rows
+    are compacted_rows' executed rows of their map (per 64-row tile and
+    offset the matches rounded up to 16: 0, 16 and 32 for the 0, 16 and 17
+    of the edges; an output wider than 256 columns counted once), dW and
+    launches outside the block count nothing."""
+    kvol, n, n_src = 27, 3 * 64 + 13, 150
+    rows = _synthetic_rows(kvol, n, n_src, pattern, cin + cout)
+    qkey, skeys, srow = _as_keys(rows, n_src, cin)
+    _, executed = compacted_rows(rows >= 0)
+    gen = torch.Generator().manual_seed(cout)
+    x = torch.randn(n_src, cin, generator=gen).to(dev)
+    w = torch.randn(kvol, cin, cout, generator=gen).to(dev)
+    xb = torch.randn(n, cin, generator=gen).to(dev)
+    g = torch.randn(n_src, cout, generator=gen).to(dev)
+    fwd = (x, w, qkey.to(dev), skeys.to(dev), srow.to(dev))
+    bwd = (xb, g, w, qkey.to(dev), skeys.to(dev), srow.to(dev))
+    counts = []
+    for launch in (lambda: sparse_conv_implicit_fwd(*fwd),
+                   lambda: sparse_conv_table_fwd(x, w, rows.to(torch.int32)
+                                                 .to(dev)),
+                   lambda: sparse_conv_implicit_bwd(*bwd),
+                   lambda: sparse_conv_implicit_bwd(*bwd, want_dx=False)):
+        launch()
+        with counted_gather_rows(dev) as counter:
+            launch()
+        launch()
+        torch.cuda.synchronize()
+        counts.append(int(counter.item()))
+    assert counts == [executed, executed, executed, 0]
+

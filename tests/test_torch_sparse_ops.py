@@ -241,3 +241,27 @@ def test_masked_stats_and_normalize():
         to_np(sparse_ops.apply_mask(torch.from_numpy(x),
                                     torch.from_numpy(m))),
         x * m[:, None])
+
+
+@pytest.mark.parametrize("key,tile,frag", [("s1->s1/k3d1", 64, 16),
+                                           ("s1->s2/k3d1", 64, 16),
+                                           ("s2->s1/k3d1", 128, 8)])
+def test_compacted_rows_against_a_loop(graphs, key, tile, frag):
+    """kernels.compacted_rows (the work the gather-GEMM of K6, K7's dX and
+    K12 executes) against a plain loop over (tile, offset) on a real map:
+    the hits of each tile's offset rounded up to ``frag``."""
+    from gcl_tpu_torch.core.coords import lookup
+    from gcl_tpu_torch.kernels import compacted_rows
+
+    g = graphs[0]
+    lv = g.levels[int(key.split("->")[0][1:])]
+    hit = lookup(lv.skeys, lv.srow, g.maps[key].qkey) >= 0
+    matched, executed = 0, 0
+    for k in range(hit.shape[0]):
+        for t0 in range(0, hit.shape[1], tile):
+            n = int(hit[k, t0:t0 + tile].sum())
+            matched += n
+            executed += -(-n // frag) * frag
+    assert compacted_rows(hit, tile, frag) == (matched, executed)
+    assert matched <= executed < matched + hit.shape[0] * frag * (
+        -(-hit.shape[1] // tile))
