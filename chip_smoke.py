@@ -39,7 +39,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    Per conv it also sets the one-pass backward (K7) beside the two-pass
    one (K6 through the reverse map for dX + K8 over the forward map for
    dW): dX and dW of both within 1e-4 of each other's max, the times of
-   both and their sums per step; and it holds the explicit tables of this
+   both and their sums per step; it reads the rows that the split-K dW
+   core stages for K7's dW and for K8 (counted by the kernel in a launch
+   of its own) and requires each between the matched pairs and 1.05 x
+   them plus 8 rows per block; and it holds the explicit tables of this
    batch (K10) equal to the rows the implicit maps' keys resolve to;
    then the group kernels K1 and K11 (see group_kernel_checks);
 6. train step: make_gcl_train_step at gcl_tpu_torch.bench's settings,
@@ -60,7 +63,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    convs at their real Cin / Cout, K12 through the reverse table (the dX
    of the two-pass backward) against the scatter-add backward, and K8 over
    the tables, each within 1e-4 of the plain tensor's max; times, bounds
-   and K12's matched and executed GFLOP (counted as above);
+   and K12's matched and executed GFLOP (counted as above); per conv K8
+   beside its plain version, its bound, its staged rows (gated as above)
+   and, as a yardstick, the products alone: cuBLAS in float32 on the
+   CUDA cores (TF32 off) on the matched rows gathered beforehand;
 8. explicit-route train step at 8 x 7: as phase 6 with exactly K1 1, K10
    11, K12 41 (21 forward + 20 dX), K8 21 launches per step and none of
    K2-K7; then the 4 x 7 step on the explicit route, one timed step, so
@@ -229,6 +235,22 @@ def _counted_rows(dev, launch, expected: int, what: str) -> int:
     return rows
 
 
+def _counted_dw(dev, launch, matched: int, what: str):
+    """(staged rows, blocks) of the split-K dW launches of launch(), as the
+    kernel counts them (a launch of its own, not a timed one): required at
+    least the ``matched`` pairs and at most 1.05 x them plus 8 rows per
+    block that staged (the last stage of each block rounded up to 8)."""
+    from gcl_tpu_torch.kernels import counted_dw_rows
+
+    with counted_dw_rows(dev) as counter:
+        launch()
+    staged, blocks = (int(v) for v in counter.tolist())
+    _require(matched <= staged <= 1.05 * matched + 8 * blocks,
+             f"{what}: the dW staged {staged} rows in {blocks} blocks for "
+             f"{matched} matched pairs")
+    return staged, blocks
+
+
 def _add_work(r: dict, mult: int, matched: float, executed: float) -> None:
     """Add mult launches' matched and executed gather-GEMM operations."""
     r["gemm_flops"] = r.get("gemm_flops", 0) + mult * matched
@@ -344,7 +366,8 @@ def train_kernel_checks(dev) -> dict:
     run = _runner(rec)
     convs = _k3_convs()
     two_pass = dict(k7_ms=0.0, k6_rev_ms=0.0, k8_ms=0.0, convs=[])
-    work = dict(matched=0, k6=0, k7_dx=0)
+    work = dict(matched=0, k6=0, k7_dx=0, pairs=0, k7_dw_staged=0,
+                k8_staged=0)
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     for (key, s_in, s_out, cin, cout), mult in sorted(convs.items()):
         lv_in, lv_out = graph.levels[s_in], graph.levels[s_out]
@@ -371,6 +394,8 @@ def train_kernel_checks(dev) -> dict:
                             f"K6 {key}")
         ex7 = _counted_rows(dev, lambda: KERNELS["K7"][0](*bwd_args), ex7,
                             f"K7 {key} dX")
+        st7, bl7 = _counted_dw(dev, lambda: KERNELS["K7"][0](*bwd_args),
+                               matched, f"K7 {key} dW")
         out, e6, ms6, p6 = run(
             "K6", fwd_args, mult, flops=mm * matched,
             n_bytes=_nbytes(*fwd_args) + 4 * g.numel(), outs=lambda o: (o,))
@@ -380,6 +405,7 @@ def train_kernel_checks(dev) -> dict:
         _add_work(rec["K6"], mult, mm * matched, mm * ex6)
         _add_work(rec["K7"], mult, mm * matched, mm * ex7)
         work["matched"] += mult * mm * matched
+        work["pairs"] += mult * matched
         work["k6"] += mult * mm * ex6
         work["k7_dx"] += mult * mm * ex7
         _require(torch.equal(out, KERNELS["K6"][0](*fwd_args)),
@@ -391,6 +417,10 @@ def train_kernel_checks(dev) -> dict:
         rev_args = (g, wt, cmap.rqkey, lv_out.skeys, lv_out.srow)
         dw_args = (x, g, cmap.qkey, lv_in.skeys, lv_in.srow)
         dx2, dw2 = k6(*rev_args), k8(*dw_args)
+        st8, bl8 = _counted_dw(dev, lambda: k8(*dw_args), matched,
+                               f"K8 {key} over the implicit map")
+        work["k7_dw_staged"] += mult * st7
+        work["k8_staged"] += mult * st8
         e2 = max(_rel_err(dx, dx2, f"K7 {key} dX against K6 through the "
                                    f"reverse map"),
                  _rel_err(dx2, dx, f"{key} two-pass dX against K7"))
@@ -413,7 +443,9 @@ def train_kernel_checks(dev) -> dict:
               f"K6 rel_err {e6:.3g} {ms6:.3f} ms (plain {p6:.3f}); "
               f"K7 rel_err {e7:.3g} {ms7:.3f} ms (plain {p7:.3f}); two-pass "
               f"{ms6r + ms8:.3f} ms (K6 reverse {ms6r:.3f} + K8 {ms8:.3f}), "
-              f"dX rel_err {e2:.3g}, dW rel_err {e8:.3g}")
+              f"dX rel_err {e2:.3g}, dW rel_err {e8:.3g}; dW staged rows K7 "
+              f"{st7} ({st7 / matched:.4f} x, {bl7} blocks), K8 {st8} "
+              f"({st8 / matched:.4f} x, {bl8} blocks)")
         del x, g, w, wt, out, dx, dw, dx2, dw2
 
     # the explicit tables of this batch (blocked levels): K10's equal the
@@ -508,6 +540,11 @@ def train_kernel_checks(dev) -> dict:
           f"({work['k6'] / work['matched']:.3f} x), K7 dX "
           f"{work['k7_dx'] / 1e9:.1f} ({work['k7_dx'] / work['matched']:.3f} "
           f"x) + dW {work['matched'] / 1e9:.1f} matched")
+    print(f"dW rows staged by the split-K core per train step, as it counts "
+          f"them: K7 {work['k7_dw_staged']} "
+          f"({work['k7_dw_staged'] / work['pairs']:.4f} x the "
+          f"{work['pairs']} matched pairs), K8 over the forward map "
+          f"{work['k8_staged']} ({work['k8_staged'] / work['pairs']:.4f} x)")
     _require(work["k6"] <= 1.4 * work["matched"]
              and work["k7_dx"] <= 1.4 * work["matched"],
              f"K6 and K7's dX multiply at most 1.4 x the matched work: {work}")
@@ -680,6 +717,29 @@ def group_kernel_checks(dev) -> dict:
     return rec
 
 
+def _products_ms(x, g, kmap, dw) -> float:
+    """Device ms of the products of K8's function alone: its matched x and
+    g rows gathered beforehand (not timed), then one cuBLAS float32 product
+    x_k^T g_k per offset (TF32 off: the CUDA cores' float32 rate). A
+    yardstick of the same products in another arithmetic than K8's split
+    TF32 on the tensor cores, so it does not split K8's time into products
+    and gathering; the port never calls it. Its sum is held to K8's dW
+    within REL_TOL of the max."""
+    import torch
+
+    k, i = (kmap >= 0).nonzero(as_tuple=True)
+    counts = (kmap >= 0).sum(1).tolist()
+    xs = x[kmap[k, i].long()].split(counts)
+    gs = g[i].split(counts)
+    del k, i
+
+    def products():
+        return [a.T @ b for a, b in zip(xs, gs)]
+
+    _rel_err(torch.stack(products()), dw, "the gathered products against K8")
+    return _ms(products, 3)
+
+
 def explicit_kernel_checks(dev) -> dict:
     """Phase 7: K10, K12 and K8 against their plain versions at the shapes
     of the explicit-route train step (8 x 7 clouds). Returns their records,
@@ -774,6 +834,14 @@ def explicit_kernel_checks(dev) -> dict:
         dw, e8, ms8, p8 = run(
             "K8", (x, g, kmap), mult, flops=flops, outs=lambda o: (o,),
             n_bytes=_nbytes(x, g, kmap, w))
+        st8, bl8 = _counted_dw(dev, lambda: KERNELS["K8"][0](x, g, kmap),
+                               matched, f"K8 {key} over the table")
+        b8 = _bound(_nbytes(x, g, kmap, w), flops, True)[0]
+        mm_ms = _products_ms(x, g, kmap, dw)
+        rec["K8"].setdefault("convs", []).append(dict(
+            conv=f"{key} {cin}->{cout}", count=mult, ms=ms8, plain_ms=p8,
+            bound_ms=b8, products_ms=mm_ms, matched=matched, staged=st8,
+            blocks=bl8))
         line = (f"{key} {cin}->{cout} x{mult} ({matched} pairs): GFLOP per "
                 f"launch matched {flops / 1e9:.2f}, executed K12 "
                 f"{2 * ex12 * cin * cout / 1e9:.2f} ({ex12 / matched:.3f} x)"
@@ -781,7 +849,11 @@ def explicit_kernel_checks(dev) -> dict:
                 f"{2 * ex12r * cin * cout / 1e9:.2f} ({ex12r / matched:.3f} "
                 f"x); K12 rel_err "
                 f"{e12:.3g} {ms12:.3f} ms (plain {p12:.3f}); K8 rel_err "
-                f"{e8:.3g} {ms8:.3f} ms (plain {p8:.3f})")
+                f"{e8:.3g} {ms8:.3f} ms (plain {p8:.3f}, bound {b8:.3f}), "
+                f"staged {st8} rows ({st8 / matched:.4f} x, {bl8} blocks), "
+                f"the products alone {mm_ms:.3f} ms (yardstick: cuBLAS float32 "
+                f"on the CUDA cores, "
+                f"on rows gathered beforehand)")
         if kvol == 27:  # conv1's input takes no gradient: no dX in the step
             wt = w.flip(0).transpose(1, 2).contiguous()
             ex12r = _counted_rows(dev, lambda: k12(g, wt, rev), ex12r,
@@ -802,6 +874,16 @@ def explicit_kernel_checks(dev) -> dict:
         print(line)
         del x, g, w, out, dw
     _bounds(rec, "explicit train step")
+    convs8 = rec["K8"]["convs"]
+    print(f"K8 per explicit train step ({sum(c['count'] for c in convs8)} "
+          f"launches): kernel {rec['K8']['ms']:.3f} ms, plain "
+          f"{rec['K8']['plain_ms']:.3f}, bound {rec['K8']['bound_ms']:.3f}; "
+          f"the products alone "
+          f"{sum(c['count'] * c['products_ms'] for c in convs8):.3f} ms "
+          f"(cuBLAS float32 on the CUDA cores on pre-gathered rows, a "
+          f"yardstick); rows staged "
+          f"{sum(c['count'] * c['staged'] for c in convs8)} for "
+          f"{sum(c['count'] * c['matched'] for c in convs8)} matched pairs")
     return rec
 
 
@@ -1238,6 +1320,7 @@ def main() -> None:
                       serving_plain_ms=k2_plain_ms,
                       serving_bound_ms=k2_bound[0])
     kernels[1].update(two_pass=rec["K7"].pop("two_pass"))
+    kernels[9].update(convs=rec["K8"].pop("convs"))
     print(json.dumps({"kernels": kernels}))
     print(f"{gpu}")
     print(json.dumps({"ok": True, "device": {

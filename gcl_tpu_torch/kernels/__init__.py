@@ -13,8 +13,8 @@ from .radius_topk import (windowed_cell_topk, windowed_cell_topk_exact,
 from .scalar_conv import (scalar_conv_dw, scalar_conv_dw_plain,
                           scalar_conv_dx, scalar_conv_dx_plain,
                           scalar_conv_fwd, scalar_conv_fwd_plain)
-from .sparse_conv import (compacted_rows, counted_gather_rows,
-                          sparse_conv_dw,
+from .sparse_conv import (compacted_rows, counted_dw_rows,
+                          counted_gather_rows, sparse_conv_dw,
                           sparse_conv_dw_plain,
                           sparse_conv_implicit_bwd,
                           sparse_conv_implicit_bwd_plain,

@@ -43,6 +43,8 @@ SIGNATURES = {
     "sparse_conv_table_dw": [_P] * 4 + [_I] * 5 + [_P],
     "sparse_conv_fwd_count_rows": [_P],
     "sparse_conv_bwd_count_rows": [_P],
+    "sparse_conv_bwd_count_dw_rows": [_P],
+    "sparse_conv_dw_count_rows": [_P],
 }
 
 _lib = None

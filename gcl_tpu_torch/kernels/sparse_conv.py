@@ -12,12 +12,15 @@ are one tensor-core gather-GEMM (``csrc/gather_gemm.cuh``) that multiplies
 only the matched rows, compacted per (64-row tile, offset) and padded to
 16; ``compacted_rows`` counts that work from a map's hit mask, and
 ``counted_gather_rows`` has the kernels count what they multiplied.
-``sparse_conv_dw`` (``csrc/sparse_conv_dw.cu``, K8) is the standalone dW
-of the two-pass backward: over the implicit forward map it replaces
-_conv_half_dw (kernel body _dw_kernel_h), over an index table
-pallas_conv_dw. ``sparse_conv_table_fwd`` (K12, the forward
-kernel with its rows read from a table) replaces pallas_conv_fwd, the
-index-table API that gcl_tpu reaches through _fused_from_idx.
+Every dW is one split-K tensor-core core (``csrc/splitk_dw.cuh``) that
+stages only the matched (input row, output row) pairs, 32 at a time: K7's
+dW resolves them through the reverse map, ``sparse_conv_dw``
+(``csrc/sparse_conv_dw.cu``, K8) through the forward map or an index
+table; ``counted_dw_rows`` has it count the rows it staged. Over the
+implicit forward map K8 replaces _conv_half_dw (kernel body _dw_kernel_h),
+over an index table pallas_conv_dw. ``sparse_conv_table_fwd`` (K12, the
+forward kernel with its rows read from a table) replaces pallas_conv_fwd,
+the index-table API that gcl_tpu reaches through _fused_from_idx.
 """
 from __future__ import annotations
 
@@ -109,6 +112,34 @@ def counted_gather_rows(device):
             torch.cuda.synchronize()
             for fn in setters:
                 check(fn(None), "the gather-GEMM's row counter")
+
+
+@contextlib.contextmanager
+def counted_dw_rows(device):
+    """While the block runs, the split-K dW launches (K7's dW, K8 in both
+    forms) on ``device`` count what they stage: yields an int64 tensor [2]
+    on the card that holds, once the block has ended, the rows staged (per
+    32-pair stage the pairs rounded up to 8) and the blocks that staged
+    them, both over the first Cin x Cout tile of each launch. For checks:
+    one atomic add per block, and launches outside the block count
+    nothing."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the kernels count on a CUDA device, not {device}")
+    lib = load_library()
+    setters = (lib.sparse_conv_dw_count_rows,
+               lib.sparse_conv_bwd_count_dw_rows)
+    counter = torch.zeros(2, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        torch.cuda.synchronize()
+        for fn in setters:
+            check(fn(counter.data_ptr()), "the dW's staged-row counter")
+        try:
+            yield counter
+        finally:
+            torch.cuda.synchronize()
+            for fn in setters:
+                check(fn(None), "the dW's staged-row counter")
 
 
 def _check_gather_rows(name, t):

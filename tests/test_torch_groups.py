@@ -33,11 +33,13 @@ def _transforms(seed):
     return t
 
 
-@pytest.fixture(scope="module")
-def batch():
+def _batch(offset):
+    """(port voxels, gcl_tpu voxels, transforms, radii) of B samples of C
+    clouds; ``offset`` [3] moves every scene away from the LiDAR origin."""
     # neighbour clouds: the sample's centre scene seen from the
     # neighbour's pose (inverse transform), resampled with some noise
     centre, pmask = clouds(21, B, 600)
+    centre = centre + np.asarray(offset, np.float32)
     transforms = _transforms(4)
     rng = np.random.RandomState(5)
     pts = np.empty((B, C, 600, 3), np.float32)
@@ -59,6 +61,11 @@ def batch():
     jv_b = jax.tree_util.tree_map(
         lambda x: x.reshape((B, C) + x.shape[1:]), jv)
     return tv_b, jv_b, transforms, np.array([0.45, 0.6], np.float32)
+
+
+@pytest.fixture(scope="module")
+def batch():
+    return _batch([0.0, 0.0, 0.0])
 
 
 def test_radius_knn_exact(batch):
@@ -265,3 +272,109 @@ def test_build_colocation_groups_with_cell_cap_exact(batch):
                                           cell_cap=cell_cap)
         _assert_groups_equal(g, ref)
         assert int(to_np(g.valid).sum()) > 50
+
+
+_BLOCK3 = (1 << 20) | (1 << 10) | 1   # the +1 bits of a packed cell key
+
+
+def _member_sets(member_idx, order=None):
+    """Per (sample, search c, slot) the set of hit rows, as sorted tuples
+    (-1 padded): member_idx [B * NV, C * K] in slot order, or in row order
+    taken to slot order by ``order`` [B, NV]."""
+    m = np.sort(np.asarray(member_idx).reshape(B, NV, C, K), -1)
+    if order is not None:
+        m = np.stack([m[b][order[b]] for b in range(B)])
+    return m
+
+
+@pytest.mark.parametrize("offset", [(20.0, 10.0, 0.0), (60.0, 30.0, 0.0)],
+                         ids=["22m", "67m"])
+def test_grid_and_brute_force_groups_differ_only_at_rounding(offset):
+    """Why the grid and the brute-force group searches disagree on a few
+    rows, decided on the CPU: the fixture's batch with its scenes moved
+    tens of metres from the origin, as a LiDAR sees them (the farther, the
+    more rows differ).
+
+    The port's grid search (K1's function) equals gcl_tpu's grid (Pallas,
+    interpret mode) on every row. The (sample, search, query) rows whose
+    hit sets differ between the port's grid and its brute-force
+    radius_knn are the rows on which gcl_tpu's grid and gcl_tpu's
+    radius_knn differ, except on rows where the two brute-force searches
+    differ from each other: their expanded d2 rounds differently in
+    torch's and XLA's float32 products (none at 22 m, four at 67 m).
+
+    Each target in any of these differences is classified in float64 from
+    the float32 coordinates both searches see: its d2 lies within the d2
+    rounding of r^2 (a hit in one search and a miss in the other), or the
+    kn-th and (kn+1)-th distances tie within that rounding and it is one
+    of them (the searches keep different ones), or it lies outside the
+    query's 2x2x2 cell block (the grid cannot see it). The rounding is
+    K1's d2 quantum (r^2 / (2^(31 - ROWB) - 1)) plus 8 float32 epsilons of
+    |q|^2 + |t|^2, a bound on the error of the brute force's expanded
+    |q|^2 + |t|^2 - 2 q.t (the grid's (q - t)^2 errs far less): no target
+    may fall in none of these classes. At these batches every difference
+    is at the rounding and none lies outside the block: the gap is gcl_tpu's
+    own semantics (two formulas for d2, one of them cancelling), which the
+    port keeps, not a fault of the port."""
+    cell = 1.2
+    tv_b, jv_b, transforms, radius = _batch(offset)
+    tt, rr = torch.from_numpy(transforms), torch.from_numpy(radius)
+    r_c = np.minimum(radius, np.float32(cell * 0.5))
+    qperm = to_np(tdp._grid_searches(tv_b, tt, rr, K, cell)[2])
+    grid = _member_sets(to_np(tdp.batch_colocation_groups(
+        tv_b, tt, rr, k=K, cell=cell).member_idx))
+    brute = _member_sets(to_np(tdp.batch_colocation_groups(
+        tv_b, tt, torch.from_numpy(r_c), k=K, chunk=128).member_idx), qperm)
+    jgrid = _member_sets(jax.jit(lambda v, t, r: jdp.batch_colocation_groups(
+        v, t, r, k=K, cell=cell, _interpret=True))(
+            jv_b, jnp.asarray(transforms), jnp.asarray(radius)).member_idx)
+    jbrute = _member_sets(jax.jit(lambda v, t, r: jdp.batch_colocation_groups(
+        v, t, r, k=K, chunk=128, cell=None))(
+            jv_b, jnp.asarray(transforms), jnp.asarray(r_c)).member_idx,
+        qperm)
+    np.testing.assert_array_equal(grid, jgrid)
+    differ = (grid != brute).any(-1)
+    jdiffer = (jgrid != jbrute).any(-1)
+    brutes_differ = (brute != jbrute).any(-1)
+    assert not (differ != jdiffer)[~brutes_differ].any()
+    assert differ.sum() >= 2     # the batch does show the gap
+
+    eps = float(np.finfo(np.float32).eps)
+    rowb = max(1, (NV - 1).bit_length())   # K1's packed row bits, T = NV
+    aligned = tdp._aligned(tv_b.xyz, tt)
+    classes = {"boundary": 0, "tie": 0, "outside the block": 0}
+    pairs = ((grid, brute, differ), (jgrid, jbrute, jdiffer),
+             (brute, jbrute, brutes_differ))
+    for a, b_sets, rows_differ in pairs:
+        for b, slot, c in zip(*np.nonzero(rows_differ)):
+            q_row = qperm[b, slot]
+            q, q_mask = tv_b.xyz[b, 0, q_row], tv_b.mask[b, 0, q_row]
+            _, pbase = tdp._octant_base(q[None], q_mask[None], cell)
+            tkey, t_ok, _ = tdp._target_keys(aligned[b, c], tv_b.mask[b, c],
+                                             cell)
+            q64 = to_np(q).astype(np.float64)
+            t64 = to_np(aligned[b, c]).astype(np.float64)
+            d2 = np.where(to_np(tv_b.mask[b, c]),
+                          ((t64 - q64) ** 2).sum(1), np.inf)
+            r2 = float(r_c[b] * r_c[b])           # float32, as both compare
+            tol = (r2 / ((1 << (31 - rowb)) - 1)
+                   + 8 * eps * ((q64 ** 2).sum() + (t64 ** 2).sum(1)))
+            kth, next_ = np.sort(d2)[K - 1:K + 1]
+            sets = [set(m[m >= 0] - (b * C + c) * NV)
+                    for m in (a[b, slot, c], b_sets[b, slot, c])]
+            for t in sets[0] ^ sets[1]:
+                off = int(tkey[t]) - int(pbase[0])
+                if abs(d2[t] - r2) <= tol[t]:
+                    classes["boundary"] += 1
+                elif (abs(next_ - kth) <= tol[t]
+                      and abs(d2[t] - kth) <= tol[t]):
+                    classes["tie"] += 1
+                elif not (t_ok[t] and off >= 0 and off & ~_BLOCK3 == 0):
+                    classes["outside the block"] += 1
+                else:
+                    pytest.fail(f"sample {b} search {c} query {q_row} "
+                                f"target {t}: d2 {d2[t]}, r^2 {r2}, kn-th "
+                                f"{kth}, (kn+1)-th {next_}, rounding "
+                                f"{tol[t]}")
+    assert classes["boundary"] > 0 and classes["tie"] > 0, classes
+    assert classes["outside the block"] == 0, classes

@@ -18,8 +18,8 @@ from gcl_tpu_torch.data.device_pipeline import (_batched_grid_core,
                                                 batched_grid_radius_knn,
                                                 radius_knn)
 from gcl_tpu_torch.core import kernel_maps, sparse_ops
-from gcl_tpu_torch.kernels import (compacted_rows, counted_gather_rows,
-                                   join_kmap, join_kmap_plain,
+from gcl_tpu_torch.kernels import (compacted_rows, counted_dw_rows,
+                                   counted_gather_rows, join_kmap, join_kmap_plain,
                                    sparse_conv_dw, sparse_conv_dw_plain,
                                    sparse_conv_table_fwd,
                                    sparse_conv_table_fwd_plain,
@@ -738,3 +738,111 @@ def test_gather_gemm_counts_the_rows_it_multiplies(dev, pattern, cin, cout):
         counts.append(int(counter.item()))
     assert counts == [executed, executed, executed, 0]
 
+
+
+# --- the split-K dW core (K8 over forward maps and index tables, K7's dW
+# over reverse maps) on synthetic maps: 0, 7, 8, 9 and 33 matched rows per
+# offset (around the 8-row rounding and the 32-pair stage), a dense map,
+# pads only, and a map of several 2048-row resolve rounds and chunks ---
+
+DW_WIDTHS = [(1, 1), (1, 32), (3, 64), (32, 96), (48, 128), (128, 256),
+             (384, 128), (384, 256), (32, 32), (128, 64), (32, 1), (384, 1)]
+RESOLVE_ROWS = 2048  # rows a block resolves per round (splitk_dw.cuh)
+
+
+def _dw_rows(kvol, n_drive, n_src, pattern, seed):
+    """int64 [K, n_drive]: the source row of each (offset, driving row),
+    -1 for none. 'stages': offset k matches (0, 7, 8, 9, 33)[k % 5] rows;
+    'quarter': a quarter of the pairs; 'dense': every pair; 'pads': none."""
+    gen = torch.Generator().manual_seed(seed)
+    rows = torch.randint(0, n_src, (kvol, n_drive), generator=gen)
+    if pattern == "dense":
+        return rows
+    if pattern == "pads":
+        return torch.full_like(rows, -1)
+    if pattern == "quarter":
+        keep = torch.rand((kvol, n_drive), generator=gen) < 0.25
+    else:
+        keep = torch.zeros((kvol, n_drive), dtype=torch.bool)
+        for k in range(kvol):
+            count = (0, 7, 8, 9, 33)[k % 5]
+            keep[k, torch.randperm(n_drive, generator=gen)[:count]] = True
+    return torch.where(keep, rows, -1)
+
+
+def _staged_rows(matched):
+    """The rows one chunk stages for `matched` pairs of an offset: stages
+    of 32 pairs, the last rounded up to 8."""
+    return 32 * (matched // 32) + (matched % 32 + 7) // 8 * 8
+
+
+@pytest.mark.parametrize("pattern", ["stages", "quarter", "dense", "pads"])
+@pytest.mark.parametrize("cin,cout", DW_WIDTHS)
+@pytest.mark.parametrize("form", ["forward", "table", "reverse"])
+def test_splitk_dw_on_synthetic_maps(dev, form, pattern, cin, cout):
+    """K8 over a forward implicit map and over an index table (misses as -1,
+    N_in and N_in + 3), and K7's dW over the same rows as a reverse map,
+    all on the one split-K core: within 1e-4 of the plain version's max
+    (atomics between chunks), exact zeros for pads only, a non-contiguous
+    g. The staged rows the kernel counts: exactly the stages of 32 pairs
+    with the last rounded to 8 where an offset is one chunk (N of 205, not
+    a multiple of a resolve round), else between the matched pairs and 7
+    more per block; one block per (offset, chunk) with a match. Cin = 1
+    takes the core's CUDA-core form, which counts the matched pairs."""
+    kvol = 125 if (cin, cout) == (1, 32) else 27   # conv1 of the explicit
+    n_drive = 2 * RESOLVE_ROWS + 77 if pattern == "quarter" else 205
+    n_src = 150
+    rows = _dw_rows(kvol, n_drive, n_src, pattern, cin * 7 + cout)
+    gen = torch.Generator().manual_seed(cin + cout)
+    n_x, n_g = (n_drive, n_src) if form == "reverse" else (n_src, n_drive)
+    x = torch.randn(n_x, cin, generator=gen).to(dev)
+    g = torch.randn(cout, n_g, generator=gen).to(dev).T
+    assert cout == 1 or not g.is_contiguous()
+    if form == "table":
+        miss = torch.where(torch.arange(n_drive) % 3 == 0, -1,
+                           n_src + torch.arange(n_drive) % 2 * 3)
+        args = (x, g, torch.where(rows < 0, miss, rows).to(torch.int32)
+                .to(dev))
+    else:
+        keys = tuple(t.to(dev) for t in _as_keys(rows, n_src, cin))
+    if form == "forward":
+        args = (x, g) + keys
+    if form == "reverse":
+        w = torch.randn(kvol, cin, cout, generator=gen).to(dev)
+        args = (x, g, w) + keys
+        fn, before = sparse_conv_implicit_bwd, sparse_conv_implicit_bwd.launches
+
+        def launch():
+            return sparse_conv_implicit_bwd(*args, want_dx=False)[1]
+        ref = sparse_conv_implicit_bwd_plain(*args, want_dx=False)[1]
+    else:
+        fn, before = sparse_conv_dw, sparse_conv_dw.launches
+
+        def launch():
+            return sparse_conv_dw(*args)
+        ref = sparse_conv_dw_plain(*args)
+    dw = launch()
+    with counted_dw_rows(dev) as counter:
+        again = launch()
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert dw.shape == (kvol, cin, cout)
+    staged, blocks = counter.tolist()
+    matched = (rows >= 0).sum(1)
+    if pattern == "pads":
+        assert not dw.any() and not again.any() and staged == blocks == 0
+        return
+    _close_to_max(dw, ref, 1e-4)
+    _close_to_max(again, ref, 1e-4)
+    if cin == 1:
+        assert staged == int(matched.sum())
+    elif n_drive <= RESOLVE_ROWS:
+        assert staged == int(_staged_rows(matched).sum())
+    else:
+        total = int(matched.sum())
+        assert total <= staged <= total + 7 * blocks
+    if n_drive <= RESOLVE_ROWS:
+        assert blocks == int((matched > 0).sum())
+    else:
+        n_chunks = -(-n_drive // RESOLVE_ROWS)
+        assert (matched > 0).sum() <= blocks <= kvol * n_chunks
