@@ -1,5 +1,5 @@
 """Smoke run of gcl_tpu_torch's serving path and train steps (the implicit
-and the explicit conv-map route) on one CUDA card.
+and the explicit conv-map route, in float32 and in bf16) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -71,8 +71,25 @@ Phases, in order; any failure raises and the exit code is non-zero:
    11, K12 41 (21 forward + 20 dX), K8 21 launches per step and none of
    K2-K7; then the 4 x 7 step on the explicit route, one timed step, so
    that the two routes stand side by side on one batch;
-9. prints {"kernels": [...]} (twelve kernels), the card line and, last,
-   the {"ok": true, "device": {...}} line.
+9. bf16 kernels (the main path: root bench.py's step computes in bf16):
+   phase 5 again with bf16 features, every bf16 launch of K2-K7 and K9
+   against its plain bf16 version -- a bf16 output bit-equal on at least
+   BF16_EQUAL_SHARE of its elements and one ulp apart on the rest or,
+   where the sum cancels, one ulp plus the float32 sums' error bound; a
+   float32 dW within 1e-4 of the max -- with the same executed and staged
+   row gates, times and bounds (bf16 products at the bf16 tensor-core
+   rate), and, on one conv, the cancellation measured against float64;
+10. the bf16 train step at 4 x 7 on the implicit route: the launch counts
+   of the float32 step exactly, every launch against its plain bf16
+   version inside the step, the loss terms of the kernel path within
+   twice the plain path's bf16-vs-float32 drift (measured in the same
+   run, from a plain float32 step), 3 timed steps, peak memory; then
+   phase 7's K12 and K8 in bf16 at 8 x 7 and the bf16 steps at 8 x 7 and
+   at 4 x 7 on the explicit route, checked the same way;
+11. prints {"kernels": [...]} (twelve kernels; a conv kernel's row holds
+   its bf16 form's numbers, the main path's, and its float32 form's under
+   "float32"), the card line and, last, the {"ok": true, "device": {...}}
+   line.
 """
 import contextlib
 import json
@@ -91,10 +108,22 @@ BATCH_EXPLICIT = 8  # 56 clouds: above the 31 the implicit maps address
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_FLOP_PER_S = 67e12     # float32 outside the tensor cores, published
 TF32_FLOP_PER_S = 495e12    # TF32 on the tensor cores, dense, published
+BF16_FLOP_PER_S = 989e12    # bf16 on the tensor cores, dense, published
 # the kernels whose operations are matrix products: the card can run them
-# as split TF32 on the tensor cores (K6, K7 and K12 do)
+# as split TF32 (float32) or bf16 products on the tensor cores
 PRODUCTS = ("K6", "K7", "K8", "K12")
 REL_TOL = 1e-4     # kernel vs plain, relative to the plain tensor's max
+# bf16 outputs: the kernel and its plain version sum the same exact
+# products in float32 in another order and round once, so they are equal
+# bit for bit but where the two float32 sums straddle a bf16 rounding
+# boundary: at least this share equal, the rest one ulp apart -- or, where
+# the sum cancels (its float32 rounding exceeds a bf16 ulp of the result,
+# which no summation order avoids; the bf16 cancellation phase measures
+# it), within one ulp plus the float32 error bound of the two sums of n
+# products, n * 2^-22 * sum |products| (Higham's gamma_n for each sum,
+# with the tensor cores' truncating adder's 2^-23)
+BF16_EQUAL_SHARE = 0.999
+SUM_BOUND = 2.0 ** -22
 
 
 def _require(ok: bool, what: str) -> None:
@@ -147,11 +176,12 @@ def plain_path():
     return _routed(lambda k, fn, plain: plain)
 
 
-def checked_path(errs: dict):
+def checked_path(errs: dict, unequal: dict = None):
     """Keep the model on the kernels, and hold every launch against the
     plain version on the very same inputs: errs[K] collects the worst
     error relative to the plain tensor's max (integer outputs must be
-    equal). A failure raises inside the step."""
+    equal; bf16 outputs pass _bf16_gate, and unequal[K] collects their
+    largest share not bit-equal). A failure raises inside the step."""
     import torch
 
     def checked(k, fn, plain):
@@ -168,8 +198,13 @@ def checked_path(errs: dict):
                     _require(_bit_equal(a, b), f"{k}: d2 bit for bit")
                     errs.setdefault(k, 0.0)
                 else:
-                    errs[k] = max(errs.get(k, 0.0),
-                                  _rel_err(a, b, f"{k} inside the step"))
+                    i = 0 if one else [x is a for x in got].index(True)
+                    rel, _, share = _close(
+                        a, b, f"{k} inside the step",
+                        lambda i=i: _sum_bound(plain, args, kw, i))
+                    errs[k] = max(errs.get(k, 0.0), rel)
+                    if share is not None and unequal is not None:
+                        unequal[k] = max(unequal.get(k, 0.0), share)
             return got
         return both
 
@@ -186,16 +221,19 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _bound(n_bytes: float, flops: float, split_tf32: bool = False):
+def _bound(n_bytes: float, flops: float, products=None):
     """(bound_ms, bound_by): the larger of bytes over the card's memory
-    rate and the float32 operations over the fastest rate that keeps
-    float32 accuracy. Operations on the CUDA cores: FP32_FLOP_PER_S. Matrix
-    products (``split_tf32``): split TF32 on the tensor cores, three TF32
-    products per float32 one, 3 x flops / TF32_FLOP_PER_S, the lesser
-    time; _bounds prints the CUDA-core bound beside it."""
+    rate and the operations over the fastest rate for their type.
+    Operations on the CUDA cores (products None): float32,
+    FP32_FLOP_PER_S. Float32 matrix products (products "split_tf32"):
+    split TF32 on the tensor cores, three TF32 products per float32 one,
+    3 x flops / TF32_FLOP_PER_S, the lesser time; _bounds prints the
+    CUDA-core bound beside it. bf16 matrix products (products "bf16"):
+    flops / BF16_FLOP_PER_S."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = (3 * flops / TF32_FLOP_PER_S if split_tf32
-             else flops / FP32_FLOP_PER_S)
+    t_ops = {None: flops / FP32_FLOP_PER_S,
+             "split_tf32": 3 * flops / TF32_FLOP_PER_S,
+             "bf16": flops / BF16_FLOP_PER_S}[products]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -209,6 +247,82 @@ def _rel_err(a, b, what: str) -> float:
     return err
 
 
+def _bf16_ordered(t):
+    """bf16 values as int32 in the order of the values: neighbours in
+    bf16 differ by one (+0 and -0 are both 0)."""
+    import torch
+
+    bits = t.contiguous().view(torch.int16).to(torch.int32)
+    return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+
+def _bf16_ulp(b):
+    """The bf16 ulp of each element of b (0 at 0), as float32."""
+    import torch
+
+    _, e = torch.frexp(b.float())
+    return torch.where(b == 0, 0.0, torch.ldexp(torch.ones_like(b.float()),
+                                                e - 8))
+
+
+def _sum_bound(plain, args, kw, i: int):
+    """n * SUM_BOUND * sum |products| for output i of a plain version's
+    call: the float32 error bound of two sums of n products each. The
+    sums of |products| come from the plain version on |args| (the floating
+    arguments' absolute values); n is the weight's elements per output
+    column (the products an output element sums)."""
+    import torch
+
+    absargs = [t.abs() if torch.is_tensor(t) and t.is_floating_point() else t
+               for t in args]
+    out = plain(*absargs, **kw)
+    s = (out[i] if isinstance(out, tuple) else out).float()
+    w = next(t for t in args if torch.is_tensor(t) and t.dim() == 3
+             and t.dtype == torch.float32)
+    return (w.numel() // s.shape[1]) * SUM_BOUND * s
+
+
+def _bf16_gate(a, b, what: str, bound=None) -> float:
+    """bf16 a and b: equal bit for bit on >= BF16_EQUAL_SHARE of the
+    elements; one ulp apart at most on the rest or, where more, within one
+    ulp plus bound() (a tensor of b's shape: the float32 sums' error
+    bound). Returns the share of elements that are not bit-equal."""
+    ulps = (_bf16_ordered(a) - _bf16_ordered(b)).abs()
+    unequal = float((ulps != 0).float().mean()) if ulps.numel() else 0.0
+    _require(unequal <= 1 - BF16_EQUAL_SHARE,
+             f"{what}: bf16 bit-equal on {1 - unequal:.6f} of the elements "
+             f"(>= {BF16_EQUAL_SHARE})")
+    far = ulps > 1
+    n_far = int(far.sum())
+    if n_far:
+        _require(bound is not None,
+                 f"{what}: {n_far} elements more than one ulp apart and no "
+                 f"float32 sum bound to hold them to")
+        diff = (a.float() - b.float()).abs()[far]
+        room = (_bf16_ulp(b)[far] + bound()[far])
+        worst = float((diff / room).max())
+        _require(worst <= 1.0,
+                 f"{what}: {n_far} elements more than one ulp apart, up to "
+                 f"{worst:.3g} x one ulp + the float32 sum bound")
+    return unequal
+
+
+def _close(a, b, what: str, bound=None):
+    """(error relative to b's max, max abs error, share not bit-equal or
+    None) of a kernel's output a against its plain version's b, gated: a
+    bf16 output by _bf16_gate (``bound`` as there), a float32 one within
+    REL_TOL of the max."""
+    import torch
+
+    if a.dtype == torch.bfloat16:
+        unequal = _bf16_gate(a, b, what, bound)
+        diff = float((a.float() - b.float()).abs().max())
+        scale = float(b.float().abs().max())
+        _require(scale > 0, f"{what}: the plain version is not all zero")
+        return diff / scale, diff, unequal
+    return _rel_err(a, b, what), float((a - b).abs().max()), None
+
+
 def _rte_rre(t_est, t_gt):
     r = t_est[:3, :3].T @ t_gt[:3, :3]
     cos = np.clip((np.trace(r) - 1.0) / 2.0, -1.0, 1.0)
@@ -219,6 +333,13 @@ def _rte_rre(t_est, t_gt):
 def _records(*names) -> dict:
     return {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bytes=0, flops=0)
             for k in names}
+
+
+def _note_unequal(r: dict, unequal) -> None:
+    """Keep the largest share of bf16 elements not bit-equal."""
+    if unequal is not None:
+        r["bf16_unequal_share"] = max(r.get("bf16_unequal_share", 0.0),
+                                      unequal)
 
 
 def _counted_rows(dev, launch, expected: int, what: str) -> int:
@@ -259,8 +380,9 @@ def _add_work(r: dict, mult: int, matched: float, executed: float) -> None:
 
 def _runner(rec: dict):
     """run(name, args, ...): kernel ``name`` and its plain version on the
-    same inputs; checks the outputs (floats within REL_TOL of the plain
-    tensor's max, integers equal), times both with CUDA events and adds
+    same inputs; checks the outputs (float32 within REL_TOL of the plain
+    tensor's max, bf16 by _bf16_gate, integers equal), times both with CUDA
+    events and adds
     ``mult`` launches' worth of time, bytes and matched operations to
     rec[name]. Returns (the kernel's output, worst relative error, ms,
     plain ms)."""
@@ -283,8 +405,11 @@ def _runner(rec: dict):
                                             f"integers")
                 errs.append((0.0, 0.0))
             else:
-                errs.append((_rel_err(a, b, f"{name} output {i}"),
-                             float((a - b).abs().max())))
+                rel, diff, unequal = _close(
+                    a, b, f"{name} output {i}",
+                    lambda i=i: _sum_bound(plain, args, kw, i))
+                _note_unequal(rec[name], unequal)
+                errs.append((rel, diff))
         del ref
         ms = _ms(lambda: fn(*args, **kw), 3)
         pms = _ms(lambda: plain(*args, **kw), 3)
@@ -315,19 +440,25 @@ def _k3_convs() -> dict:
     return convs
 
 
-def _bounds(rec: dict, what: str) -> None:
-    """Give every record its bound and print it."""
+def _bounds(rec: dict, what: str, bf16: bool = False) -> None:
+    """Give every record its bound and print it (``bf16``: the products'
+    bound is the bf16 tensor-core rate)."""
     for name, r in rec.items():
         tc = name in PRODUCTS
-        r["bound_ms"], r["bound_by"] = _bound(r["bytes"], r["flops"], tc)
+        products = ("bf16" if bf16 else "split_tf32") if tc else None
+        r["bound_ms"], r["bound_by"] = _bound(r["bytes"], r["flops"],
+                                              products)
         line = (f"{name} per {what}: kernel {r['ms']:.3f} ms, plain "
                 f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms by "
                 f"{r['bound_by']} ({r['bytes'] / 1e6:.1f} MB, "
                 f"{r['flops'] / 1e9:.2f} GFLOP matched), max_abs_err "
                 f"{r['max_abs_err']:.3g}")
-        if tc:
+        if tc and not bf16:
             line += (f"; split-TF32 bound {r['bound_ms']:.3f} ms, CUDA-core "
                      f"FP32 bound {_bound(r['bytes'], r['flops'])[0]:.3f} ms")
+        if "bf16_unequal_share" in r:
+            line += (f"; bf16 outputs not bit-equal to the plain version's: "
+                     f"{r['bf16_unequal_share']:.3g} of the elements at most")
         if "exec_flops" in r:
             line += (f"; the gather-GEMM{' (dX)' if name == 'K7' else ''} "
                      f"executed {r['exec_flops'] / 1e9:.2f} GFLOP, counted by "
@@ -336,11 +467,16 @@ def _bounds(rec: dict, what: str) -> None:
         print(line)
 
 
-def train_kernel_checks(dev) -> dict:
+def train_kernel_checks(dev, dtype=None) -> dict:
     """Phase 5: every kernel of the train step against its plain version
-    at the step's shapes. Returns {K: {max_abs_err, ms, plain_ms, bytes,
+    at the step's shapes, with features of ``dtype`` (float32 by default;
+    bf16 for phase 9). Returns {K: {max_abs_err, ms, plain_ms, bytes,
     flops}} summed over the step's launches of that kernel."""
     import torch
+
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
+    form = "bf16" if bf16 else "float32"
 
     from gcl_tpu_torch import bench
     from gcl_tpu_torch.core.coords import lookup
@@ -358,7 +494,7 @@ def train_kernel_checks(dev) -> dict:
     graph = build_graph(flat.coords, flat.mask, specs, cfg.level_caps,
                         n_clouds)
     torch.cuda.synchronize()
-    print("train levels: " + ", ".join(
+    print(f"train levels ({form} kernels): " + ", ".join(
         f"s{s} {lv.coords.shape[0]} rows / {lv.skeys.shape[0]} valid"
         for s, lv in sorted(graph.levels.items())))
 
@@ -373,9 +509,9 @@ def train_kernel_checks(dev) -> dict:
         lv_in, lv_out = graph.levels[s_in], graph.levels[s_out]
         cmap = graph.maps[key]
         x = (torch.randn(lv_in.coords.shape[0], cin, generator=gen)
-             .to(dev) * lv_in.mask[:, None])
+             .to(dev) * lv_in.mask[:, None]).to(dtype)
         g = (torch.randn(lv_out.coords.shape[0], cout, generator=gen)
-             .to(dev) * lv_out.mask[:, None])
+             .to(dev) * lv_out.mask[:, None]).to(dtype)
         w = torch.randn(27, cin, cout, generator=gen).to(dev) / (27 * cin) ** .5
         matched, ex6 = compacted_rows(
             lookup(lv_in.skeys, lv_in.srow, cmap.qkey) >= 0)
@@ -410,6 +546,9 @@ def train_kernel_checks(dev) -> dict:
         work["k7_dx"] += mult * mm * ex7
         _require(torch.equal(out, KERNELS["K6"][0](*fwd_args)),
                  f"K6 {key} repeats bit for bit")
+        if bf16 and (cin, cout) == (128, 128) and s_in == 1:
+            _cancellation(*fwd_args, out, KERNELS["K6"][1](*fwd_args),
+                          f"K6 {key} {cin}->{cout}")
         # the two-pass backward beside it: dX = K6 through the reverse map
         # with flipped, transposed weights, dW = K8 over the forward map
         k6, k8 = KERNELS["K6"][0], KERNELS["K8"][0]
@@ -421,9 +560,11 @@ def train_kernel_checks(dev) -> dict:
                                f"K8 {key} over the implicit map")
         work["k7_dw_staged"] += mult * st7
         work["k8_staged"] += mult * st8
-        e2 = max(_rel_err(dx, dx2, f"K7 {key} dX against K6 through the "
-                                   f"reverse map"),
-                 _rel_err(dx2, dx, f"{key} two-pass dX against K7"))
+        dx_bound = lambda: _sum_bound(KERNELS["K6"][1], rev_args, {}, 0)
+        e2 = max(_close(dx, dx2, f"K7 {key} dX against K6 through the "
+                                 f"reverse map", dx_bound)[0],
+                 _close(dx2, dx, f"{key} two-pass dX against K7",
+                        dx_bound)[0])
         e8 = max(_rel_err(dw2, KERNELS["K8"][1](*dw_args),
                           f"K8 {key} over the implicit map against plain"),
                  _rel_err(dw2, dw, f"{key} two-pass dW against K7"),
@@ -449,42 +590,50 @@ def train_kernel_checks(dev) -> dict:
         del x, g, w, wt, out, dx, dw, dx2, dw2
 
     # the explicit tables of this batch (blocked levels): K10's equal the
-    # rows that the implicit maps' keys resolve to
-    ge = build_graph(flat.coords, flat.mask, specs, cfg.level_caps, n_clouds,
-                     method="explicit")
-    _require(sorted(ge.kmaps) == sorted(graph.maps) and len(ge.kmaps) == 11,
-             f"11 tables for the 11 implicit maps, got {sorted(ge.kmaps)}")
-    for key, kmap in ge.kmaps.items():
-        lv_in = graph.levels[int(key.split("->")[0][1:])]
-        _require(torch.equal(kmap, lookup(lv_in.skeys, lv_in.srow,
-                                          graph.maps[key].qkey)),
-                 f"explicit table {key} equals the implicit map's rows")
-    print(f"explicit tables at {n_clouds} clouds equal the implicit maps' "
-          f"rows: {len(ge.kmaps)} geometries")
-    del ge
+    # rows that the implicit maps' keys resolve to (K10 has no features:
+    # checked once, in the float32 pass)
+    if not bf16:
+        ge = build_graph(flat.coords, flat.mask, specs, cfg.level_caps,
+                         n_clouds, method="explicit")
+        _require(sorted(ge.kmaps) == sorted(graph.maps)
+                 and len(ge.kmaps) == 11,
+                 f"11 tables for the 11 implicit maps, got {sorted(ge.kmaps)}")
+        for key, kmap in ge.kmaps.items():
+            lv_in = graph.levels[int(key.split("->")[0][1:])]
+            _require(torch.equal(kmap, lookup(lv_in.skeys, lv_in.srow,
+                                              graph.maps[key].qkey)),
+                     f"explicit table {key} equals the implicit map's rows")
+        print(f"explicit tables at {n_clouds} clouds equal the implicit "
+              f"maps' rows: {len(ge.kmaps)} geometries")
+        del ge
 
     # the Cin == 1 kernels on conv1 (k = 5, 1 -> 32)
     lv = graph.levels[1]
     c1 = graph.maps["s1->s1/k5d1"]
     n = lv.coords.shape[0]
     w1 = torch.randn(125, 1, 32, generator=gen).to(dev)
-    g1 = torch.randn(n, 32, generator=gen).to(dev) * lv.mask[:, None]
-    x1 = torch.randn(n, 1, generator=gen).to(dev)
-    k2_args = (c1.c1z, lv.skeys, w1)
+    g1 = (torch.randn(n, 32, generator=gen).to(dev)
+          * lv.mask[:, None]).to(dtype)
+    x1 = torch.randn(n, 1, generator=gen).to(dev).to(dtype)
+    k2_args = (c1.c1z, lv.skeys, w1, dtype)
     fn2, plain2 = KERNELS["K2"]
     out, sbits = fn2(*k2_args)
     torch.cuda.synchronize()
     ref, ref_bits = plain2(*k2_args)
     torch.cuda.synchronize()
-    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+    if bf16:
+        _note_unequal(rec["K2"], _close(
+            out, ref, "K2", lambda: _sum_bound(plain2, k2_args, {}, 0))[2])
+    else:
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
     _require(torch.equal(sbits, ref_bits), "K2 sbits equal the plain's")
     bits = c1z_unpack_bits(sbits, 125)
     present = int(bits.sum())
     rec["K2"].update(
-        max_abs_err=float((out - ref).abs().max()),
+        max_abs_err=float((out.float() - ref.float()).abs().max()),
         ms=_ms(lambda: fn2(*k2_args), 3),
         plain_ms=_ms(lambda: plain2(*k2_args), 3),
-        bytes=_nbytes(*k2_args, out, sbits), flops=present * 32)
+        bytes=_nbytes(*k2_args[:3], out, sbits), flops=present * 32)
     _, e3, _, _ = run("K3", (sbits, g1, 125), flops=present * 32,
                       n_bytes=_nbytes(sbits, g1, w1), outs=lambda o: (o,))
     # K4 / K5: a dense random x for the function itself; then the train
@@ -495,7 +644,7 @@ def train_kernel_checks(dev) -> dict:
     run("K5", (x1, g1, *geo, 125), mult=0, outs=lambda o: (o,))
     sel = ((torch.remainder(lv.coords[:, 0], bench.N_CLOUDS) == 0)
            & lv.mask).to(torch.float32)
-    xs = x1 * sel[:, None]
+    xs = (x1.float() * sel[:, None]).to(dtype)
     sel_pairs = int((bits * sel[:, None].to(torch.int32)).sum())
     gated, e4, _, _ = run(
         "K4", (xs, w1, *geo, sel), flops=2 * sel_pairs * 32,
@@ -508,14 +657,19 @@ def train_kernel_checks(dev) -> dict:
     _rel_err(KERNELS["K5"][0](xs, g1, *geo, 125, sel),
              KERNELS["K5"][0](xs, g1, *geo, 125, None),
              "K5 with the row flag against K5 without it")
-    # K9: conv1's dX of a dense upstream gradient, and as the adjoint of K4
-    dx, e9, _, _ = run("K9", (g1, w1, *geo), flops=2 * present * 32,
-                       n_bytes=_nbytes(g1, w1, *geo, x1), outs=lambda o: (o,))
-    fwd = KERNELS["K4"][0](x1, w1, *geo)
-    lhs, rhs = float((fwd * g1).sum()), float((x1 * dx).sum())
-    adj = abs(lhs - rhs) / float((fwd.abs() * g1.abs()).sum())
-    _require(adj <= REL_TOL, f"<K4(x), g> = <x, K9(g)> within {REL_TOL} of "
-                             f"sum |K4(x)| |g|: {lhs} vs {rhs}")
+    # K9: conv1's dX of a dense upstream gradient (with the weights rounded
+    # to the features' type, as ScalarConv's backward hands them), and in
+    # float32 as the adjoint of K4 (in bf16 both sides round to bf16)
+    w9 = w1.to(dtype).float()
+    dx, e9, _, _ = run("K9", (g1, w9, *geo), flops=2 * present * 32,
+                       n_bytes=_nbytes(g1, w9, *geo, x1), outs=lambda o: (o,))
+    adj = float("nan")
+    if not bf16:
+        fwd = KERNELS["K4"][0](x1, w1, *geo)
+        lhs, rhs = float((fwd * g1).sum()), float((x1 * dx).sum())
+        adj = abs(lhs - rhs) / float((fwd.abs() * g1.abs()).sum())
+        _require(adj <= REL_TOL, f"<K4(x), g> = <x, K9(g)> within {REL_TOL} "
+                                 f"of sum |K4(x)| |g|: {lhs} vs {rhs}")
     # and the way a caller reaches it: ScalarConv's backward, asked for dX
     from gcl_tpu_torch.core.sparse_ops import ScalarConv
     from gcl_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -530,17 +684,18 @@ def train_kernel_checks(dev) -> dict:
              f"ScalarConv's backward with dX: K4 1, K5 1, K9 1, got "
              f"{launch_counts()}")
     _require(torch.equal(xr.grad, dx), "ScalarConv's dX is K9's")
-    print(f"conv1 k5 1->32 ({present} present pairs, {sel_pairs} on the "
-          f"centre clouds): K3 rel_err {e3:.3g}, K4 gated {e4:.3g}, "
+    print(f"conv1 k5 1->32 ({form}; {present} present pairs, {sel_pairs} on "
+          f"the centre clouds): K3 rel_err {e3:.3g}, K4 gated {e4:.3g}, "
           f"K5 gated {e5:.3g}, K9 {e9:.3g} (adjoint identity {adj:.3g})")
-    _bounds(rec, "train step")
-    print(f"work of the 20 k=3 convs per train step: matched "
+    _bounds(rec, f"train step ({form})", bf16)
+    print(f"work of the 20 k=3 convs per train step ({form}): matched "
           f"{work['matched'] / 1e9:.1f} GFLOP a direction; executed, as the "
           f"kernels count it, K6 {work['k6'] / 1e9:.1f} "
           f"({work['k6'] / work['matched']:.3f} x), K7 dX "
           f"{work['k7_dx'] / 1e9:.1f} ({work['k7_dx'] / work['matched']:.3f} "
           f"x) + dW {work['matched'] / 1e9:.1f} matched")
-    print(f"dW rows staged by the split-K core per train step, as it counts "
+    print(f"dW rows staged by the split-K core per train step ({form}), as "
+          f"it counts "
           f"them: K7 {work['k7_dw_staged']} "
           f"({work['k7_dw_staged'] / work['pairs']:.4f} x the "
           f"{work['pairs']} matched pairs), K8 over the forward map "
@@ -548,13 +703,49 @@ def train_kernel_checks(dev) -> dict:
     _require(work["k6"] <= 1.4 * work["matched"]
              and work["k7_dx"] <= 1.4 * work["matched"],
              f"K6 and K7's dX multiply at most 1.4 x the matched work: {work}")
-    print(f"backward of the 20 k=3 convs per train step: K7 (dX + dW) "
+    print(f"backward of the 20 k=3 convs per train step ({form}): K7 (dX + "
+          f"dW) "
           f"{two_pass['k7_ms']:.3f} ms; two passes "
           f"{two_pass['k6_rev_ms'] + two_pass['k8_ms']:.3f} ms (K6 through "
           f"the reverse map {two_pass['k6_rev_ms']:.3f} + K8 "
           f"{two_pass['k8_ms']:.3f})")
     rec["K7"]["two_pass"] = two_pass
     return rec
+
+
+def _cancellation(x, w, qkey, skeys, srow, out, ref, what: str) -> None:
+    """Where a bf16 K6 launch and its plain version sit more than one ulp
+    apart, against the float64 sum of the same products: how many elements
+    each is more than one ulp from the float64 value rounded to bf16, and
+    how far the sums cancel there (sum |products| / |sum|)."""
+    import torch
+
+    from gcl_tpu_torch.core.coords import lookup
+
+    rows = lookup(skeys, srow, qkey).long()
+    n_in = x.shape[0]
+    idx = torch.where(rows < 0, n_in, rows)
+    xp = torch.cat([x, x.new_zeros((1, x.shape[1]))]).double()
+    wd = w.to(x.dtype).double()
+    truth = torch.zeros(out.shape, dtype=torch.float64, device=out.device)
+    mag = torch.zeros_like(truth)
+    for k in range(w.shape[0]):
+        truth += xp[idx[k]] @ wd[k]
+        mag += xp[idx[k]].abs() @ wd[k].abs()
+    t16 = truth.to(torch.bfloat16)
+
+    def far(a, b):
+        return (_bf16_ordered(a) - _bf16_ordered(b)).abs() > 1
+
+    apart = far(out, ref)
+    ratio = (mag / truth.abs().clamp_min(1e-300))[apart]
+    print(f"bf16 cancellation, {what} ({out.numel()} outputs): kernel vs "
+          f"plain more than one ulp apart at {int(apart.sum())}, sum "
+          f"|products| / |sum| there {float(ratio.min()):.3g} at least; "
+          f"more than one ulp from the float64 sum: kernel "
+          f"{int(far(out, t16).sum())}, plain {int(far(ref, t16).sum())}"
+          if int(apart.sum()) else
+          f"bf16 cancellation, {what}: no element more than one ulp apart")
 
 
 def _captured(name: str, fn):
@@ -740,10 +931,12 @@ def _products_ms(x, g, kmap, dw) -> float:
     return _ms(products, 3)
 
 
-def explicit_kernel_checks(dev) -> dict:
+def explicit_kernel_checks(dev, dtype=None) -> dict:
     """Phase 7: K10, K12 and K8 against their plain versions at the shapes
-    of the explicit-route train step (8 x 7 clouds). Returns their records,
-    summed over the step's launches of each."""
+    of the explicit-route train step (8 x 7 clouds), with features of
+    ``dtype`` (float32 by default; bf16 for phase 10, which leaves out K10:
+    it has no features). Returns their records, summed over the step's
+    launches of each."""
     import torch
 
     from gcl_tpu_torch import bench
@@ -755,6 +948,9 @@ def explicit_kernel_checks(dev) -> dict:
     from gcl_tpu_torch.kernels import (KERNELS, compacted_rows, launch_counts,
                                        reset_launch_counts)
 
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
+    form = "bf16" if bf16 else "float32"
     batch = BATCH_EXPLICIT
     points, pmask, _, _ = bench.bench_batch(SEED, batch, N_POINTS, dev)
     n_clouds = batch * bench.N_CLOUDS
@@ -772,11 +968,12 @@ def explicit_kernel_checks(dev) -> dict:
              and launch_counts()["K10"] == 11,
              f"{n_clouds} clouds take the explicit route: 11 tables by 11 "
              f"K10 launches, got {sorted(graph.kmaps)}, {launch_counts()}")
-    print(f"explicit levels at {n_clouds} clouds: " + ", ".join(
-        f"s{s} {lv.coords.shape[0]} rows / {int(lv.mask.sum())} valid"
-        for s, lv in sorted(graph.levels.items())))
+    print(f"explicit levels at {n_clouds} clouds ({form} kernels): " +
+          ", ".join(f"s{s} {lv.coords.shape[0]} rows / "
+                    f"{int(lv.mask.sum())} valid"
+                    for s, lv in sorted(graph.levels.items())))
 
-    rec = _records("K8", "K10", "K12")
+    rec = _records("K8", "K12") if bf16 else _records("K8", "K10", "K12")
     run = _runner(rec)
 
     def strides(key):                      # "s1->s2/k3d1" -> (1, 2, 3)
@@ -784,7 +981,7 @@ def explicit_kernel_checks(dev) -> dict:
         return int(a[1:]), int(b[1:]), int(key.split("/k")[1][0])
 
     # K10, geometry by geometry
-    for key in sorted(graph.kmaps):
+    for key in sorted(graph.kmaps) if not bf16 else ():
         s_in, s_out, ksize = strides(key)
         sp = ConvSpec("geometry", s_in, s_out, ksize)
         lv = graph.levels[s_in]
@@ -815,9 +1012,9 @@ def explicit_kernel_checks(dev) -> dict:
         kvol = kmap.shape[0]
         rev = graph.kmaps[f"s{s_out}->s{s_in}/{key.split('/')[1]}"]
         x = (torch.randn(lv_in.coords.shape[0], cin, generator=gen)
-             .to(dev) * lv_in.mask[:, None])
+             .to(dev) * lv_in.mask[:, None]).to(dtype)
         g = (torch.randn(lv_out.coords.shape[0], cout, generator=gen)
-             .to(dev) * lv_out.mask[:, None])
+             .to(dev) * lv_out.mask[:, None]).to(dtype)
         w = (torch.randn(kvol, cin, cout, generator=gen).to(dev)
              / (kvol * cin) ** .5)
         matched, ex12 = compacted_rows(kmap >= 0)
@@ -836,8 +1033,10 @@ def explicit_kernel_checks(dev) -> dict:
             n_bytes=_nbytes(x, g, kmap, w))
         st8, bl8 = _counted_dw(dev, lambda: KERNELS["K8"][0](x, g, kmap),
                                matched, f"K8 {key} over the table")
-        b8 = _bound(_nbytes(x, g, kmap, w), flops, True)[0]
-        mm_ms = _products_ms(x, g, kmap, dw)
+        b8 = _bound(_nbytes(x, g, kmap, w), flops,
+                    "bf16" if bf16 else "split_tf32")[0]
+        # the float32 yardstick only: cuBLAS float32 on the CUDA cores
+        mm_ms = None if bf16 else _products_ms(x, g, kmap, dw)
         rec["K8"].setdefault("convs", []).append(dict(
             conv=f"{key} {cin}->{cout}", count=mult, ms=ms8, plain_ms=p8,
             bound_ms=b8, products_ms=mm_ms, matched=matched, staged=st8,
@@ -850,10 +1049,11 @@ def explicit_kernel_checks(dev) -> dict:
                 f"x); K12 rel_err "
                 f"{e12:.3g} {ms12:.3f} ms (plain {p12:.3f}); K8 rel_err "
                 f"{e8:.3g} {ms8:.3f} ms (plain {p8:.3f}, bound {b8:.3f}), "
-                f"staged {st8} rows ({st8 / matched:.4f} x, {bl8} blocks), "
-                f"the products alone {mm_ms:.3f} ms (yardstick: cuBLAS float32 "
-                f"on the CUDA cores, "
-                f"on rows gathered beforehand)")
+                f"staged {st8} rows ({st8 / matched:.4f} x, {bl8} blocks)")
+        if mm_ms is not None:
+            line += (f", the products alone {mm_ms:.3f} ms (yardstick: cuBLAS "
+                     f"float32 on the CUDA cores, on rows gathered "
+                     f"beforehand)")
         if kvol == 27:  # conv1's input takes no gradient: no dX in the step
             wt = w.flip(0).transpose(1, 2).contiguous()
             ex12r = _counted_rows(dev, lambda: k12(g, wt, rev), ex12r,
@@ -865,23 +1065,27 @@ def explicit_kernel_checks(dev) -> dict:
             # against the scatter-add backward (the table has no twin there)
             xr = x.clone().requires_grad_()
             sparse_conv(xr, w, kmap, None).backward(g)
-            es = _rel_err(dx, xr.grad, f"{key} dX through the reverse table "
-                                       f"against the scatter-add")
+            es = _close(dx, xr.grad, f"{key} dX through the reverse table "
+                                     f"against the scatter-add",
+                        lambda: _sum_bound(KERNELS["K12"][1], (g, wt, rev),
+                                           {}, 0))[0]
             line += (f"; dX through the reverse table rel_err {ex:.3g} "
                      f"{msx:.3f} ms (plain {px:.3f}), against the "
                      f"scatter-add {es:.3g}")
             del wt, dx, xr
         print(line)
         del x, g, w, out, dw
-    _bounds(rec, "explicit train step")
+    _bounds(rec, f"explicit train step ({form})", bf16)
     convs8 = rec["K8"]["convs"]
-    print(f"K8 per explicit train step ({sum(c['count'] for c in convs8)} "
-          f"launches): kernel {rec['K8']['ms']:.3f} ms, plain "
-          f"{rec['K8']['plain_ms']:.3f}, bound {rec['K8']['bound_ms']:.3f}; "
-          f"the products alone "
-          f"{sum(c['count'] * c['products_ms'] for c in convs8):.3f} ms "
-          f"(cuBLAS float32 on the CUDA cores on pre-gathered rows, a "
-          f"yardstick); rows staged "
+    products = ("" if bf16 else
+                f"; the products alone "
+                f"{sum(c['count'] * c['products_ms'] for c in convs8):.3f} "
+                f"ms (cuBLAS float32 on the CUDA cores on pre-gathered rows, "
+                f"a yardstick)")
+    print(f"K8 per explicit train step ({form}; "
+          f"{sum(c['count'] for c in convs8)} launches): kernel "
+          f"{rec['K8']['ms']:.3f} ms, plain {rec['K8']['plain_ms']:.3f}, "
+          f"bound {rec['K8']['bound_ms']:.3f}{products}; rows staged "
           f"{sum(c['count'] * c['staged'] for c in convs8)} for "
           f"{sum(c['count'] * c['matched'] for c in convs8)} matched pairs")
     return rec
@@ -899,15 +1103,17 @@ LAUNCHES = {
 
 
 def train_step_checks(dev, gpu: str, batch_size: int, route: str,
-                      compare: bool = True) -> dict:
-    """Phases 6 and 8: the train step at full width and ``batch_size`` x 7
-    clouds, with the grid group search, on ``route`` ('implicit' or
-    'explicit'). With ``compare``: a kernel-path step against a plain-path
-    step and a step with every launch held to its plain version, three
-    timed steps and a timed plain-path step (on the implicit route also
-    the plain path against itself with nudged weights and a step with the
-    brute-force group search); without: the launch counts and one timed
-    step. Returns the launch counts of one step."""
+                      compare: bool = True, dtype=None) -> dict:
+    """Phases 6 and 8 (float32) and 11 (``dtype`` bf16): the train step at
+    full width and ``batch_size`` x 7 clouds, with the grid group search,
+    on ``route`` ('implicit' or 'explicit'). With ``compare``: a
+    kernel-path step against a plain-path step and a step with every launch
+    held to its plain version, three timed steps and a timed plain-path
+    step (in float32 on the implicit route also the plain path against
+    itself with nudged weights and a step with the brute-force group
+    search; in bf16 a plain-path float32 step, the measure of the loss
+    tolerance); without: the launch counts and one timed step. Returns the
+    launch counts of one step."""
     import torch
 
     from gcl_tpu_torch import bench
@@ -917,7 +1123,10 @@ def train_step_checks(dev, gpu: str, batch_size: int, route: str,
     from gcl_tpu_torch.models.weights import gradients_by_name
     from gcl_tpu_torch.train.steps import StepDraws
 
-    tag = f"{batch_size} x {bench.N_CLOUDS} clouds, {route} route"
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
+    form = "bf16" if bf16 else "float32"
+    tag = f"{batch_size} x {bench.N_CLOUDS} clouds, {route} route, {form}"
     want = {**{k: 0 for k in KERNELS}, **LAUNCHES[route]}
     batch = bench.bench_batch(SEED, batch_size, N_POINTS, dev)
     n_rows = batch_size * bench.N_CLOUDS * NV_CAP
@@ -933,11 +1142,13 @@ def train_step_checks(dev, gpu: str, batch_size: int, route: str,
                        rand(256 * batch_size)))
     lr = 0.1
     runs = {}
-    in_step_errs = {}
+    in_step_errs, in_step_unequal = {}, {}
     names = ("kernel",)
     if compare:
         names += ("plain", "checked")
-        if route == "implicit":
+        if bf16:
+            names += ("plain_float32",)
+        elif route == "implicit":
             names += ("plain_nudged",)
     for name in names:
         model = bench.bench_model(SEED, dev)
@@ -947,10 +1158,13 @@ def train_step_checks(dev, gpu: str, batch_size: int, route: str,
                     p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=gen,
                                                   device=dev))
         before = {k: v.clone() for k, v in model.state_dict().items()}
-        _, step = bench.bench_step(model, batch_size, NV_CAP, graph=route)
+        _, step = bench.bench_step(
+            model, batch_size, NV_CAP, graph=route,
+            compute_dtype=torch.float32 if name == "plain_float32" else dtype)
         reset_launch_counts()
         ctx = {"kernel": contextlib.nullcontext(),
-               "checked": checked_path(in_step_errs)}.get(name) or plain_path()
+               "checked": checked_path(in_step_errs, in_step_unequal)
+               }.get(name) or plain_path()
         with ctx:
             metrics = step(lr, *batch, draws=draws)
             torch.cuda.synchronize()
@@ -982,9 +1196,27 @@ def train_step_checks(dev, gpu: str, batch_size: int, route: str,
     mk, mp = runs["kernel"]["metrics"], runs["plain"]["metrics"]
     print(f"first step, kernel path: {mk}")
     print(f"first step, plain path:  {mp}")
-    _require(abs(mk["loss"] - mp["loss"]) <= 1e-4,
-             f"loss of kernel and plain path within 1e-4: {mk['loss']} vs "
-             f"{mp['loss']}")
+    terms = ("loss", "pos_loss", "finest_loss", "neg_loss")
+    if bf16:
+        # the loss's tolerance, measured: bf16 moves the plain path's loss
+        # terms from float32 by drift; two bf16 paths that round the same
+        # products once, summed in another order, may differ by twice that
+        # (their difference grows from one-ulp flips through 23 convs into
+        # bf16's own noise)
+        m32 = runs["plain_float32"]["metrics"]
+        print(f"first step, plain path, float32: {m32}")
+        drift = max(abs(mp[t] - m32[t]) for t in terms)
+        gap = max(abs(mk[t] - mp[t]) for t in terms)
+        print(f"loss terms, kernel path vs plain path in bf16: {gap:.3g} at "
+              f"most; the tolerance, twice the plain path's bf16-vs-float32 "
+              f"drift {drift:.3g}: {2 * drift:.3g}")
+        _require(gap <= 2 * drift,
+                 f"loss terms of the bf16 kernel and plain paths within "
+                 f"{2 * drift} (twice bf16's drift from float32), got {gap}")
+    else:
+        _require(abs(mk["loss"] - mp["loss"]) <= 1e-4,
+                 f"loss of kernel and plain path within 1e-4: {mk['loss']} "
+                 f"vs {mp['loss']}")
 
     def worst_gradient(a, b):
         worst = ("", 0.0)
@@ -995,17 +1227,22 @@ def train_step_checks(dev, gpu: str, batch_size: int, route: str,
         return worst
 
     # Gradients. Inside one step every launch of every kernel is held to
-    # its plain version on the same inputs (checked_path, REL_TOL). Between
-    # a whole kernel-path step and a whole plain-path step the gradients
-    # cannot be held that tightly: their features differ by float32
-    # rounding, and a ReLU whose input lies within that rounding of zero
-    # opens in one path and stays shut in the other, which moves a
-    # channel's gradient by percents of the tensor's max. The plain path
-    # shows the same against itself with its weights moved by 1e-7 of
-    # themselves, printed beside it as the yardstick; the two paths are
-    # held to 0.1 of each tensor's max.
+    # its plain version on the same inputs (checked_path: REL_TOL, and the
+    # bf16 gate for bf16 outputs). Between a whole kernel-path step and a
+    # whole plain-path step the gradients cannot be held that tightly:
+    # their features differ by rounding, and a ReLU whose input lies within
+    # that rounding of zero opens in one path and stays shut in the other,
+    # which moves a channel's gradient by percents of the tensor's max. In
+    # float32 the plain path shows the same against itself with its
+    # weights moved by 1e-7 of themselves, printed beside it as the
+    # yardstick, and the two paths are held to 0.1 of each tensor's max;
+    # in bf16 the yardstick is the plain path's bf16-vs-float32 gap.
     print(f"kernel vs plain inside the step, worst rel_err per kernel: "
           f"{ {k: float(f'{v:.3g}') for k, v in sorted(in_step_errs.items())} }")
+    if bf16:
+        print(f"  bf16 outputs inside the step not bit-equal to the plain "
+              f"version's, largest share per kernel: "
+              f"{ {k: float(f'{v:.3g}') for k, v in sorted(in_step_unequal.items())} }")
     _require(sorted(in_step_errs) == sorted(k for k, n in want.items() if n),
              f"every kernel of the step was checked inside it: "
              f"{in_step_errs}")
@@ -1017,8 +1254,13 @@ def train_step_checks(dev, gpu: str, batch_size: int, route: str,
         nudged = worst_gradient("plain_nudged", "plain")
         print(f"  the yardstick: plain path with weights moved by 1e-7 vs "
               f"plain path {nudged[1]:.3g} ({nudged[0]})")
-    _require(free[1] <= 0.1, f"gradient of {free[0]} on the kernel path "
-                             f"within 0.1 of its max, got {free[1]}")
+    if "plain_float32" in runs:
+        gap32 = worst_gradient("plain", "plain_float32")
+        print(f"  the yardstick: plain path in bf16 vs in float32 "
+              f"{gap32[1]:.3g} ({gap32[0]})")
+    else:
+        _require(free[1] <= 0.1, f"gradient of {free[0]} on the kernel path "
+                                 f"within 0.1 of its max, got {free[1]}")
 
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -1031,11 +1273,13 @@ def train_step_checks(dev, gpu: str, batch_size: int, route: str,
                  f"finite metrics, got {metrics}")
         _require(float(metrics["num_groups"]) > 0, "groups were found")
     peak = torch.cuda.max_memory_allocated()
-    if route == "implicit":
+    brute = route == "implicit" and not bf16
+    if brute:
         # the same step with the brute-force group search, beside it
         brute_model = bench.bench_model(SEED, dev)
         _, brute_step = bench.bench_step(brute_model, batch_size, NV_CAP,
-                                         search="brute_force")
+                                         search="brute_force",
+                                         compute_dtype=dtype)
         brute_step(lr, *batch, generator=gen)  # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1063,7 +1307,7 @@ def train_step_checks(dev, gpu: str, batch_size: int, route: str,
           f"{float(metrics['loss']):.6f}, num_groups "
           f"{int(metrics['num_groups'])}, voxels_per_step {int(n_vox)} "
           f"on {gpu}")
-    if route == "implicit":
+    if brute:
         print(f"train step ({tag}), kernel path, brute-force group search: "
               f"step_time_s {brute_dt:.4f} (1 step after a warm-up), "
               f"num_groups {int(brute_metrics['num_groups'])}")
@@ -1181,7 +1425,7 @@ def main() -> None:
     k2_plain_ms = _ms(lambda: occupancy_conv_fwd_plain(*k2_args), 5)
     print(f"K2 conv1 k5 1->32: max_abs_err {k2_err:.3g} kernel "
           f"{k2_ms:.3f} ms plain {k2_plain_ms:.3f} ms")
-    k6_bound = _bound(k6_bytes, k6_flops, split_tf32=True)
+    k6_bound = _bound(k6_bytes, k6_flops, "split_tf32")
     k2_bound = _bound(_nbytes(*k2_args, out, sbits),
                       32 * int(c1z_unpack_bits(sbits, 125).sum()))
     print(f"bounds per serving pair: K6 {k6_bound[0]:.3f} ms by "
@@ -1252,18 +1496,34 @@ def main() -> None:
               f"per pair ({REPS} pairs after a warm-up) on {gpu}")
 
     # 5. and 6. the train step's kernels, its group search, the step
+    f32, bf16 = torch.float32, torch.bfloat16
     rec = train_kernel_checks(dev)
     rec.update(group_kernel_checks(dev))
-    step_launches = train_step_checks(dev, gpu, BATCH, "implicit")
+    step_launches = train_step_checks(dev, gpu, BATCH, "implicit", dtype=f32)
     torch.cuda.empty_cache()
     # 7. and 8. the explicit route: its kernels at 8 x 7, the step there,
     # and the 4 x 7 step beside the implicit route's
     rec.update(explicit_kernel_checks(dev))
     torch.cuda.empty_cache()
     explicit_launches = train_step_checks(dev, gpu, BATCH_EXPLICIT,
-                                          "explicit")
+                                          "explicit", dtype=f32)
     torch.cuda.empty_cache()
-    train_step_checks(dev, gpu, BATCH, "explicit", compare=False)
+    train_step_checks(dev, gpu, BATCH, "explicit", compare=False, dtype=f32)
+    torch.cuda.empty_cache()
+    # 9.-11. the bf16 forms: the kernels at the 4 x 7 step's shapes, the
+    # bf16 step there (the main path: root bench.py's compute type) on the
+    # implicit route, the explicit route's kernels at 8 x 7, the bf16 step
+    # there, and the bf16 4 x 7 step on the explicit route
+    rec16 = train_kernel_checks(dev, bf16)
+    torch.cuda.empty_cache()
+    step16 = train_step_checks(dev, gpu, BATCH, "implicit", dtype=bf16)
+    torch.cuda.empty_cache()
+    rec16.update(explicit_kernel_checks(dev, bf16))
+    torch.cuda.empty_cache()
+    explicit16 = train_step_checks(dev, gpu, BATCH_EXPLICIT, "explicit",
+                                   dtype=bf16)
+    torch.cuda.empty_cache()
+    train_step_checks(dev, gpu, BATCH, "explicit", dtype=bf16)
 
     conv, radius = "pallas_conv.py", "pallas_radius.py"
     table = [
@@ -1279,6 +1539,10 @@ def main() -> None:
         ("K8", "sparse_conv_dw", "sparse_conv_dw.cu", conv, 798),
         ("K10", "join_kmap", "join_kmap.cu", "pallas_join.py", 58),
         ("K12", "sparse_conv_table_fwd", "sparse_conv_fwd.cu", conv, 549)]
+    # The main path is root bench.py's bf16 step: a conv kernel's row
+    # carries its bf16 form's numbers and launches, and its float32 form's
+    # under "float32". K1, K10 and K11 read coordinates and keys, not
+    # features: one form, launched by both steps.
     # K9 and K11 are not on a train step's path: their launches are those
     # of the path that does reach them, driven above with the counts set
     # to 0 just before (ScalarConv's backward with dX; the large-T search).
@@ -1288,39 +1552,53 @@ def main() -> None:
     paths = {"K9": "ScalarConv backward with dX at conv1's shape",
              "K11": "batched_grid_radius_knn, T = 589,824",
              "K8": explicit, "K10": explicit, "K12": explicit}
+    numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernels = []
     for k, name, src, jsrc, line in table:
-        r = rec[k]
         on_explicit = paths.get(k) == explicit
-        kernels.append({
+        r32 = rec[k]
+        r = rec16.get(k, r32)
+        f32_launches = r32.get("launches", (explicit_launches if on_explicit
+                                            else step_launches)[k])
+        row = {
             "name": f"{name} ({k})", "route": "cuda",
             "source": f"gcl_tpu_torch/csrc/{src}",
             "replaces": f"gcl_tpu/core/{jsrc}:{line}",
-            "launches": r.get("launches", (explicit_launches if on_explicit
-                                           else step_launches)[k]),
-            "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "forms": (["float32", "bfloat16"] if k in rec16
+                      else ["int32 keys"] if k == "K10" else ["float32"]),
+            "launches": r.get("launches", (explicit16 if on_explicit
+                                           else step16)[k]),
+            **{key: r[key] for key in numbers},
             # no single PyTorch call computes any of these functions
             # (torch.searchsorted takes one-word keys: K10's plain version
             # fuses the two words into an int64 first and compares after)
             "library_ms": None,
             "path": paths.get(k, f"train step {BATCH} x 7, implicit route"),
-            "train_step_launches": step_launches[k],
-            "explicit_step_launches": explicit_launches[k]})
+            "train_step_launches": step16[k],
+            "explicit_step_launches": explicit16[k]}
+        if k in rec16:
+            row["bf16_unequal_share"] = r.get("bf16_unequal_share", 0.0)
+            row["float32"] = {
+                "launches": f32_launches,
+                **{key: r32[key] for key in numbers},
+                "train_step_launches": step_launches[k],
+                "explicit_step_launches": explicit_launches[k]}
+        kernels.append(row)
     kernels[6].update(
         brute_force_search_ms=rec["K1"]["brute_force_search_ms"],
         grid_search_ms=rec["K1"]["grid_search_ms"])
-    kernels[0].update(serving_launches=launches["K6"],
-                      serving_max_abs_err=k6_err, serving_ms=k6_ms,
-                      serving_plain_ms=k6_plain_ms,
-                      serving_bound_ms=k6_bound[0])
-    kernels[2].update(serving_launches=launches["K2"],
-                      serving_max_abs_err=k2_err, serving_ms=k2_ms,
-                      serving_plain_ms=k2_plain_ms,
-                      serving_bound_ms=k2_bound[0])
-    kernels[1].update(two_pass=rec["K7"].pop("two_pass"))
-    kernels[9].update(convs=rec["K8"].pop("convs"))
+    kernels[0]["float32"].update(
+        serving_launches=launches["K6"], serving_max_abs_err=k6_err,
+        serving_ms=k6_ms, serving_plain_ms=k6_plain_ms,
+        serving_bound_ms=k6_bound[0])
+    kernels[2]["float32"].update(
+        serving_launches=launches["K2"], serving_max_abs_err=k2_err,
+        serving_ms=k2_ms, serving_plain_ms=k2_plain_ms,
+        serving_bound_ms=k2_bound[0])
+    kernels[1].update(two_pass=rec16["K7"].pop("two_pass"))
+    kernels[1]["float32"].update(two_pass=rec["K7"].pop("two_pass"))
+    kernels[9].update(convs=rec16["K8"].pop("convs"))
+    kernels[9]["float32"].update(convs=rec["K8"].pop("convs"))
     print(json.dumps({"kernels": kernels}))
     print(f"{gpu}")
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,10 @@ with the spatial negative filter, SGD momentum 0.8 / weight decay 1e-4,
 the colocation-group search on a hash grid of 1.08 m cells) and times the
 full step: voxelization, colocation-group search, levels and conv maps,
 U-Net forward and backward, loss and the SGD update. It is the port of the
-root ``bench.py`` with one difference, named in the output: compute is
-float32. ``--search brute_force`` swaps the grid search (one launch of the
+root ``bench.py``, bf16 compute included (``"compute_dtype": "bfloat16"``:
+features bf16 between layers, products in bf16, sums and BN statistics in
+float32, parameters and loss float32); ``--compute_dtype float32`` runs
+the step in float32. ``--search brute_force`` swaps the grid search (one launch of the
 windowed cell top-k kernel, printed as ``"search": "grid_1.08"``) for the
 brute-force O(QT) one (``"search": "brute_force"``), the step this
 benchmark timed before the grid search was ported.
@@ -58,11 +60,16 @@ def bench_model(seed: int, device) -> ResUNetFatBN:
     return model.to(device)
 
 
+COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
 def bench_config(batch_size: int, nv_cap: int = 18432,
-                 search: str = "grid", graph: str = "auto"):
+                 search: str = "grid", graph: str = "auto",
+                 compute_dtype: torch.dtype = torch.bfloat16):
     """(conv specs, StepConfig) at the root bench.py's settings; ``search``
     is 'grid' (its search_cell) or 'brute_force', ``graph`` the conv maps'
-    route (build_graph's method)."""
+    route (build_graph's method), ``compute_dtype`` the features' type
+    (bf16, as root bench.py has it, or float32)."""
     if search not in ("grid", "brute_force"):
         raise ValueError(f"search {search!r}: 'grid' or 'brute_force'")
     specs = ResUNetFatBN.conv_specs(5)
@@ -74,13 +81,15 @@ def bench_config(batch_size: int, nv_cap: int = 18432,
         level_caps=default_level_caps(n_flat, strides, 0.55),
         knn_chunk=1024,
         search_cell=SEARCH_CELL if search == "grid" else None,
-        graph_method=graph)
+        graph_method=graph, compute_dtype=compute_dtype)
 
 
 def bench_step(model, batch_size: int, nv_cap: int = 18432,
-               search: str = "grid", graph: str = "auto"):
+               search: str = "grid", graph: str = "auto",
+               compute_dtype: torch.dtype = torch.bfloat16):
     """(optimizer, step_fn) at the root bench.py's settings."""
-    specs, cfg = bench_config(batch_size, nv_cap, search, graph)
+    specs, cfg = bench_config(batch_size, nv_cap, search, graph,
+                              compute_dtype)
     return make_gcl_train_step(
         model, specs, cfg, GCLLossConfig(block_finest_gradient=False),
         "finest", max_pos_cluster=256 * batch_size,
@@ -166,6 +175,8 @@ def main(argv=None):
                     choices=["grid", "brute_force"])
     ap.add_argument("--graph", default="auto",
                     choices=["auto", "implicit", "explicit"])
+    ap.add_argument("--compute_dtype", default="bfloat16",
+                    choices=sorted(COMPUTE_DTYPES))
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -182,7 +193,7 @@ def main(argv=None):
 
     model = bench_model(args.seed, dev)
     _, step = bench_step(model, args.batch_size, args.nv, args.search,
-                         args.graph)
+                         args.graph, COMPUTE_DTYPES[args.compute_dtype])
     batch = bench_batch(args.seed, args.batch_size, args.points, dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
@@ -214,7 +225,7 @@ def main(argv=None):
         "step_time_max_s": max(times),
         "voxels_per_step": int(n_vox),
         "device": torch.cuda.get_device_name(0) if on_card else "cpu",
-        "compute_dtype": "float32",
+        "compute_dtype": args.compute_dtype,
         "search": (f"grid_{SEARCH_CELL}" if args.search == "grid"
                    else "brute_force"),
         "graph": graph_route(args.graph, args.batch_size * N_CLOUDS),

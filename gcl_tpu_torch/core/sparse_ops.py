@@ -23,6 +23,13 @@ kernels of gcl_tpu_torch.kernels to the graph records:
 * ``ScalarConv`` (a Cin == 1 conv that reads its features: the eps term of
   the exact input jitter): forward K4, backward K5 for dW and, only when
   the input asks for a gradient, K9 for dX (the jitter noise does not).
+
+Features are float32 or bf16 (gcl_tpu's compute_dtype), weights float32
+(the parameters). As in gcl_tpu/core/sparse_ops.py, a conv's output and
+its dX come in the features' type, the upstream gradient is cast to it
+before the backward, and dW comes back float32; the kernels take the
+weights to the features' type themselves (the Cin == 1 conv of K4 keeps
+them float32, as gcl_tpu's does).
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ from ..kernels import (c1z_unpack_bits, occupancy_conv_dw, occupancy_conv_fwd,
                        scalar_conv_dw, scalar_conv_dx, scalar_conv_fwd,
                        sparse_conv_dw, sparse_conv_implicit_bwd,
                        sparse_conv_implicit_fwd, sparse_conv_table_fwd)
+from ..kernels.build import summing
 from .types import ConvMap, LevelCoords
 
 __all__ = ["SparseConvImplicit", "SparseConvTable", "OccupancyConv",
@@ -44,10 +52,13 @@ __all__ = ["SparseConvImplicit", "SparseConvTable", "OccupancyConv",
            "masked_mean_var", "l2_normalize", "apply_mask"]
 
 
-def _require_f32(name: str, t: torch.Tensor) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32 (the port computes in "
-                        f"float32 only), got {t.dtype}")
+def _require_f32(name: str, t: torch.Tensor, features: bool = False) -> None:
+    """t must be float32, or float32 or bf16 for ``features`` (weights
+    are float32 parameters in either compute type)."""
+    if t.dtype == torch.float32 or (features and t.dtype == torch.bfloat16):
+        return
+    allowed = "float32 or bfloat16" if features else "float32"
+    raise TypeError(f"{name} must be {allowed}, got {t.dtype}")
 
 
 def _flipped_transposed(w: torch.Tensor) -> torch.Tensor:
@@ -69,6 +80,7 @@ class SparseConvImplicit(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
         rqkey, out_skeys, out_srow = ctx.rev
         if rqkey is None:
             raise ValueError(
@@ -103,7 +115,7 @@ class SparseConvTable(torch.autograd.Function):
         x, w = ctx.saved_tensors
         kmap, rev_kmap = ctx.maps
         want_dx, want_dw = ctx.needs_input_grad[:2]
-        g = g.contiguous()
+        g = g.to(x.dtype).contiguous()
         dx = dw = None
         if rev_kmap is not None:
             if want_dx:
@@ -113,36 +125,42 @@ class SparseConvTable(torch.autograd.Function):
                 dw = sparse_conv_dw(x, g, kmap)
             return dx, dw, None, None
         # no reverse table: dX by scatter-add, dW from the gathered rows,
-        # offset by offset (gcl_tpu's _sparse_conv_bwd, plain XLA there)
+        # offset by offset (gcl_tpu's _sparse_conv_bwd, plain XLA there),
+        # summed in float32 (bf16 features: w rounded to bf16, dX rounded
+        # once)
         n_in, cin = x.shape
+        xs, gs = summing(x), summing(g)
         idx = torch.where(kmap < 0, n_in, kmap).long()
-        xp = torch.cat([x, x.new_zeros((1, cin))])
-        dxp = x.new_zeros((n_in + 1, cin)) if want_dx else None
+        xp = torch.cat([xs, xs.new_zeros((1, cin))])
+        dxp = xs.new_zeros((n_in + 1, cin)) if want_dx else None
         dws = []
         for k in range(w.shape[0]):
             if want_dw:
-                dws.append(xp[idx[k]].T @ g)
-            if want_dx:
-                dxp.index_add_(0, idx[k], g @ w[k].T)  # row n_in: the pads
-        return (dxp[:n_in] if want_dx else None,
+                dws.append(xp[idx[k]].T @ gs)
+            if want_dx:  # row n_in: the pads
+                dxp.index_add_(0, idx[k], gs @ summing(w[k].to(x.dtype)).T)
+        return (dxp[:n_in].to(x.dtype) if want_dx else None,
                 torch.stack(dws) if want_dw else None, None, None)
 
 
 class OccupancyConv(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w, aux, skeys):
+    def forward(ctx, w, aux, skeys, out_dtype=None):
         """(out, sbits): the presence bitmasks come out too, so that a
-        caller can mask by presence without a second kernel pass."""
-        out, sbits = occupancy_conv_fwd(aux, skeys, w.contiguous())
+        caller can mask by presence without a second kernel pass. out is
+        in ``out_dtype`` (the features' type; w's when None)."""
+        out, sbits = occupancy_conv_fwd(aux, skeys, w.contiguous(),
+                                        out_dtype)
         ctx.save_for_backward(sbits)
         ctx.mark_non_differentiable(sbits)
-        ctx.kcube = w.shape[0]
+        ctx.kcube, ctx.out_dtype = w.shape[0], out.dtype
         return out, sbits
 
     @staticmethod
     def backward(ctx, g, _g_sbits):
         (sbits,) = ctx.saved_tensors
-        return occupancy_conv_dw(sbits, g, ctx.kcube), None, None
+        dw = occupancy_conv_dw(sbits, g.to(ctx.out_dtype), ctx.kcube)
+        return dw, None, None, None
 
 
 class ScalarConv(torch.autograd.Function):
@@ -157,9 +175,13 @@ class ScalarConv(torch.autograd.Function):
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         aux, skeys, srow, row_sel = ctx.rest
+        g = g.to(x.dtype)
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = scalar_conv_dx(g, w, aux, skeys, srow, row_sel)
+            # gcl_tpu's dX conv takes the weights flipped and cast to the
+            # features' type (K4 itself reads them in float32)
+            dx = scalar_conv_dx(g, summing(w.to(x.dtype)), aux, skeys, srow,
+                                row_sel)
         if ctx.needs_input_grad[1]:
             dw = scalar_conv_dw(x, g, aux, skeys, srow, w.shape[0], row_sel)
         return (dx, dw) + (None,) * 4
@@ -169,11 +191,12 @@ def sparse_conv_implicit(x: torch.Tensor, w: torch.Tensor, cmap: ConvMap,
                          in_level: LevelCoords, out_level: LevelCoords,
                          two_pass_backward: bool = False) -> torch.Tensor:
     """Sparse (transpose) convolution of x [N_in, Cin] (the input level's
-    rows) with w [K, Cin, Cout] over the map's query keys; differentiable
-    in x and w. ``two_pass_backward`` takes dX and dW in two kernels (K6
-    through the reverse map, K8 over the forward map) instead of K7's one
-    pass; the gradients are the same to rounding."""
-    _require_f32("x", x)
+    rows, float32 or bf16) with w f32[K, Cin, Cout] over the map's query
+    keys, in x's type; differentiable in x and w. ``two_pass_backward``
+    takes dX and dW in two kernels (K6 through the reverse map, K8 over
+    the forward map) instead of K7's one pass; the gradients are the same
+    to rounding."""
+    _require_f32("x", x, True)
     _require_f32("w", w)
     return SparseConvImplicit.apply(
         x, w, cmap.qkey, cmap.rqkey, in_level.skeys, in_level.srow,
@@ -185,30 +208,32 @@ def sparse_conv(x: torch.Tensor, w: torch.Tensor, kmap: torch.Tensor,
     """Sparse (transpose) convolution over an index table; differentiable
     in x and w.
 
-    x f32[N_in, Cin] (padded rows MUST be zero), w f32[K, Cin, Cout], kmap
-    int32[K, N_out] the input row of each (offset, output row), -1 where
-    there is none. rev_kmap: optional int32[K, N_in] table of the reverse
-    direction (the output level looked up at in_coords + offset; a full
-    odd stencil only): with it dX is a conv of the gradient through it
-    with flipped weights, without it a scatter-add. Returns f32[N_out,
-    Cout]; padded output rows are zero.
+    x f32 or bf16 [N_in, Cin] (padded rows MUST be zero), w f32[K, Cin,
+    Cout], kmap int32[K, N_out] the input row of each (offset, output row),
+    -1 where there is none. rev_kmap: optional int32[K, N_in] table of the
+    reverse direction (the output level looked up at in_coords + offset; a
+    full odd stencil only): with it dX is a conv of the gradient through
+    it with flipped weights, without it a scatter-add. Returns [N_out,
+    Cout] in x's type; padded output rows are zero.
     """
-    _require_f32("x", x)
+    _require_f32("x", x, True)
     _require_f32("w", w)
     return SparseConvTable.apply(x, w, kmap, rev_kmap)
 
 
 def sparse_conv_c1z(w: torch.Tensor, c1z: torch.Tensor,
-                    level: LevelCoords) -> torch.Tensor:
-    """Occupancy convolution: out[i] = sum_k present_k(i) * W[k, 0, :];
-    differentiable in w.
+                    level: LevelCoords,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Occupancy convolution: out[i] = sum_k present_k(i) * W[k, 0, :] in
+    ``out_dtype`` (the type of the all-ones features); differentiable in
+    w.
 
     EXACT only under the in_ch == 1 contract: the conv's input features
     are ones on every valid row (how GCL always drives in_ch == 1 models).
     c1z is the level's occupancy aux (ConvMap.c1z).
     """
     _require_f32("w", w)
-    return OccupancyConv.apply(w, c1z, level.skeys)[0]
+    return OccupancyConv.apply(w, c1z, level.skeys, out_dtype)[0]
 
 
 def draw_input_eps(generator: Optional[torch.Generator], sigma: float,
@@ -240,7 +265,8 @@ def draw_input_eps(generator: Optional[torch.Generator], sigma: float,
 
 def sparse_conv_c1z_exact_jitter(w: torch.Tensor, cmap: ConvMap,
                                  level: LevelCoords, eps: torch.Tensor,
-                                 row_sel: Optional[torch.Tensor] = None
+                                 row_sel: Optional[torch.Tensor] = None,
+                                 out_dtype: torch.dtype = torch.float32
                                  ) -> torch.Tensor:
     """Occupancy conv + exact input jitter at presence cost.
 
@@ -250,16 +276,18 @@ def sparse_conv_c1z_exact_jitter(w: torch.Tensor, cmap: ConvMap,
     ``row_sel`` -- exact because eps (draw_input_eps with the same
     row_sel) is zero on every row of an unselected row's cloud and a
     same-level conv never leaves the cloud. eps carries no parameter
-    dependence, so only dW flows back, from both terms.
+    dependence, so only dW flows back, from both terms. Both terms and
+    their sum are in ``out_dtype``: eps (float32) is rounded to it first,
+    as gcl_tpu does.
     """
     _require_f32("w", w)
     sel = None
     if row_sel is not None:
         sel = (level.mask.to(torch.float32)
                * row_sel.to(torch.float32)).contiguous()
-    return (OccupancyConv.apply(w, cmap.c1z, level.skeys)[0]
-            + ScalarConv.apply(eps.detach(), w, cmap.c1z, level.skeys,
-                               level.srow, sel))
+    return (OccupancyConv.apply(w, cmap.c1z, level.skeys, out_dtype)[0]
+            + ScalarConv.apply(eps.detach().to(out_dtype), w, cmap.c1z,
+                               level.skeys, level.srow, sel))
 
 
 def sparse_conv_c1z_jittered(w: torch.Tensor, cmap: ConvMap,
@@ -268,7 +296,8 @@ def sparse_conv_c1z_jittered(w: torch.Tensor, cmap: ConvMap,
                              sigma: float, p: float,
                              row_sel: Optional[torch.Tensor] = None,
                              gate_u: Optional[torch.Tensor] = None,
-                             normal: Optional[torch.Tensor] = None
+                             normal: Optional[torch.Tensor] = None,
+                             out_dtype: torch.dtype = torch.float32
                              ) -> torch.Tensor:
     """Occupancy conv + distribution-matched output noise (jitter_mode
     'c1z'), plain tensor code on the presence bits K2 leaves.
@@ -281,10 +310,11 @@ def sparse_conv_c1z_jittered(w: torch.Tensor, cmap: ConvMap,
     noise term is differentiable in w, as in gcl_tpu. ``row_sel`` f32[N]
     restricts the noise to selected output rows. The gate uniform (scalar)
     and the normals f32[N, K] come from ``generator`` on w's device unless
-    ``gate_u`` / ``normal`` hand them in.
+    ``gate_u`` / ``normal`` hand them in. The output and the noise's
+    product are in ``out_dtype``, as in gcl_tpu.
     """
     _require_f32("w", w)
-    out, sbits = OccupancyConv.apply(w, cmap.c1z, level.skeys)
+    out, sbits = OccupancyConv.apply(w, cmap.c1z, level.skeys, out_dtype)
     bits = c1z_unpack_bits(sbits, w.shape[0]).to(torch.float32)
     if gate_u is None:
         gate_u = torch.rand((), generator=generator, device=w.device)
@@ -294,11 +324,13 @@ def sparse_conv_c1z_jittered(w: torch.Tensor, cmap: ConvMap,
     a = normal * sigma * bits * (gate_u < p).to(torch.float32)
     if row_sel is not None:
         a = a * row_sel.to(torch.float32)[:, None]
-    return out + a @ w[:, 0, :]
+    return out + a.to(out_dtype) @ w[:, 0, :].to(out_dtype)
 
 
 def masked_mean_var(feats: torch.Tensor, mask: torch.Tensor):
-    """Mean / biased variance per channel over valid rows only."""
+    """Mean / biased variance per channel over valid rows only, in
+    float32 (float64 stays float64)."""
+    feats = summing(feats)
     m = mask.to(feats.dtype)[:, None]
     cnt = m.sum().clamp_min(1.0)
     mean = (feats * m).sum(dim=0) / cnt

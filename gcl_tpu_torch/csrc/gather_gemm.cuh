@@ -1,6 +1,8 @@
 // Gather-GEMM on the tensor cores: the device core shared by the sparse
 // convolution's forward (K6 over an implicit map, K12 over an index table)
-// and the dX of its backward (K7), for Hopper (sm_90a).
+// and the dX of its backward (K7), for Hopper (sm_90a), in two element
+// types: float32 and bfloat16 (products in bf16, sums in float32, as
+// gcl_tpu's Pallas kernels take them for bf16 features).
 //
 //   out[i, :] = sum_k a[row(k, i), :] @ B_k          (zero where none)
 //
@@ -27,25 +29,33 @@
 //   256-column slices, half of the second past the width and idle), so
 //   every gathered row is read once per block and not once per 64-column
 //   tile.
-// * Split TF32 ("3xTF32") on the tensor cores: a = hi + lo with
+// * float32: split TF32 ("3xTF32") on the tensor cores: a = hi + lo with
 //   hi = tf32(a), lo = tf32(a - hi), and D += lo*hi' + hi*lo' + hi*hi',
 //   three mma.sync.m16n8k8 per product with float32 accumulation. That
 //   keeps float32 accuracy (the dropped lo*lo' is ~2^-22 of a product) at
 //   the TF32 tensor-core rate; plain TF32 would miss the 1e-4 gates.
+// * bfloat16: one mma.sync.m16n8k16 bf16 per product, float32
+//   accumulation: a bf16 x bf16 product is exact in float32, so the sum is
+//   the float32 sum of exact products, rounded to bf16 once, at the store
+//   (__float2bfloat16_rn). A and the kBT form of B are read from shared
+//   memory as packed pairs; W[k] ([depth][width], the pair's two depths a
+//   row apart) is packed from two 16-bit reads.
 // * mma.sync and not wgmma: a compacted list holds ~14-27 rows per offset,
 //   and wgmma's 64-row tiles would spend on zero rows what compaction
 //   saves. TMA copies boxes of a tensor, not lists of rows, so the gather
-//   is cp.async: 16-byte copies (4-byte where a row is not 16-byte
-//   aligned) into a ring of stages of 32 input channels each (three where
-//   shared memory allows as many blocks per SM as with two, else two),
-//   the next stages' gathers in flight while one multiplies. A thread
-//   resolves its rows' keys eight at a time in lockstep, so that their
-//   dependent loads overlap.
+//   is cp.async: 16-byte copies (4 float32 or 8 bf16 channels; single
+//   elements where a row is not 16-byte aligned) into a ring of stages of
+//   128 bytes of depth per row (32 float32 or 64 bf16 channels; three
+//   stages where shared memory allows as many blocks per SM as with two,
+//   else two), the next stages' gathers in flight while one multiplies. A
+//   stage takes the same bytes in both types, so both run the same launch
+//   shapes. A thread resolves its rows' keys eight at a time in lockstep,
+//   so that their dependent loads overlap.
 // * The offset's product (registers, in fragment-row order) is added into
-//   an accumulator in shared memory at its tile rows; within one offset a
-//   tile row appears at most once, so the adds never collide, and offsets
-//   come in order: no atomics, and the result repeats bit for bit. The
-//   block stores its tile once.
+//   an accumulator in shared memory (float32 in both types) at its tile
+//   rows; within one offset a tile row appears at most once, so the adds
+//   never collide, and offsets come in order: no atomics, and the result
+//   repeats bit for bit. The block stores its tile once.
 //
 // For checks, a source's launches can count the rows they multiply: after
 // set_row_counter(p), every block adds the rows of the mma fragments it
@@ -57,16 +67,28 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "elem.cuh"
 #include "key_search.cuh"
 
 namespace gg {
 
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kTileM = 64;     // output rows per block
-constexpr int kChunk = 32;     // depth (input channels) per stage
-constexpr int kLdA = kChunk + 4;  // row stride of a staged a / B^T tile
 constexpr int kBatch = 32;     // offsets resolved at once
 constexpr int kMaxWidth = 256;  // output columns per block
+
+// elements of T in one 16-byte copy, and in a 128-byte stage row (the
+// depth of one stage)
+template <typename T>
+constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+template <typename T>
+constexpr int kChunk = 128 / static_cast<int>(sizeof(T));
+// row stride of a staged a / B^T tile: 16 bytes of padding, so that a
+// fragment's 32 lanes hit 32 banks
+template <typename T>
+constexpr int kLdA = kChunk<T> + kVec<T>;
 
 // ---- PTX helpers -------------------------------------------------------
 
@@ -104,7 +126,31 @@ __device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* ah,
   mma_tf32(d, ah, bh);
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+// d += a @ b, m16n8k16, bf16 inputs (two to a register, the lower index
+// in the low half), float32 accumulation
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// two consecutive bf16 p[0], p[1] (4-byte aligned) as one register
+__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// *lo and *hi as one register, lo in the low half
+__device__ __forceinline__ uint32_t pack_pair(const bf16* lo, const bf16* hi) {
+  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(lo)) |
+         (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(hi))
+          << 16);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(src));
@@ -125,27 +171,67 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ void zero4(float* dst) {
-  *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+// 16 zero bytes at dst (16-byte aligned in shared memory)
+__device__ __forceinline__ void zero16(void* dst) {
+  *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
 }
 
-// Four consecutive floats src[0..3] into dst[0..3] (16-byte aligned in
-// shared memory): one 16-byte copy when vec (src 16-byte aligned, all four
-// in range), else a 4-byte copy for each of the first n_ok and zeros after.
-__device__ __forceinline__ void copy4(float* dst, const float* src, int n_ok,
-                                      bool vec) {
+// one element: a 4-byte cp.async for float32 (cp.async has no 2-byte
+// copy), a plain load and store for bf16 (the stage is read only after the
+// __syncthreads that follows the wait, so either is in place by then)
+__device__ __forceinline__ void copy1(float* dst, const float* src) {
+  cp_async4(dst, src);
+}
+__device__ __forceinline__ void copy1(bf16* dst, const bf16* src) {
+  *dst = *src;
+}
+__device__ __forceinline__ void zero1(float* dst) { *dst = 0.f; }
+__device__ __forceinline__ void zero1(bf16* dst) {
+  *reinterpret_cast<uint16_t*>(dst) = 0;
+}
+
+// kVec<T> consecutive elements src[0..] into dst[0..] (16-byte aligned in
+// shared memory): one 16-byte copy when vec (src 16-byte aligned, all in
+// range), else one element at a time for the first n_ok and zeros after.
+template <typename T>
+__device__ __forceinline__ void copy_vec(T* dst, const T* src, int n_ok,
+                                         bool vec) {
   if (vec) {
     cp_async16(dst, src);
     return;
   }
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
+  for (int q = 0; q < kVec<T>; ++q) {
     if (q < n_ok) {
-      cp_async4(dst + q, src + q);
+      copy1(dst + q, src + q);
     } else {
-      dst[q] = 0.f;
+      zero1(dst + q);
     }
   }
+}
+
+// four float32 sums into dst[0..3] in T: one 16-byte (float32) or 8-byte
+// (bf16) store when vec, else the first n_ok one at a time
+template <typename T>
+__device__ __forceinline__ void store4(T* dst, const float* src, int n_ok,
+                                       bool vec) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (vec) {
+      *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+      return;
+    }
+  } else {
+    if (vec) {
+      __nv_bfloat162 lo = __floats2bfloat162_rn(src[0], src[1]);
+      __nv_bfloat162 hi = __floats2bfloat162_rn(src[2], src[3]);
+      uint2 v;
+      v.x = *reinterpret_cast<uint32_t*>(&lo);
+      v.y = *reinterpret_cast<uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(dst) = v;
+      return;
+    }
+  }
+  for (int q = 0; q < 4 && q < n_ok; ++q) dst[q] = from_f32<T>(src[q]);
 }
 
 __host__ __device__ constexpr int round_up(int v, int m) {
@@ -177,18 +263,24 @@ __device__ __forceinline__ void find_keys(const int* __restrict__ keys,
   }
 }
 
-// Row stride of the accumulator and of a staged [kChunk][nb] B tile:
-// congruent to 8 mod 32 floats, so a fragment's 32 lanes hit 32 banks.
+// Row stride of the float32 accumulator and of a staged [kChunk][nb] B
+// tile, in elements: congruent to 8 mod 32 floats, so a fragment's 32
+// lanes hit 32 banks (16 bytes of padding for a bf16 B tile).
 __host__ __device__ constexpr int ld_wide(int nb) { return nb + 8; }
 
-__host__ __device__ constexpr int stage_floats(int nb, bool bt) {
-  return kTileM * kLdA + (bt ? nb * kLdA : kChunk * ld_wide(nb));
+// bytes of one stage (a [kTileM][kLdA] tile, then B as [kChunk][ld_wide]
+// or, kBT, [nb][kLdA]): the same in both element types
+template <typename T>
+__host__ __device__ constexpr int stage_bytes(int nb, bool bt) {
+  return static_cast<int>(sizeof(T)) *
+         (kTileM * kLdA<T> + (bt ? nb * kLdA<T> : kChunk<T> * ld_wide(nb)));
 }
 
+template <typename T>
 __host__ __device__ constexpr size_t smem_bytes(int nb, bool bt,
                                                 int stages) {
-  return sizeof(float) *
-             (size_t)(kTileM * ld_wide(nb) + stages * stage_floats(nb, bt)) +
+  return sizeof(float) * (size_t)(kTileM * ld_wide(nb)) +
+         (size_t)stages * stage_bytes<T>(nb, bt) +
          sizeof(int) * (size_t)(kBatch * kTileM + 2 * kBatch + kBatch + 2);
 }
 
@@ -204,6 +296,7 @@ static inline int set_row_counter(unsigned long long* p) {
 
 // ---- the kernel --------------------------------------------------------
 
+// T: the element type of a, b and out (float or bf16); sums are float32.
 // kTable false: qkey holds packed query keys, resolved against skeys /
 // srow (n_keys of them). kTable true: qkey holds rows of a, valid in
 // [0, n_keys) where n_keys is a's row count; skeys and srow are not read.
@@ -216,22 +309,28 @@ static inline int set_row_counter(unsigned long long* p) {
 // fragments a warp multiplies per offset, 4 / (warps along the rows); it
 // sizes the registers that hold an offset's product. kStages: buffers in
 // the cp.async ring (2 or 3, whichever keeps more stages in flight per SM).
-template <bool kTable, bool kBT, int kMF, int kStages>
+template <typename T, bool kTable, bool kBT, int kMF, int kStages>
 __global__ void __launch_bounds__(kThreads, kMF == 1 ? 3 : kMF == 2 ? 2 : 1)
-gather_gemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
+gather_gemm_kernel(const T* __restrict__ a, const T* __restrict__ b,
                    const int* __restrict__ qkey,
                    const int* __restrict__ skeys,
-                   const int* __restrict__ srow, float* __restrict__ out,
+                   const int* __restrict__ srow, T* __restrict__ out,
                    int depth, int width, int kvol, int n_rows, int n_keys,
                    int nb, int vec_a, int vec_b, int vec_out) {
-  extern __shared__ __align__(16) float smem[];
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kCh = kChunk<T>;
+  constexpr int kLd = kLdA<T>;
+  constexpr int kV = kVec<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ldc = ld_wide(nb);
   const int ldb = ld_wide(nb);
-  float* cacc = smem;                                  // [kTileM][ldc]
-  float* stage0 = cacc + kTileM * ldc;
-  const int sfl = stage_floats(nb, kBT);
-  // per stage: as [kTileM][kLdA], then bs [kChunk][ldb] or [nb][kLdA]
-  unsigned* list = reinterpret_cast<unsigned*>(stage0 + kStages * sfl);
+  float* cacc = reinterpret_cast<float*>(smem_raw);     // [kTileM][ldc]
+  unsigned char* stage0 =
+      smem_raw + sizeof(float) * (size_t)(kTileM * ldc);
+  const int sbytes = stage_bytes<T>(nb, kBT);
+  // per stage: as [kTileM][kLd], then bs [kCh][ldb] or [nb][kLd]
+  unsigned* list =
+      reinterpret_cast<unsigned*>(stage0 + (size_t)kStages * sbytes);
   int* cnt = reinterpret_cast<int*>(list + kBatch * kTileM);  // [kBatch][2]
   int* knz = cnt + 2 * kBatch;                         // [kBatch]
   int* nk_s = knz + kBatch;
@@ -246,12 +345,14 @@ gather_gemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
   const int tig = lane & 3;   // thread in group
   const int row0 = blockIdx.x * kTileM;
   const int n0 = blockIdx.y * nb;
-  const int n_chunks = (depth + kChunk - 1) / kChunk;
-  // W[k] stage, kBT false: a thread copies 4 columns at w_n of the rows
-  // w_c0, w_c0 + w_cstep, ... (nb / 4 is a power of two dividing kThreads)
-  const int w_n = (tid & (nb / 4 - 1)) * 4;
-  const int w_c0 = tid / (nb / 4);
-  const int w_cstep = kThreads / (nb / 4);
+  const int n_chunks = (depth + kCh - 1) / kCh;
+  // W[k] stage, kBT false: a thread copies kV columns at w_n of the rows
+  // w_c0, w_c0 + w_cstep, ... (nb / kV is a power of two dividing
+  // kThreads)
+  const int w_nv = nb / kV;
+  const int w_n = (tid & (w_nv - 1)) * kV;
+  const int w_c0 = tid / w_nv;
+  const int w_cstep = kThreads / w_nv;
 
   // warps over the block's columns (32 per warp) and the list's 16-row
   // fragments: wn along the columns, wm along the rows
@@ -340,52 +441,52 @@ gather_gemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
     // stage s: offset knz[s / n_chunks], depth chunk s % n_chunks, into
     // buffer s % kStages
     auto load_stage = [&](int s) {
-      float* as = stage0 + (s % kStages) * sfl;
-      float* bs = as + kTileM * kLdA;
+      T* as = reinterpret_cast<T*>(stage0 + (size_t)(s % kStages) * sbytes);
+      T* bs = as + kTileM * kLd;
       const int kk = knz[s / n_chunks];
-      const int c0 = (s % n_chunks) * kChunk;
+      const int c0 = (s % n_chunks) * kCh;
       const int k = kb0 + kk;
       const int c_lo = cnt[2 * kk];
       const int m = c_lo + cnt[2 * kk + 1];
       const int m_pad = round_up(m, 16);
-      for (int e = tid; e < m_pad * (kChunk / 4); e += kThreads) {
-        const int r = e / (kChunk / 4);
-        const int c = (e % (kChunk / 4)) * 4;
-        float* dst = as + r * kLdA + c;
+      for (int e = tid; e < m_pad * (kCh / kV); e += kThreads) {
+        const int r = e / (kCh / kV);
+        const int c = (e % (kCh / kV)) * kV;
+        T* dst = as + r * kLd + c;
         if (r < m && c0 + c < depth) {
           const int li = r < c_lo ? r : 32 + r - c_lo;
           const int src = static_cast<int>(list[kk * kTileM + li] >> 6);
-          copy4(dst, a + (size_t)src * depth + c0 + c, depth - c0 - c,
-                vec_a);
+          copy_vec(dst, a + (size_t)src * depth + c0 + c, depth - c0 - c,
+                   vec_a);
         } else {
-          zero4(dst);
+          zero16(dst);
         }
       }
       if (kBT) {
         // bs[n][c] = W[kvol-1-k][n0+n][c0+c]
-        const float* wk = b + (size_t)(kvol - 1 - k) * width * depth;
-        for (int e = tid; e < nb * (kChunk / 4); e += kThreads) {
-          const int n = e / (kChunk / 4);
-          const int c = (e % (kChunk / 4)) * 4;
-          float* dst = bs + n * kLdA + c;
+        const T* wk = b + (size_t)(kvol - 1 - k) * width * depth;
+        for (int e = tid; e < nb * (kCh / kV); e += kThreads) {
+          const int n = e / (kCh / kV);
+          const int c = (e % (kCh / kV)) * kV;
+          T* dst = bs + n * kLd + c;
           if (n0 + n < width && c0 + c < depth) {
-            copy4(dst, wk + (size_t)(n0 + n) * depth + c0 + c,
-                  depth - c0 - c, vec_b);
+            copy_vec(dst, wk + (size_t)(n0 + n) * depth + c0 + c,
+                     depth - c0 - c, vec_b);
           } else {
-            zero4(dst);
+            zero16(dst);
           }
         }
       } else {
         // bs[c][n] = W[k][c0+c][n0+n]
-        const float* wk = b + (size_t)k * depth * width;
-        for (int c = w_c0; c < kChunk; c += w_cstep) {
+        const T* wk = b + (size_t)k * depth * width;
+        for (int c = w_c0; c < kCh; c += w_cstep) {
           const int n = w_n;
-          float* dst = bs + c * ldb + n;
+          T* dst = bs + c * ldb + n;
           if (c0 + c < depth && n0 + n < width) {
-            copy4(dst, wk + (size_t)(c0 + c) * width + n0 + n,
-                  width - n0 - n, vec_b);
+            copy_vec(dst, wk + (size_t)(c0 + c) * width + n0 + n,
+                     width - n0 - n, vec_b);
           } else {
-            zero4(dst);
+            zero16(dst);
           }
         }
       }
@@ -405,45 +506,81 @@ gather_gemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
 
       const int kk = knz[s / n_chunks];
       const int chunk = s % n_chunks;
-      const int c0 = chunk * kChunk;
+      const int c0 = chunk * kCh;
       const int c_lo = cnt[2 * kk];
       const int m = c_lo + cnt[2 * kk + 1];
       const int m_frags = (m + 15) / 16;
       if (tid == 0 && chunk == 0) *rows_done += m_frags * 16;
       if (active) {
-        const float* as = stage0 + (s % kStages) * sfl;
-        const float* bs = as + kTileM * kLdA;
-        const int ksteps = min(kChunk, depth - c0 + 7) / 8;
-        for (int ks = 0; ks < ksteps; ++ks) {
-          const int kc = ks * 8 + tig;
-          uint32_t bh[4][2], bl[4][2];
+        const T* as =
+            reinterpret_cast<const T*>(stage0 + (size_t)(s % kStages) * sbytes);
+        const T* bs = as + kTileM * kLd;
+        if constexpr (kF32) {
+          const int ksteps = min(kCh, depth - c0 + 7) / 8;
+          for (int ks = 0; ks < ksteps; ++ks) {
+            const int kc = ks * 8 + tig;
+            uint32_t bh[4][2], bl[4][2];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int n = ng * 32 + j * 8 + gid;
-            float b0, b1;
-            if (kBT) {
-              b0 = bs[n * kLdA + kc];
-              b1 = bs[n * kLdA + kc + 4];
-            } else {
-              b0 = bs[kc * ldb + n];
-              b1 = bs[(kc + 4) * ldb + n];
+            for (int j = 0; j < 4; ++j) {
+              const int n = ng * 32 + j * 8 + gid;
+              float b0, b1;
+              if (kBT) {
+                b0 = bs[n * kLd + kc];
+                b1 = bs[n * kLd + kc + 4];
+              } else {
+                b0 = bs[kc * ldb + n];
+                b1 = bs[(kc + 4) * ldb + n];
+              }
+              split_tf32(b0, bh[j][0], bl[j][0]);
+              split_tf32(b1, bh[j][1], bl[j][1]);
             }
-            split_tf32(b0, bh[j][0], bl[j][0]);
-            split_tf32(b1, bh[j][1], bl[j][1]);
+#pragma unroll
+            for (int i = 0; i < kMF; ++i) {
+              const int mf = mf0 + i * wm;
+              if (mf < m_frags) {
+                const float* ar = as + (mf * 16 + gid) * kLd + kc;
+                uint32_t ah[4], al[4];
+                split_tf32(ar[0], ah[0], al[0]);
+                split_tf32(ar[8 * kLd], ah[1], al[1]);
+                split_tf32(ar[4], ah[2], al[2]);
+                split_tf32(ar[8 * kLd + 4], ah[3], al[3]);
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                  mma_3xtf32(acc[i][j], ah, al, bh[j], bl[j]);
+                }
+              }
+            }
           }
+        } else {
+          const int ksteps = min(kCh, depth - c0 + 15) / 16;
+          for (int ks = 0; ks < ksteps; ++ks) {
+            const int kc = ks * 16 + 2 * tig;
+            uint32_t bb[4][2];
 #pragma unroll
-          for (int i = 0; i < kMF; ++i) {
-            const int mf = mf0 + i * wm;
-            if (mf < m_frags) {
-              const float* ar = as + (mf * 16 + gid) * kLdA + kc;
-              uint32_t ah[4], al[4];
-              split_tf32(ar[0], ah[0], al[0]);
-              split_tf32(ar[8 * kLdA], ah[1], al[1]);
-              split_tf32(ar[4], ah[2], al[2]);
-              split_tf32(ar[8 * kLdA + 4], ah[3], al[3]);
+            for (int j = 0; j < 4; ++j) {
+              const int n = ng * 32 + j * 8 + gid;
+              if (kBT) {
+                bb[j][0] = ld_pair(bs + n * kLd + kc);
+                bb[j][1] = ld_pair(bs + n * kLd + kc + 8);
+              } else {
+                bb[j][0] = pack_pair(bs + kc * ldb + n,
+                                     bs + (kc + 1) * ldb + n);
+                bb[j][1] = pack_pair(bs + (kc + 8) * ldb + n,
+                                     bs + (kc + 9) * ldb + n);
+              }
+            }
 #pragma unroll
-              for (int j = 0; j < 4; ++j) {
-                mma_3xtf32(acc[i][j], ah, al, bh[j], bl[j]);
+            for (int i = 0; i < kMF; ++i) {
+              const int mf = mf0 + i * wm;
+              if (mf < m_frags) {
+                const T* ar = as + (mf * 16 + gid) * kLd + kc;
+                uint32_t af[4];
+                af[0] = ld_pair(ar);
+                af[1] = ld_pair(ar + 8 * kLd);
+                af[2] = ld_pair(ar + 8);
+                af[3] = ld_pair(ar + 8 * kLd + 8);
+#pragma unroll
+                for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], af, bb[j]);
               }
             }
           }
@@ -479,46 +616,45 @@ gather_gemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
     }
   }
 
-  // one store of the tile
+  // one store of the tile (bf16: rounded once, here)
   const int nv = nb / 4;
   for (int e = tid; e < kTileM * nv; e += kThreads) {
     const int r = e / nv;
     const int n = (e % nv) * 4;
     const int row = row0 + r;
     if (row >= n_rows || n0 + n >= width) continue;
-    const float* src = cacc + r * ldc + n;
-    float* dst = out + (size_t)row * width + n0 + n;
-    if (vec_out) {
-      *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
-    } else {
-      for (int q = 0; q < 4 && n0 + n + q < width; ++q) dst[q] = src[q];
-    }
+    store4(out + (size_t)row * width + n0 + n, cacc + r * ldc + n,
+           width - n0 - n, vec_out);
   }
   if (tid == 0 && blockIdx.y == 0 && row_counter != nullptr) {
     atomicAdd(row_counter, static_cast<unsigned long long>(*rows_done));
   }
 }
 
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+inline bool aligned_to(const void* p, uintptr_t bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
-template <bool kTable, bool kBT, int kMF, int kStages>
-int launch_mf(const float* a, const float* b, const int* qkey,
-              const int* skeys, const int* srow, float* out, int depth,
-              int width, int kvol, int n_rows, int n_keys, int n_split,
-              int nb, cudaStream_t stream) {
-  const size_t smem = smem_bytes(nb, kBT, kStages);
-  auto kernel = gather_gemm_kernel<kTable, kBT, kMF, kStages>;
+inline bool aligned16(const void* p) { return aligned_to(p, 16); }
+
+template <typename T, bool kTable, bool kBT, int kMF, int kStages>
+int launch_mf(const T* a, const T* b, const int* qkey, const int* skeys,
+              const int* srow, T* out, int depth, int width, int kvol,
+              int n_rows, int n_keys, int n_split, int nb,
+              cudaStream_t stream) {
+  const size_t smem = smem_bytes<T>(nb, kBT, kStages);
+  auto kernel = gather_gemm_kernel<T, kTable, kBT, kMF, kStages>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  // a's rows start 16-byte aligned when depth is a multiple of 4, and so
-  // on for W's rows and out's
-  const int vec_a = aligned16(a) && depth % 4 == 0;
-  const int vec_b = aligned16(b) && (kBT ? depth : width) % 4 == 0;
-  const int vec_out = aligned16(out) && width % 4 == 0;
+  // a's rows start 16-byte aligned when depth is a multiple of kVec, and
+  // so on for W's rows; out's four-column groups take one 16-byte (float32)
+  // or 8-byte (bf16) store
+  constexpr int kV = kVec<T>;
+  const int vec_a = aligned16(a) && depth % kV == 0;
+  const int vec_b = aligned16(b) && (kBT ? depth : width) % kV == 0;
+  const int vec_out = aligned_to(out, 4 * sizeof(T)) && width % 4 == 0;
   const dim3 grid((n_rows + kTileM - 1) / kTileM, n_split);
   kernel<<<grid, kThreads, smem, stream>>>(a, b, qkey, skeys, srow, out,
                                            depth, width, kvol, n_rows,
@@ -531,11 +667,10 @@ int launch_mf(const float* a, const float* b, const int* qkey,
 // cudaError_t as int. Outputs wider than kMaxWidth split over grid.y into
 // slices of a power of two columns; the warps of a slice's columns past
 // the width idle.
-template <bool kTable, bool kBT>
-int launch(const float* a, const float* b, const int* qkey,
-           const int* skeys, const int* srow, float* out, int depth,
-           int width, int kvol, int n_rows, int n_keys,
-           cudaStream_t stream) {
+template <typename T, bool kTable, bool kBT>
+int launch(const T* a, const T* b, const int* qkey, const int* skeys,
+           const int* srow, T* out, int depth, int width, int kvol,
+           int n_rows, int n_keys, cudaStream_t stream) {
   const int n_split = (width + kMaxWidth - 1) / kMaxWidth;
   int nb = 32;
   while (nb < (width + n_split - 1) / n_split) nb <<= 1;
@@ -548,14 +683,14 @@ int launch(const float* a, const float* b, const int* qkey,
   const int max_blocks = wm >= 4 ? 3 : wm >= 2 ? 2 : 1;
   auto blocks = [&](int stages) {
     const int by_smem =
-        static_cast<int>(233472 / (smem_bytes(nb, kBT, stages) + 1024));
+        static_cast<int>(233472 / (smem_bytes<T>(nb, kBT, stages) + 1024));
     return by_smem < max_blocks ? by_smem : max_blocks;
   };
   const bool three = blocks(3) >= blocks(2);
-#define GG_LAUNCH(MF, ST)                                                   \
-  return launch_mf<kTable, kBT, MF, ST>(a, b, qkey, skeys, srow, out, depth, \
-                                        width, kvol, n_rows, n_keys,        \
-                                        n_split, nb, stream)
+#define GG_LAUNCH(MF, ST)                                                 \
+  return launch_mf<T, kTable, kBT, MF, ST>(a, b, qkey, skeys, srow, out,  \
+                                           depth, width, kvol, n_rows,    \
+                                           n_keys, n_split, nb, stream)
   if (wm >= 4) {
     if (three) GG_LAUNCH(1, 3);
     GG_LAUNCH(1, 2);

@@ -23,17 +23,24 @@
 // adds its partial to global memory with atomicAdd once, at the end
 // (blocks x k^3 x Cout atomics). The order of that sum changes from run to
 // run, so dW agrees with the plain version to float32 rounding.
+//
+// The bf16 form (occupancy_conv_dw_bf16) reads g in bf16 and sums it in
+// float32 as above; dW is float32.
 
 #include <cuda_runtime.h>
+
+#include "elem.cuh"
 
 namespace {
 
 constexpr int kRows = 64;
 constexpr int kThreads = 256;
 
+// T: the element type of g (float or bf16); dw and the sums are float32
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 occupancy_conv_dw_kernel(const int* __restrict__ sbits,
-                         const float* __restrict__ g, float* __restrict__ dw,
+                         const T* __restrict__ g, float* __restrict__ dw,
                          int n, int side, int cout) {
   extern __shared__ __align__(16) float smem[];
   const int kvol = side * side * side;
@@ -52,7 +59,7 @@ occupancy_conv_dw_kernel(const int* __restrict__ sbits,
     __syncthreads();  // the previous chunk's readers are done
     for (int e = tid; e < kRows * cout; e += kThreads) {
       const int i = row0 + e / cout;
-      gs[e] = i < n ? __ldg(g + (size_t)i * cout + e % cout) : 0.f;
+      gs[e] = i < n ? ldg_f32(g + (size_t)i * cout + e % cout) : 0.f;
     }
     for (int e = tid; e < kRows * 8; e += kThreads) {
       const int i = row0 + e / 8;
@@ -80,19 +87,15 @@ occupancy_conv_dw_kernel(const int* __restrict__ sbits,
   }
 }
 
-}  // namespace
-
-// sbits int32[n, 8], g f32[n, cout], dw f32[side^3, 1, cout]; contiguous
-// on the device, dw zeroed by the caller. side odd, 1 <= side <= 5.
-// Launches on `stream`; returns cudaGetLastError().
-extern "C" int occupancy_conv_dw(const int* sbits, const float* g, float* dw,
-                                 int n, int side, int cout, void* stream) {
+template <typename T>
+int launch(const int* sbits, const T* g, float* dw, int n, int side, int cout,
+           void* stream) {
   const int kvol = side * side * side;
   const size_t smem = sizeof(float) * (kvol + kRows) * cout +
                       sizeof(unsigned int) * kRows * 8;
   cudaError_t err;
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(occupancy_conv_dw_kernel,
+    err = cudaFuncSetAttribute(occupancy_conv_dw_kernel<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -105,8 +108,25 @@ extern "C" int occupancy_conv_dw(const int* sbits, const float* g, float* dw,
   const int n_chunks = (n + kRows - 1) / kRows;
   int blocks = 4 * sms;
   if (blocks > n_chunks) blocks = n_chunks;
-  occupancy_conv_dw_kernel<<<blocks, kThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
+  occupancy_conv_dw_kernel<T><<<blocks, kThreads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
       sbits, g, dw, n, side, cout);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// sbits int32[n, 8], g f32[n, cout], dw f32[side^3, 1, cout]; contiguous
+// on the device, dw zeroed by the caller. side odd, 1 <= side <= 5.
+// Launches on `stream`; returns cudaGetLastError().
+extern "C" int occupancy_conv_dw(const int* sbits, const float* g, float* dw,
+                                 int n, int side, int cout, void* stream) {
+  return launch(sbits, g, dw, n, side, cout, stream);
+}
+
+// The bf16 form: g bf16[n, cout]; dw float32, otherwise as above.
+extern "C" int occupancy_conv_dw_bf16(const int* sbits, const bf16* g,
+                                      float* dw, int n, int side, int cout,
+                                      void* stream) {
+  return launch(sbits, g, dw, n, side, cout, stream);
 }

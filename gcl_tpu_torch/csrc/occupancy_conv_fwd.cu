@@ -23,9 +23,15 @@
 // searches. W lives in shared memory, and each output is the sum of the
 // present offsets' weights in offset order, written coalesced. sbits keeps
 // the layout that gcl_tpu's c1z_unpack_bits and dW kernel (K3) read.
+//
+// The bf16 form (occupancy_conv_fwd_bf16, for a bf16 model: gcl_tpu casts
+// W to the features' type, _c1z_w3) takes W already rounded to bf16, sums
+// it in float32 as above and rounds each output to bf16 once; sbits are
+// the same.
 
 #include <cuda_runtime.h>
 
+#include "elem.cuh"
 #include "key_search.cuh"
 
 namespace {
@@ -33,11 +39,13 @@ namespace {
 constexpr int kRows = 64;
 constexpr int kThreads = 256;
 
+// T: the element type of w and out (float or bf16); sums are float32
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 occupancy_conv_fwd_kernel(const int* __restrict__ aux,
                           const int* __restrict__ skeys,
-                          const float* __restrict__ w,
-                          float* __restrict__ out, int* __restrict__ sbits,
+                          const T* __restrict__ w,
+                          T* __restrict__ out, int* __restrict__ sbits,
                           int n, int side, int cout, int n_keys) {
   extern __shared__ float ws[];  // [kvol, cout]
   __shared__ unsigned int bits_s[kRows][8];
@@ -48,7 +56,7 @@ occupancy_conv_fwd_kernel(const int* __restrict__ aux,
   const int rad = side / 2;
   const int row0 = blockIdx.x * kRows;
 
-  for (int e = tid; e < kvol * cout; e += kThreads) ws[e] = __ldg(w + e);
+  for (int e = tid; e < kvol * cout; e += kThreads) ws[e] = ldg_f32(w + e);
   for (int e = tid; e < kRows * 8; e += kThreads) bits_s[e / 8][e % 8] = 0u;
   __syncthreads();
 
@@ -69,7 +77,9 @@ occupancy_conv_fwd_kernel(const int* __restrict__ aux,
 
   for (int e = tid; e < kRows * 8; e += kThreads) {
     const int i = row0 + e / 8;
-    if (i < n) sbits[(size_t)i * 8 + e % 8] = static_cast<int>(bits_s[e / 8][e % 8]);
+    if (i < n) {
+      sbits[(size_t)i * 8 + e % 8] = static_cast<int>(bits_s[e / 8][e % 8]);
+    }
   }
   for (int e = tid; e < kRows * cout; e += kThreads) {
     const int lr = e / cout;
@@ -80,8 +90,25 @@ occupancy_conv_fwd_kernel(const int* __restrict__ aux,
     for (int k = 0; k < kvol; ++k) {
       if ((bits_s[lr][k / s2] >> (k % s2)) & 1u) acc += ws[k * cout + c];
     }
-    out[(size_t)i * cout + c] = acc;
+    out[(size_t)i * cout + c] = from_f32<T>(acc);
   }
+}
+
+template <typename T>
+int launch(const int* aux, const int* skeys, const T* w, T* out, int* sbits,
+           int n, int side, int cout, int n_keys, void* stream) {
+  const size_t smem = sizeof(float) * side * side * side * cout;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        occupancy_conv_fwd_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((n + kRows - 1) / kRows);
+  occupancy_conv_fwd_kernel<T><<<grid, kThreads, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      aux, skeys, w, out, sbits, n, side, cout, n_keys);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -94,16 +121,14 @@ extern "C" int occupancy_conv_fwd(const int* aux, const int* skeys,
                                   const float* w, float* out, int* sbits,
                                   int n, int side, int cout, int n_keys,
                                   void* stream) {
-  const size_t smem = sizeof(float) * side * side * side * cout;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        occupancy_conv_fwd_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid((n + kRows - 1) / kRows);
-  occupancy_conv_fwd_kernel<<<grid, kThreads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      aux, skeys, w, out, sbits, n, side, cout, n_keys);
-  return static_cast<int>(cudaGetLastError());
+  return launch(aux, skeys, w, out, sbits, n, side, cout, n_keys, stream);
+}
+
+// The bf16 form: w bf16[side^3, 1, cout] (rounded by the caller) and out
+// bf16[n, cout]; otherwise as above.
+extern "C" int occupancy_conv_fwd_bf16(const int* aux, const int* skeys,
+                                       const bf16* w, bf16* out, int* sbits,
+                                       int n, int side, int cout, int n_keys,
+                                       void* stream) {
+  return launch(aux, skeys, w, out, sbits, n, side, cout, n_keys, stream);
 }

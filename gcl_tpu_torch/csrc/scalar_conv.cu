@@ -41,9 +41,16 @@
 // matched g row is one coalesced read, and the lanes' partial sums meet in
 // a shuffle reduction. It is bound by those reads (g once is N * Cout * 4
 // bytes; each row of g is read once per row it neighbours, from L2).
+//
+// The bf16 forms (the *_bf16 entry points, a bf16 model's eps term) read x
+// and g in bf16 and store out and dX in bf16, rounded once; W stays
+// float32, as gcl_tpu's c1 / co1 kernels keep it (they take the weights as
+// float32 whatever the features' type), and every product and sum is
+// float32; dW is float32.
 
 #include <cuda_runtime.h>
 
+#include "elem.cuh"
 #include "key_search.cuh"
 
 namespace {
@@ -53,8 +60,9 @@ constexpr int kMaxVol = 125;  // side <= 5
 constexpr int kThreads = 256;
 
 // xv[lr][k] = x[match(k, row0 + lr)], zero where there is none.
+template <typename T>
 __device__ __forceinline__ void gather_scalars(
-    float (*xv)[kMaxVol], const float* __restrict__ x,
+    float (*xv)[kMaxVol], const T* __restrict__ x,
     const int* __restrict__ aux, const int* __restrict__ skeys,
     const int* __restrict__ srow, const float* __restrict__ row_sel,
     int row0, int n, int side, int n_keys) {
@@ -70,20 +78,23 @@ __device__ __forceinline__ void gather_scalars(
       const int p = neighbor_pos(aux + (size_t)i * 8, k / s2 - rad,
                                  (k / side) % side - rad, k % side - rad,
                                  skeys, n_keys);
-      if (p >= 0) v = __ldg(x + __ldg(srow + p));
+      if (p >= 0) v = ldg_f32(x + __ldg(srow + p));
     }
     xv[lr][k] = v;
   }
 }
 
+// T: the element type of x and out (float or bf16); w and the sums are
+// float32
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-scalar_conv_fwd_kernel(const float* __restrict__ x,
+scalar_conv_fwd_kernel(const T* __restrict__ x,
                        const float* __restrict__ w,
                        const int* __restrict__ aux,
                        const int* __restrict__ skeys,
                        const int* __restrict__ srow,
                        const float* __restrict__ row_sel,
-                       float* __restrict__ out, int n, int side, int cout,
+                       T* __restrict__ out, int n, int side, int cout,
                        int n_keys) {
   extern __shared__ __align__(16) float ws[];  // [kvol, cout]
   __shared__ float xv[kRows][kMaxVol];
@@ -102,13 +113,15 @@ scalar_conv_fwd_kernel(const float* __restrict__ x,
     if (i >= n) continue;
     float acc = 0.f;
     for (int k = 0; k < kvol; ++k) acc = fmaf(xv[lr][k], ws[k * cout + c], acc);
-    out[(size_t)i * cout + c] = acc;
+    out[(size_t)i * cout + c] = from_f32<T>(acc);
   }
 }
 
+// T: the element type of x and g; dw and the sums are float32
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-scalar_conv_dw_kernel(const float* __restrict__ x,
-                      const float* __restrict__ g,
+scalar_conv_dw_kernel(const T* __restrict__ x,
+                      const T* __restrict__ g,
                       const int* __restrict__ aux,
                       const int* __restrict__ skeys,
                       const int* __restrict__ srow,
@@ -132,7 +145,7 @@ scalar_conv_dw_kernel(const float* __restrict__ x,
     gather_scalars(xv, x, aux, skeys, srow, row_sel, row0, n, side, n_keys);
     for (int e = tid; e < kRows * cout; e += kThreads) {
       const int i = row0 + e / cout;
-      gs[e] = i < n ? __ldg(g + (size_t)i * cout + e % cout) : 0.f;
+      gs[e] = i < n ? ldg_f32(g + (size_t)i * cout + e % cout) : 0.f;
     }
     __syncthreads();
     for (int e = tid; e < n_out; e += kThreads) {
@@ -154,15 +167,17 @@ scalar_conv_dw_kernel(const float* __restrict__ x,
 
 // K9. nb[lr][k] = match(K-1-k, row0 + lr) or -1; a gathered row i whose
 // row_sel[i] <= 0 counts as absent (K4 left out[i] zero, so g[i] reaches no
-// x): the exact adjoint of K4 for any row flag.
+// x): the exact adjoint of K4 for any row flag. T: the element type of g
+// and dx; w and the sums are float32.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-scalar_conv_dx_kernel(const float* __restrict__ g,
+scalar_conv_dx_kernel(const T* __restrict__ g,
                       const float* __restrict__ w,
                       const int* __restrict__ aux,
                       const int* __restrict__ skeys,
                       const int* __restrict__ srow,
                       const float* __restrict__ row_sel,
-                      float* __restrict__ dx, int n, int side, int cout,
+                      T* __restrict__ dx, int n, int side, int cout,
                       int n_keys) {
   extern __shared__ __align__(16) float ws[];  // [kvol, cout]
   __shared__ int nb[kRows][kMaxVol];
@@ -201,16 +216,16 @@ scalar_conv_dx_kernel(const float* __restrict__ g,
     for (int k = 0; k < kvol; ++k) {
       const int i = nb[lr][k];  // the same for the whole warp
       if (i < 0) continue;
-      const float* gi = g + (size_t)i * cout;
+      const T* gi = g + (size_t)i * cout;
       const float* wk = ws + k * cout;
       for (int c = lane; c < cout; c += 32) {
-        acc = fmaf(__ldg(gi + c), wk[c], acc);
+        acc = fmaf(ldg_f32(gi + c), wk[c], acc);
       }
     }
     for (int off = 16; off > 0; off >>= 1) {
       acc += __shfl_down_sync(0xffffffffu, acc, off);
     }
-    if (lane == 0) dx[j] = acc;
+    if (lane == 0) dx[j] = from_f32<T>(acc);
   }
 }
 
@@ -220,6 +235,56 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
+}
+
+template <typename T>
+int launch_fwd(const T* x, const float* w, const int* aux, const int* skeys,
+               const int* srow, const float* row_sel, T* out, int n,
+               int side, int cout, int n_keys, void* stream) {
+  const size_t smem = sizeof(float) * side * side * side * cout;
+  const cudaError_t err = allow_smem(scalar_conv_fwd_kernel<T>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + kRows - 1) / kRows);
+  scalar_conv_fwd_kernel<T><<<grid, kThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      x, w, aux, skeys, srow, row_sel, out, n, side, cout, n_keys);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_dw(const T* x, const T* g, const int* aux, const int* skeys,
+              const int* srow, const float* row_sel, float* dw, int n,
+              int side, int cout, int n_keys, void* stream) {
+  const size_t smem =
+      sizeof(float) * (side * side * side + kRows) * cout;
+  cudaError_t err = allow_smem(scalar_conv_dw_kernel<T>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_chunks = (n + kRows - 1) / kRows;
+  int blocks = 4 * sms;
+  if (blocks > n_chunks) blocks = n_chunks;
+  scalar_conv_dw_kernel<T><<<blocks, kThreads, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      x, g, aux, skeys, srow, row_sel, dw, n, side, cout, n_keys);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_dx(const T* g, const float* w, const int* aux, const int* skeys,
+              const int* srow, const float* row_sel, T* dx, int n, int side,
+              int cout, int n_keys, void* stream) {
+  const size_t smem = sizeof(float) * side * side * side * cout;
+  const cudaError_t err = allow_smem(scalar_conv_dx_kernel<T>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + kRows - 1) / kRows);
+  scalar_conv_dx_kernel<T><<<grid, kThreads, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      g, w, aux, skeys, srow, row_sel, dx, n, side, cout, n_keys);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -233,14 +298,8 @@ extern "C" int scalar_conv_fwd(const float* x, const float* w, const int* aux,
                                const int* skeys, const int* srow,
                                const float* row_sel, float* out, int n,
                                int side, int cout, int n_keys, void* stream) {
-  const size_t smem = sizeof(float) * side * side * side * cout;
-  const cudaError_t err = allow_smem(scalar_conv_fwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + kRows - 1) / kRows);
-  scalar_conv_fwd_kernel<<<grid, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      x, w, aux, skeys, srow, row_sel, out, n, side, cout, n_keys);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fwd(x, w, aux, skeys, srow, row_sel, out, n, side, cout,
+                    n_keys, stream);
 }
 
 // As above with g f32[n, cout] and dw f32[side^3, 1, cout], zeroed by the
@@ -249,22 +308,8 @@ extern "C" int scalar_conv_dw(const float* x, const float* g, const int* aux,
                               const int* skeys, const int* srow,
                               const float* row_sel, float* dw, int n,
                               int side, int cout, int n_keys, void* stream) {
-  const size_t smem =
-      sizeof(float) * (side * side * side + kRows) * cout;
-  cudaError_t err = allow_smem(scalar_conv_dw_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_chunks = (n + kRows - 1) / kRows;
-  int blocks = 4 * sms;
-  if (blocks > n_chunks) blocks = n_chunks;
-  scalar_conv_dw_kernel<<<blocks, kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      x, g, aux, skeys, srow, row_sel, dw, n, side, cout, n_keys);
-  return static_cast<int>(cudaGetLastError());
+  return launch_dw(x, g, aux, skeys, srow, row_sel, dw, n, side, cout,
+                   n_keys, stream);
 }
 
 // K9: g f32[n, cout], w f32[side^3, 1, cout], dx f32[n, 1] out; the rest
@@ -274,12 +319,35 @@ extern "C" int scalar_conv_dx(const float* g, const float* w, const int* aux,
                               const int* skeys, const int* srow,
                               const float* row_sel, float* dx, int n,
                               int side, int cout, int n_keys, void* stream) {
-  const size_t smem = sizeof(float) * side * side * side * cout;
-  const cudaError_t err = allow_smem(scalar_conv_dx_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + kRows - 1) / kRows);
-  scalar_conv_dx_kernel<<<grid, kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      g, w, aux, skeys, srow, row_sel, dx, n, side, cout, n_keys);
-  return static_cast<int>(cudaGetLastError());
+  return launch_dx(g, w, aux, skeys, srow, row_sel, dx, n, side, cout,
+                   n_keys, stream);
+}
+
+// The bf16 forms: x, g, out and dx bf16; w, row_sel and dw float32;
+// otherwise as above.
+extern "C" int scalar_conv_fwd_bf16(const bf16* x, const float* w,
+                                    const int* aux, const int* skeys,
+                                    const int* srow, const float* row_sel,
+                                    bf16* out, int n, int side, int cout,
+                                    int n_keys, void* stream) {
+  return launch_fwd(x, w, aux, skeys, srow, row_sel, out, n, side, cout,
+                    n_keys, stream);
+}
+
+extern "C" int scalar_conv_dw_bf16(const bf16* x, const bf16* g,
+                                   const int* aux, const int* skeys,
+                                   const int* srow, const float* row_sel,
+                                   float* dw, int n, int side, int cout,
+                                   int n_keys, void* stream) {
+  return launch_dw(x, g, aux, skeys, srow, row_sel, dw, n, side, cout,
+                   n_keys, stream);
+}
+
+extern "C" int scalar_conv_dx_bf16(const bf16* g, const float* w,
+                                   const int* aux, const int* skeys,
+                                   const int* srow, const float* row_sel,
+                                   bf16* dx, int n, int side, int cout,
+                                   int n_keys, void* stream) {
+  return launch_dx(g, w, aux, skeys, srow, row_sel, dx, n, side, cout,
+                   n_keys, stream);
 }

@@ -42,6 +42,25 @@
 #include "gather_gemm.cuh"
 #include "splitk_dw.cuh"
 
+namespace {
+
+template <typename T>
+int implicit_bwd(const T* x, const T* g, const T* w, const int* rqkey,
+                 const int* skeys, const int* srow, T* dx, float* dw, int cin,
+                 int cout, int kvol, int n_in, int n_keys, int want_dx,
+                 cudaStream_t s) {
+  if (want_dx) {
+    const int err = gg::launch<T, false, true>(g, w, rqkey, skeys, srow, dx,
+                                               cout, cin, kvol, n_in, n_keys,
+                                               s);
+    if (err != 0) return err;
+  }
+  return sk::launch_dw<T, sk::kReverse>(x, g, rqkey, skeys, srow, dw, cin,
+                                        cout, kvol, n_in, n_keys, s);
+}
+
+}  // namespace
+
 // x f32[n_in, cin], g f32[n_out, cout], w f32[kvol, cin, cout],
 // rqkey int32[kvol, n_in], skeys / srow int32[n_keys] (sorted valid keys of
 // the OUTPUT level and their rows), dx f32[n_in, cin] (written only when
@@ -55,14 +74,21 @@ extern "C" int sparse_conv_implicit_bwd(const float* x, const float* g,
                                         int cout, int kvol, int n_in,
                                         int n_keys, int want_dx,
                                         void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (want_dx) {
-    const int err = gg::launch<false, true>(g, w, rqkey, skeys, srow, dx,
-                                            cout, cin, kvol, n_in, n_keys, s);
-    if (err != 0) return err;
-  }
-  return sk::launch_dw<sk::kReverse>(x, g, rqkey, skeys, srow, dw, cin, cout,
-                                     kvol, n_in, n_keys, s);
+  return implicit_bwd(x, g, w, rqkey, skeys, srow, dx, dw, cin, cout, kvol,
+                      n_in, n_keys, want_dx,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 form: x, g, w (rounded to bf16 by the caller) and dx bf16, dw
+// float32; dX is summed in float32 and rounded once, dW's stages are
+// m16n8k16 bf16 products summed in float32. Otherwise as above.
+extern "C" int sparse_conv_implicit_bwd_bf16(
+    const bf16* x, const bf16* g, const bf16* w, const int* rqkey,
+    const int* skeys, const int* srow, bf16* dx, float* dw, int cin,
+    int cout, int kvol, int n_in, int n_keys, int want_dx, void* stream) {
+  return implicit_bwd(x, g, w, rqkey, skeys, srow, dx, dw, cin, cout, kvol,
+                      n_in, n_keys, want_dx,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // Counts the rows that this source's dX launches multiply into *counter

@@ -30,6 +30,9 @@
 // float32 rounding, not bit for bit. Cin = 1 (conv1 on the explicit route,
 // K = 125) takes the core's CUDA-core form: a sum of g rows, each scaled
 // by its x value (on the tensor cores 31/32 of a tile would be padding).
+// The *_bf16 entry points take x and g in bf16 (the form gcl_tpu's Pallas
+// kernels take for bf16 features) and multiply each stage in m16n8k16
+// bf16 mma.sync with float32 sums; dW stays float32.
 
 #include <cuda_runtime.h>
 
@@ -44,9 +47,9 @@ extern "C" int sparse_conv_implicit_dw(const float* x, const float* g,
                                        const int* srow, float* dw, int cin,
                                        int cout, int kvol, int n_out,
                                        int n_keys, void* stream) {
-  return sk::launch_dw<sk::kForward>(x, g, qkey, skeys, srow, dw, cin, cout,
-                                     kvol, n_out, n_keys,
-                                     static_cast<cudaStream_t>(stream));
+  return sk::launch_dw<float, sk::kForward>(x, g, qkey, skeys, srow, dw, cin,
+                                            cout, kvol, n_out, n_keys,
+                                            static_cast<cudaStream_t>(stream));
 }
 
 // The index-table form: idx int32[kvol, n_out] holds rows of x (n_in of
@@ -55,9 +58,31 @@ extern "C" int sparse_conv_table_dw(const float* x, const float* g,
                                     const int* idx, float* dw, int cin,
                                     int cout, int kvol, int n_out, int n_in,
                                     void* stream) {
-  return sk::launch_dw<sk::kTable>(x, g, idx, nullptr, nullptr, dw, cin,
-                                   cout, kvol, n_out, n_in,
-                                   static_cast<cudaStream_t>(stream));
+  return sk::launch_dw<float, sk::kTable>(x, g, idx, nullptr, nullptr, dw,
+                                          cin, cout, kvol, n_out, n_in,
+                                          static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 forms: x and g bf16, dw float32, otherwise as above.
+extern "C" int sparse_conv_implicit_dw_bf16(const bf16* x, const bf16* g,
+                                            const int* qkey,
+                                            const int* skeys,
+                                            const int* srow, float* dw,
+                                            int cin, int cout, int kvol,
+                                            int n_out, int n_keys,
+                                            void* stream) {
+  return sk::launch_dw<bf16, sk::kForward>(x, g, qkey, skeys, srow, dw, cin,
+                                           cout, kvol, n_out, n_keys,
+                                           static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int sparse_conv_table_dw_bf16(const bf16* x, const bf16* g,
+                                         const int* idx, float* dw, int cin,
+                                         int cout, int kvol, int n_out,
+                                         int n_in, void* stream) {
+  return sk::launch_dw<bf16, sk::kTable>(x, g, idx, nullptr, nullptr, dw,
+                                         cin, cout, kvol, n_out, n_in,
+                                         static_cast<cudaStream_t>(stream));
 }
 
 // Counts the rows that this source's launches stage into counter[0] and

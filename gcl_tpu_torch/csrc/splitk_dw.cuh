@@ -46,6 +46,15 @@
 // rounding, not bit for bit. Cin = 1 takes a form of its own on the CUDA cores (see
 // splitk_dw_c1_kernel), with the same resolvers and the same grid.
 //
+// The bf16 form (x and g bf16, dW float32, as gcl_tpu takes bf16
+// features) keeps all of this and changes the element: the stages hold
+// bf16 rows (a 16-byte cp.async moves 8 channels), each stage is summed
+// with mma.sync.m16n8k16 bf16 products into float32 (a bf16 product is
+// exact in float32), its rows past the stage's pairs rounded up to 8 fed
+// as zeros in registers, not staged; the stages add in float32 and dW is
+// stored float32, as above. Its Cin = 1 form reads bf16 and sums in
+// float32.
+//
 // For checks, a source's launches can count the rows they stage: after
 // set_staged_counter(p), every block of the first Cin x Cout tile that
 // staged a row adds its staged rows (each stage rounded up to 8; for
@@ -60,6 +69,7 @@
 namespace sk {
 
 using gg::kThreads;
+using gg::kVec;
 
 constexpr int kStageRows = 32;  // compacted rows per stage
 constexpr int kPer = 8;         // rows a thread resolves per round
@@ -116,19 +126,23 @@ __device__ __forceinline__ void resolve_rows(const int* __restrict__ mp,
 // against skeys / srow, n_src of them) or input rows (kTable: valid in
 // [0, n_src), n_src the input's row count; skeys and srow are not read).
 // TM (Cin) x TN (Cout) tile per block, warps wm x wn x wk over (32 x 32
-// warp tiles, depth): wm * wn * wk == 8.
-template <int kRes>
+// warp tiles, depth): wm * wn * wk == 8. T: the element type of x and g
+// (float or bf16); dw is float32.
+template <typename T, int kRes>
 __global__ void __launch_bounds__(kThreads, 2)
-splitk_dw_kernel(const float* __restrict__ x, const float* __restrict__ g,
+splitk_dw_kernel(const T* __restrict__ x, const T* __restrict__ g,
                  const int* __restrict__ map, const int* __restrict__ skeys,
                  const int* __restrict__ srow, float* __restrict__ dw,
                  int cin, int cout, int kvol, int n_drive, int n_src, int tm,
                  int tn, int chunk_rows, int vec_x, int vec_g) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
   extern __shared__ __align__(16) float smem[];
-  const int ldx = tm + 8;  // 8 mod 32: conflict-free fragment reads
+  // row strides in elements: 8 floats (32 bytes) or 8 bf16 (16 bytes) of
+  // padding, conflict-free fragment reads in both
+  const int ldx = tm + 8;
   const int ldg = tn + 8;
   const int sfl = kStageRows * (ldx + ldg);
-  float* stage0 = smem;  // 2 x {xs [32][ldx], gs [32][ldg]}
+  T* stage0 = reinterpret_cast<T*>(smem);  // 2 x {xs [32][ldx], gs [32][ldg]}
   int* ring_x = reinterpret_cast<int*>(stage0 + 2 * sfl);  // x rows
   int* ring_g = ring_x + kRing;                            // g rows
   int* wcnt = ring_g + kRing;                              // [8]
@@ -210,23 +224,24 @@ splitk_dw_kernel(const float* __restrict__ x, const float* __restrict__ g,
   auto load_stage = [&](int buf) {
     const int n = min(kStageRows, tail - head);
     const int n8 = gg::round_up(n, 8);
-    float* xs = stage0 + buf * sfl;
-    float* gs = xs + kStageRows * ldx;
-    const int xv = tm / 4, gv = tn / 4;
+    T* xs = stage0 + buf * sfl;
+    T* gs = xs + kStageRows * ldx;
+    constexpr int kV = kVec<T>;
+    const int xv = tm / kV, gv = tn / kV;
     for (int e = tid; e < n8 * (xv + gv); e += kThreads) {
       const int r = e / (xv + gv);
-      const int c = (e % (xv + gv)) * 4;
+      const int c = (e % (xv + gv)) * kV;
       const bool is_x = c < tm;
-      float* dst = is_x ? xs + r * ldx + c : gs + r * ldg + (c - tm);
+      T* dst = is_x ? xs + r * ldx + c : gs + r * ldg + (c - tm);
       const int col = is_x ? ci0 + c : co0 + (c - tm);
       const int width = is_x ? cin : cout;
       if (r < n && col < width) {
         const int at = (head + r) & (kRing - 1);
-        const float* src = is_x ? x + (size_t)ring_x[at] * cin + col
-                                : g + (size_t)ring_g[at] * cout + col;
-        gg::copy4(dst, src, width - col, is_x ? vec_x : vec_g);
+        const T* src = is_x ? x + (size_t)ring_x[at] * cin + col
+                            : g + (size_t)ring_g[at] * cout + col;
+        gg::copy_vec(dst, src, width - col, is_x ? vec_x : vec_g);
       } else {
-        gg::zero4(dst);
+        gg::zero16(dst);
       }
     }
     head += n;
@@ -235,36 +250,72 @@ splitk_dw_kernel(const float* __restrict__ x, const float* __restrict__ g,
   };
 
   auto compute = [&](int buf, int n) {
-    const float* xs = stage0 + buf * sfl;
-    const float* gs = xs + kStageRows * ldx;
-    const int ksteps = (n + 7) / 8;
+    const T* xs = stage0 + buf * sfl;
+    const T* gs = xs + kStageRows * ldx;
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int q = 0; q < 4; ++q) part[i][j][q] = 0.f;
-    for (int ks = wi_k; ks < ksteps; ks += wk) {
-      const int kr = ks * 8 + tig;
-      uint32_t bh[4][2], bl[4][2];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int nn = wi_n * 32 + j * 8 + gid;
-        gg::split_tf32(gs[kr * ldg + nn], bh[j][0], bl[j][0]);
-        gg::split_tf32(gs[(kr + 4) * ldg + nn], bh[j][1], bl[j][1]);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        // A = x_c^T: A[m = ci][k = row] = xs[row][ci]
-        const float* xr = xs + kr * ldx + wi_m * 32 + i * 16 + gid;
-        uint32_t ah[4], al[4];
-        gg::split_tf32(xr[0], ah[0], al[0]);
-        gg::split_tf32(xr[8], ah[1], al[1]);
-        gg::split_tf32(xr[4 * ldx], ah[2], al[2]);
-        gg::split_tf32(xr[4 * ldx + 8], ah[3], al[3]);
+    if constexpr (!kF32) {
+      // k16 steps over the stage's rows; rows [n8, 16 * steps) were not
+      // staged and go in as zero registers
+      const int n8 = gg::round_up(n, 8);
+      const int ksteps = (n + 15) / 16;
+      for (int ks = wi_k; ks < ksteps; ks += wk) {
+        const int kr = ks * 16 + 2 * tig;
+        const bool hi = ks * 16 + 8 < n8;
+        uint32_t bb[4][2];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          gg::mma_3xtf32(part[i][j], ah, al, bh[j], bl[j]);
+          const T* gc = gs + wi_n * 32 + j * 8 + gid;
+          bb[j][0] = gg::pack_pair(gc + kr * ldg, gc + (kr + 1) * ldg);
+          bb[j][1] = hi ? gg::pack_pair(gc + (kr + 8) * ldg,
+                                        gc + (kr + 9) * ldg)
+                        : 0u;
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          // A = x_c^T: A[m = ci][k = row] = xs[row][ci]
+          const T* xc = xs + wi_m * 32 + i * 16 + gid;
+          uint32_t af[4];
+          af[0] = gg::pack_pair(xc + kr * ldx, xc + (kr + 1) * ldx);
+          af[1] = gg::pack_pair(xc + kr * ldx + 8, xc + (kr + 1) * ldx + 8);
+          af[2] = hi ? gg::pack_pair(xc + (kr + 8) * ldx,
+                                     xc + (kr + 9) * ldx)
+                     : 0u;
+          af[3] = hi ? gg::pack_pair(xc + (kr + 8) * ldx + 8,
+                                     xc + (kr + 9) * ldx + 8)
+                     : 0u;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) gg::mma_bf16(part[i][j], af, bb[j]);
+        }
+      }
+    } else {
+      const int ksteps = (n + 7) / 8;
+      for (int ks = wi_k; ks < ksteps; ks += wk) {
+        const int kr = ks * 8 + tig;
+        uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int nn = wi_n * 32 + j * 8 + gid;
+          gg::split_tf32(gs[kr * ldg + nn], bh[j][0], bl[j][0]);
+          gg::split_tf32(gs[(kr + 4) * ldg + nn], bh[j][1], bl[j][1]);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          // A = x_c^T: A[m = ci][k = row] = xs[row][ci]
+          const float* xr = xs + kr * ldx + wi_m * 32 + i * 16 + gid;
+          uint32_t ah[4], al[4];
+          gg::split_tf32(xr[0], ah[0], al[0]);
+          gg::split_tf32(xr[8], ah[1], al[1]);
+          gg::split_tf32(xr[4 * ldx], ah[2], al[2]);
+          gg::split_tf32(xr[4 * ldx + 8], ah[3], al[3]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            gg::mma_3xtf32(part[i][j], ah, al, bh[j], bl[j]);
+          }
         }
       }
     }
@@ -338,9 +389,9 @@ splitk_dw_kernel(const float* __restrict__ x, const float* __restrict__ g,
 // matched pair into 32 registers; the block sums them with warp shuffles
 // and shared memory and flushes with one atomicAdd a channel. It stages
 // nothing: the rows it counts are the matched pairs.
-template <int kRes>
+template <typename T, int kRes>
 __global__ void __launch_bounds__(kThreads)
-splitk_dw_c1_kernel(const float* __restrict__ x, const float* __restrict__ g,
+splitk_dw_c1_kernel(const T* __restrict__ x, const T* __restrict__ g,
                     const int* __restrict__ map,
                     const int* __restrict__ skeys,
                     const int* __restrict__ srow, float* __restrict__ dw,
@@ -370,24 +421,25 @@ splitk_dw_c1_kernel(const float* __restrict__ x, const float* __restrict__ g,
     for (int i = 0; i < kPer; ++i) {
       if (r[i] < 0) continue;
       const int d = next + i * kThreads + tid;
-      const float xv = __ldg(x + (kRes == kReverse ? d : r[i]));
-      const float* gp =
-          g + (size_t)(kRes == kReverse ? r[i] : d) * cout + co0;
-      if (vec_g) {  // rows 16-byte aligned, nco a multiple of 4
+      const float xv = ldg_f32(x + (kRes == kReverse ? d : r[i]));
+      const T* gp = g + (size_t)(kRes == kReverse ? r[i] : d) * cout + co0;
+      if (vec_g) {  // rows 16-byte aligned, nco a multiple of kVec<T>
+        constexpr int kV = kVec<T>;
 #pragma unroll
-        for (int c = 0; c < 32; c += 4) {
+        for (int c = 0; c < 32; c += kV) {
           if (c < nco) {
-            const float4 v = __ldg(reinterpret_cast<const float4*>(gp + c));
-            acc[c] = fmaf(xv, v.x, acc[c]);
-            acc[c + 1] = fmaf(xv, v.y, acc[c + 1]);
-            acc[c + 2] = fmaf(xv, v.z, acc[c + 2]);
-            acc[c + 3] = fmaf(xv, v.w, acc[c + 3]);
+            const uint4 raw = __ldg(reinterpret_cast<const uint4*>(gp + c));
+            const T* v = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+            for (int q = 0; q < kV; ++q) {
+              acc[c + q] = fmaf(xv, to_f32(v[q]), acc[c + q]);
+            }
           }
         }
       } else {
 #pragma unroll
         for (int c = 0; c < 32; ++c) {
-          if (c < nco) acc[c] = fmaf(xv, __ldg(gp + c), acc[c]);
+          if (c < nco) acc[c] = fmaf(xv, ldg_f32(gp + c), acc[c]);
         }
       }
       ++pairs;
@@ -430,10 +482,11 @@ inline int next_pow2(int v) {
   return p;
 }
 
-// Launches the split-K dW over n_drive driving rows on `stream` (dw zeroed
-// by the caller); returns a cudaError_t as int.
-template <int kRes>
-int launch_dw(const float* x, const float* g, const int* map,
+// Launches the split-K dW over n_drive driving rows on `stream` (x and g
+// of element type T, dw float32, zeroed by the caller); returns a
+// cudaError_t as int.
+template <typename T, int kRes>
+int launch_dw(const T* x, const T* g, const int* map,
               const int* skeys, const int* srow, float* dw, int cin,
               int cout, int kvol, int n_drive, int n_src,
               cudaStream_t stream) {
@@ -461,22 +514,25 @@ int launch_dw(const float* x, const float* g, const int* map,
   const int chunk_rows =
       gg::round_up((n_drive + n_chunks - 1) / n_chunks, kResolve);
   n_chunks = (n_drive + chunk_rows - 1) / chunk_rows;
-  const int vec_g = gg::aligned16(g) && cout % 4 == 0;
+  const int vec_g = gg::aligned16(g) && cout % kVec<T> == 0;
   if (c1) {  // tm == 32: n_tiles is the count of 32-channel Cout tiles
-    splitk_dw_c1_kernel<kRes><<<dim3(n_tiles, kvol, n_chunks), kThreads, 0,
+    splitk_dw_c1_kernel<T, kRes><<<dim3(n_tiles, kvol, n_chunks), kThreads, 0,
                                 stream>>>(x, g, map, skeys, srow, dw, cout,
                                           kvol, n_drive, n_src, chunk_rows,
                                           vec_g);
     return static_cast<int>(cudaGetLastError());
   }
-  const size_t smem = sizeof(float) * 2 * kStageRows * (tm + 8 + tn + 8) +
+  // the flush reuses the stages and the ring as [8 warps][32][32] floats
+  const size_t smem = sizeof(T) * 2 * kStageRows * (tm + 8 + tn + 8) +
                       sizeof(int) * (2 * kRing + 8);
-  auto kernel = splitk_dw_kernel<kRes>;
+  static_assert(sizeof(int) * 2 * kRing >= sizeof(float) * 8 * 1024,
+                "the flush's buffer fits the ring");
+  auto kernel = splitk_dw_kernel<T, kRes>;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int vec_x = gg::aligned16(x) && cin % 4 == 0;
+  const int vec_x = gg::aligned16(x) && cin % kVec<T> == 0;
   const dim3 grid(n_tiles, kvol, n_chunks);
   kernel<<<grid, kThreads, smem, stream>>>(x, g, map, skeys, srow, dw, cin,
                                            cout, kvol, n_drive, n_src, tm, tn,

@@ -18,6 +18,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -46,6 +48,14 @@ SIGNATURES = {
     "sparse_conv_bwd_count_dw_rows": [_P],
     "sparse_conv_dw_count_rows": [_P],
 }
+
+# the bf16 forms of the conv kernels take their float32 forms' arguments
+BF16_FORMS = ("sparse_conv_implicit_fwd", "sparse_conv_table_fwd",
+              "sparse_conv_implicit_bwd", "sparse_conv_implicit_dw",
+              "sparse_conv_table_dw", "occupancy_conv_fwd",
+              "occupancy_conv_dw", "scalar_conv_fwd", "scalar_conv_dw",
+              "scalar_conv_dx")
+SIGNATURES.update({f"{name}_bf16": SIGNATURES[name] for name in BF16_FORMS})
 
 _lib = None
 build_info: dict = {}
@@ -117,6 +127,31 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
+
+
+# the features' types the conv kernels take: float32, and bf16 (products
+# and sums in float32, outputs rounded to bf16 once; weight gradients
+# float32)
+FEATURE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_features(name: str, t: torch.Tensor) -> None:
+    """Raise unless t is of a feature type the conv kernels take."""
+    if t.dtype not in FEATURE_DTYPES:
+        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+
+
+def summing(t: torch.Tensor) -> torch.Tensor:
+    """t in the type that the plain versions multiply and sum in: float32
+    for float32 and bf16 (a product of two bf16 is exact in float32),
+    float64 for float64 (the plain versions take it; the kernels do not)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def entry(name: str, dtype: torch.dtype):
+    """The C entry point ``name`` in the form for features of ``dtype``."""
+    return getattr(load_library(),
+                   name if dtype == torch.float32 else f"{name}_bf16")
 
 
 def check(err: int, name: str) -> None:

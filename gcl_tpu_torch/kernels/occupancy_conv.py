@@ -8,6 +8,11 @@ gcl_tpu/core/pallas_conv.py:fused_conv_c1z_fwd (kernel body
 _fwd_c1z_kernel). ``occupancy_conv_dw`` does the same with
 ``csrc/occupancy_conv_dw.cu`` and replaces fused_conv_c1z_dw (kernel body
 _dw_c1z_kernel).
+
+Both take float32 or bf16: the forward's out in a given type (W rounded to
+it once per launch, as gcl_tpu's _c1z_w3 does, sums in float32, out
+rounded once), the weight gradient's g in either type (sums and dW in
+float32). The bf16 forms are the kernels' ``*_bf16`` entry points.
 """
 from __future__ import annotations
 
@@ -15,7 +20,7 @@ import numpy as np
 import torch
 
 from ..core.coords import DEFAULT_KEY_BITS, kernel_offsets, lookup, wrap_int32
-from .build import check, load_library
+from .build import FEATURE_DTYPES, check, check_features, entry, summing
 
 MAX_SIDE = 5  # side^2 presence bits must fit one int32 column
 
@@ -58,13 +63,17 @@ def c1z_unpack_bits(sbits: torch.Tensor, kcube: int) -> torch.Tensor:
 
 
 def occupancy_conv_fwd_plain(aux: torch.Tensor, skeys: torch.Tensor,
-                             w: torch.Tensor):
+                             w: torch.Tensor, out_dtype=None):
     """Plain version: presence by searchsorted of every neighbour key,
-    then ``bits.float() @ W[:, 0, :]``; sbits packs the same bits."""
+    then ``bits @ W[:, 0, :]`` with W rounded to ``out_dtype`` (w's type
+    when None), summed in float32 and rounded once; sbits packs the same
+    bits."""
     side = cube_side(w.shape[0])
+    dtype = out_dtype or w.dtype
     rows = neighbor_rows(aux, skeys, torch.zeros_like(skeys), side)
     bits = (rows >= 0).to(torch.int32)                       # [N, K]
-    out = bits.to(w.dtype) @ w[:, 0, :]
+    wk = summing(w[:, 0, :].to(dtype))
+    out = (bits.to(wk.dtype) @ wk).to(dtype)
     s2 = side * side
     shift = torch.arange(s2, device=aux.device, dtype=torch.int32)
     cols = (bits.reshape(-1, side, s2) << shift).sum(-1, dtype=torch.int32)
@@ -76,19 +85,22 @@ def occupancy_conv_fwd_plain(aux: torch.Tensor, skeys: torch.Tensor,
 
 def occupancy_conv_dw_plain(sbits: torch.Tensor, g: torch.Tensor,
                             kcube: int) -> torch.Tensor:
-    """Plain version: unpacked bits transposed times g."""
-    bits = c1z_unpack_bits(sbits, kcube).to(g.dtype)
-    return (bits.T @ g)[:, None, :]
+    """Plain version: unpacked bits transposed times g, in float32."""
+    gf = summing(g)
+    bits = c1z_unpack_bits(sbits, kcube).to(gf.dtype)
+    return (bits.T @ gf)[:, None, :]
 
 
 def occupancy_conv_fwd(aux: torch.Tensor, skeys: torch.Tensor,
-                       w: torch.Tensor):
+                       w: torch.Tensor, out_dtype=None):
     """(out, sbits) of the occupancy conv over a stride-1 level.
 
     aux int32[N, 8] (kernel_maps._c1z_aux layout), skeys int32[n] (the
     level's sorted valid keys), w f32[side^3, 1, Cout] with odd side <= 5.
-    out f32[N, Cout] = sum_k present_k(i) * w[k, 0]; sbits int32[N, 8] has
-    bit dy*side + dz of column dx set iff offset (dx, dy, dz) is present.
+    out [N, Cout] in ``out_dtype`` (float32 or bfloat16, the features'
+    type of the model; w's type when None) = sum_k present_k(i) * w[k, 0],
+    w rounded to out_dtype; sbits int32[N, 8] has bit dy*side + dz of column dx set iff
+    offset (dx, dy, dz) is present.
     """
     side = cube_side(w.shape[0])
     if aux.dim() != 2 or aux.shape[1] != 8 or w.shape[1] != 1:
@@ -101,24 +113,27 @@ def occupancy_conv_fwd(aux: torch.Tensor, skeys: torch.Tensor,
             raise TypeError(f"{name} must be {dt}, got {t.dtype}")
         if t.device != aux.device:
             raise ValueError(f"{name} on {t.device}, aux on {aux.device}")
+    out_dtype = out_dtype or w.dtype
+    if out_dtype not in FEATURE_DTYPES:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
     if aux.device.type == "cpu":
-        return occupancy_conv_fwd_plain(aux, skeys, w)
+        return occupancy_conv_fwd_plain(aux, skeys, w, out_dtype)
     if aux.device.type != "cuda":
         raise ValueError(f"unsupported device {aux.device}")
     for name, t in (("aux", aux), ("skeys", skeys), ("w", w)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     n, cout = aux.shape[0], w.shape[2]
-    out = torch.empty((n, cout), dtype=torch.float32, device=aux.device)
+    out = torch.empty((n, cout), dtype=out_dtype, device=aux.device)
     sbits = torch.empty((n, 8), dtype=torch.int32, device=aux.device)
     if n == 0:
         return out, sbits
-    lib = load_library()
+    w = w.to(out_dtype)
     stream = torch.cuda.current_stream(aux.device).cuda_stream
-    err = lib.occupancy_conv_fwd(aux.data_ptr(), skeys.data_ptr(),
-                                 w.data_ptr(), out.data_ptr(),
-                                 sbits.data_ptr(), n, side, cout,
-                                 skeys.shape[0], stream)
+    err = entry("occupancy_conv_fwd", out_dtype)(
+        aux.data_ptr(), skeys.data_ptr(), w.data_ptr(), out.data_ptr(),
+        sbits.data_ptr(), n, side, cout, skeys.shape[0], stream)
     check(err, "occupancy_conv_fwd")
     occupancy_conv_fwd.launches += 1
     return out, sbits
@@ -131,16 +146,16 @@ def occupancy_conv_dw(sbits: torch.Tensor, g: torch.Tensor,
                       kcube: int) -> torch.Tensor:
     """dW f32[kcube, 1, Cout] of the occupancy conv: dW[k, 0, :] = sum_i
     present_k(i) * g[i, :], the bits read from the forward's sbits
-    int32[N, 8]. g f32[N, Cout] may be any strides (an upstream gradient
-    often is not contiguous); it is made contiguous here."""
+    int32[N, 8]. g f32 or bf16 [N, Cout] may be any strides (an upstream
+    gradient often is not contiguous); it is made contiguous here."""
     side = cube_side(kcube)
     if (sbits.dim() != 2 or sbits.shape[1] != 8 or g.dim() != 2
             or g.shape[0] != sbits.shape[0]):
         raise ValueError(f"expected sbits [N, 8] and g [N, Cout], got "
                          f"{tuple(sbits.shape)} and {tuple(g.shape)}")
-    if sbits.dtype != torch.int32 or g.dtype != torch.float32:
-        raise TypeError(f"sbits must be int32 and g float32, got "
-                        f"{sbits.dtype} and {g.dtype}")
+    if sbits.dtype != torch.int32:
+        raise TypeError(f"sbits must be int32, got {sbits.dtype}")
+    check_features("g", g)
     if g.device != sbits.device:
         raise ValueError(f"g on {g.device}, sbits on {sbits.device}")
     if sbits.device.type == "cpu":
@@ -154,10 +169,9 @@ def occupancy_conv_dw(sbits: torch.Tensor, g: torch.Tensor,
     dw = torch.zeros((kcube, 1, cout), dtype=torch.float32, device=g.device)
     if n == 0:
         return dw
-    lib = load_library()
     stream = torch.cuda.current_stream(g.device).cuda_stream
-    err = lib.occupancy_conv_dw(sbits.data_ptr(), g.data_ptr(),
-                                dw.data_ptr(), n, side, cout, stream)
+    err = entry("occupancy_conv_dw", g.dtype)(
+        sbits.data_ptr(), g.data_ptr(), dw.data_ptr(), n, side, cout, stream)
     check(err, "occupancy_conv_dw")
     occupancy_conv_dw.launches += 1
     return dw

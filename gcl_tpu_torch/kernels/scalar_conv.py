@@ -11,6 +11,11 @@ Cout == 1 forward that gcl_tpu runs through the reverse queries as the dX
 of a Cin == 1 conv). On the train path x is the eps term of the exact input
 jitter, which needs no dX; a caller whose x requires a gradient gets it
 from K9.
+
+x and g are float32 or bf16 (g in x's type); W stays float32 in both, as
+gcl_tpu's c1 / co1 kernels keep it: products and sums are float32, out and
+dX rounded to the features' type once, dW float32. The bf16 forms are the
+kernels' ``*_bf16`` entry points.
 """
 from __future__ import annotations
 
@@ -18,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from .build import check, load_library
+from .build import check, check_features, entry, summing
 from .occupancy_conv import cube_side, neighbor_rows
 
 
@@ -34,28 +39,31 @@ def _matched_scalars(x, aux, skeys, srow, row_sel, side):
 
 def scalar_conv_fwd_plain(x, w, aux, skeys, srow, row_sel=None):
     """Plain version: the 125 neighbour rows by searchsorted, a gather of
-    their scalars, one matmul with W[:, 0, :]."""
+    their scalars, one float32 matmul with W[:, 0, :], rounded to x's type
+    once."""
     xv = _matched_scalars(x, aux, skeys, srow, row_sel, cube_side(w.shape[0]))
-    return xv @ w[:, 0, :]
+    return (summing(xv) @ summing(w[:, 0, :])).to(x.dtype)
 
 
 def scalar_conv_dw_plain(x, g, aux, skeys, srow, kcube, row_sel=None):
-    """Plain version: the same gather, transposed times g."""
+    """Plain version: the same gather, transposed times g, in float32."""
     xv = _matched_scalars(x, aux, skeys, srow, row_sel, cube_side(kcube))
-    return (xv.T @ g)[:, None, :]
+    return (summing(xv).T @ summing(g))[:, None, :]
 
 
 def scalar_conv_dx_plain(g, w, aux, skeys, srow, row_sel=None):
     """Plain version: p[i, k] = g[i] . W[k, 0, :] by one matmul (zero on
     rows K4 skipped), then dX[j] = sum_k p[match(K-1-k, j), k] by a gather
-    through the mirrored neighbour rows."""
+    through the mirrored neighbour rows; float32 sums, rounded to g's type
+    once."""
     kcube = w.shape[0]
-    p = g @ w[:, 0, :].T                                     # [N, K]
+    p = summing(g) @ summing(w[:, 0, :]).T                   # [N, K]
     if row_sel is not None:
         p = p * (row_sel > 0).to(p.dtype)[:, None]
     rows = neighbor_rows(aux, skeys, srow, cube_side(kcube)).flip(1).long()
     picked = torch.gather(p, 0, rows.clamp_min(0))
-    return torch.where(rows >= 0, picked, 0.0).sum(dim=1, keepdim=True)
+    return torch.where(rows >= 0, picked, 0.0).sum(
+        dim=1, keepdim=True).to(g.dtype)
 
 
 def _check_args(x, other, other_name, aux, skeys, srow, row_sel):
@@ -71,10 +79,19 @@ def _check_args(x, other, other_name, aux, skeys, srow, row_sel):
         raise ValueError("skeys and srow must be 1-D of one length")
     if row_sel is not None and tuple(row_sel.shape) != (n,):
         raise ValueError(f"row_sel must be [N], got {tuple(row_sel.shape)}")
-    named = [(other_name, other, torch.float32), ("aux", aux, torch.int32),
-             ("skeys", skeys, torch.int32), ("srow", srow, torch.int32)]
+    # features: float32 or bf16, g in x's type; w float32
     if x is not None:
-        named.append(("x", x, torch.float32))
+        check_features("x", x)
+    if other_name == "w":
+        feat = None
+    else:
+        check_features(other_name, other)
+        feat = other.dtype if x is None else x.dtype
+    named = [(other_name, other, feat or torch.float32),
+             ("aux", aux, torch.int32), ("skeys", skeys, torch.int32),
+             ("srow", srow, torch.int32)]
+    if x is not None:
+        named.append(("x", x, x.dtype))
     if row_sel is not None:
         named.append(("row_sel", row_sel, torch.float32))
     dev = aux.device
@@ -98,9 +115,10 @@ def _ptr(t: Optional[torch.Tensor]):
 def scalar_conv_fwd(x: torch.Tensor, w: torch.Tensor, aux: torch.Tensor,
                     skeys: torch.Tensor, srow: torch.Tensor,
                     row_sel: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """out f32[N, Cout] = sum_k x[match(k, i)] * w[k, 0, :].
+    """out [N, Cout] in x's type = sum_k x[match(k, i)] * w[k, 0, :].
 
-    x f32[N, 1] (any values), w f32[side^3, 1, Cout] with odd side <= 5,
+    x f32 or bf16 [N, 1] (any values), w f32[side^3, 1, Cout] with odd
+    side <= 5,
     aux int32[N, 8] (kernel_maps._c1z_aux), skeys / srow the level's sorted
     valid keys and their rows. ``row_sel`` f32[N], optional: output rows
     with row_sel <= 0 are skipped and come out zero -- exact where x is
@@ -113,12 +131,11 @@ def scalar_conv_fwd(x: torch.Tensor, w: torch.Tensor, aux: torch.Tensor,
     if x.device.type == "cpu":
         return scalar_conv_fwd_plain(x, w, aux, skeys, srow, row_sel)
     n, cout = aux.shape[0], w.shape[2]
-    out = torch.empty((n, cout), dtype=torch.float32, device=x.device)
+    out = torch.empty((n, cout), dtype=x.dtype, device=x.device)
     if n == 0:
         return out
-    lib = load_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.scalar_conv_fwd(x.data_ptr(), w.data_ptr(), aux.data_ptr(),
+    err = entry("scalar_conv_fwd", x.dtype)(x.data_ptr(), w.data_ptr(), aux.data_ptr(),
                               skeys.data_ptr(), srow.data_ptr(),
                               _ptr(row_sel), out.data_ptr(), n, side, cout,
                               skeys.shape[0], stream)
@@ -131,8 +148,8 @@ def scalar_conv_dw(x: torch.Tensor, g: torch.Tensor, aux: torch.Tensor,
                    skeys: torch.Tensor, srow: torch.Tensor, kcube: int,
                    row_sel: Optional[torch.Tensor] = None) -> torch.Tensor:
     """dW f32[kcube, 1, Cout] of scalar_conv_fwd: dW[k, 0, :] = sum_i
-    x[match(k, i)] * g[i, :], rows with row_sel <= 0 skipped. g f32[N, Cout]
-    may have any strides; it is made contiguous here."""
+    x[match(k, i)] * g[i, :], rows with row_sel <= 0 skipped. g [N, Cout]
+    in x's type may have any strides; it is made contiguous here."""
     side = cube_side(kcube)
     if g.dim() != 2 or g.shape[0] != aux.shape[0]:
         raise ValueError(f"expected g [N, Cout], got {tuple(g.shape)}")
@@ -144,9 +161,8 @@ def scalar_conv_dw(x: torch.Tensor, g: torch.Tensor, aux: torch.Tensor,
     dw = torch.zeros((kcube, 1, cout), dtype=torch.float32, device=x.device)
     if n == 0:
         return dw
-    lib = load_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.scalar_conv_dw(x.data_ptr(), g.data_ptr(), aux.data_ptr(),
+    err = entry("scalar_conv_dw", x.dtype)(x.data_ptr(), g.data_ptr(), aux.data_ptr(),
                              skeys.data_ptr(), srow.data_ptr(),
                              _ptr(row_sel), dw.data_ptr(), n, side, cout,
                              skeys.shape[0], stream)
@@ -158,11 +174,11 @@ def scalar_conv_dw(x: torch.Tensor, g: torch.Tensor, aux: torch.Tensor,
 def scalar_conv_dx(g: torch.Tensor, w: torch.Tensor, aux: torch.Tensor,
                    skeys: torch.Tensor, srow: torch.Tensor,
                    row_sel: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """dX f32[N, 1] of scalar_conv_fwd: dX[j] = sum over the (k, i) with
-    match(k, i) == j of g[i, :] . w[k, 0, :], rows i with row_sel[i] <= 0
-    left out (their outputs were skipped): the exact adjoint of
-    scalar_conv_fwd in x for any row flag. g f32[N, Cout] may have any
-    strides; it is made contiguous here."""
+    """dX [N, 1] in g's type of scalar_conv_fwd: dX[j] = sum over the
+    (k, i) with match(k, i) == j of g[i, :] . w[k, 0, :], rows i with
+    row_sel[i] <= 0 left out (their outputs were skipped): the exact
+    adjoint of scalar_conv_fwd in x for any row flag. g f32 or bf16 [N,
+    Cout] may have any strides; it is made contiguous here."""
     side = cube_side(w.shape[0])
     if w.dim() != 3 or w.shape[1] != 1:
         raise ValueError(f"expected w [K, 1, Cout], got {tuple(w.shape)}")
@@ -177,12 +193,11 @@ def scalar_conv_dx(g: torch.Tensor, w: torch.Tensor, aux: torch.Tensor,
     if g.device.type == "cpu":
         return scalar_conv_dx_plain(g, w, aux, skeys, srow, row_sel)
     g, w = g.contiguous(), w.contiguous()
-    dx = torch.empty((n, 1), dtype=torch.float32, device=g.device)
+    dx = torch.empty((n, 1), dtype=g.dtype, device=g.device)
     if n == 0:
         return dx
-    lib = load_library()
     stream = torch.cuda.current_stream(g.device).cuda_stream
-    err = lib.scalar_conv_dx(g.data_ptr(), w.data_ptr(), aux.data_ptr(),
+    err = entry("scalar_conv_dx", g.dtype)(g.data_ptr(), w.data_ptr(), aux.data_ptr(),
                              skeys.data_ptr(), srow.data_ptr(),
                              _ptr(row_sel), dx.data_ptr(), n, side,
                              w.shape[2], skeys.shape[0], stream)

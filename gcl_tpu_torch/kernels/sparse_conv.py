@@ -21,6 +21,13 @@ implicit forward map K8 replaces _conv_half_dw (kernel body _dw_kernel_h),
 over an index table pallas_conv_dw. ``sparse_conv_table_fwd`` (K12, the
 forward kernel with its rows read from a table) replaces pallas_conv_fwd,
 the index-table API that gcl_tpu reaches through _fused_from_idx.
+
+Every wrapper takes float32 or bf16 features (g in the features' type)
+with float32 weights, as gcl_tpu's conv kernels do. In bf16 the weights
+are rounded to bf16 once per launch here, the products are bf16 and the
+sums float32, outputs and dX are rounded to bf16 once and dW stays
+float32: the kernels' ``*_bf16`` entry points, the plain versions in the
+same arithmetic. Both forms count under one launch counter.
 """
 from __future__ import annotations
 
@@ -30,22 +37,29 @@ from typing import Optional
 import torch
 
 from ..core.coords import lookup
-from .build import check, load_library
+from .build import check, check_features, entry, load_library, summing
+
+
+def _operand(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The weights rounded to the features' type, in the summing type."""
+    return summing(w.to(dtype))
 
 
 def sparse_conv_implicit_fwd_plain(x: torch.Tensor, w: torch.Tensor,
                                    qkey: torch.Tensor, skeys: torch.Tensor,
                                    srow: torch.Tensor) -> torch.Tensor:
     """Plain version: searchsorted resolution, then a gather and one
-    matmul per offset, summed in offset order."""
+    matmul per offset, summed in float32 in offset order and rounded to
+    x's type once."""
     n_in, cin = x.shape
     rows = lookup(skeys, srow, qkey).long()
     xp = torch.cat([x, x.new_zeros((1, cin))])
     idx = torch.where(rows < 0, n_in, rows)
-    out = x.new_zeros((qkey.shape[1], w.shape[2]))
+    wk = _operand(w, x.dtype)
+    out = wk.new_zeros((qkey.shape[1], w.shape[2]))
     for k in range(w.shape[0]):
-        out = out + xp[idx[k]] @ w[k]
-    return out
+        out = out + summing(xp[idx[k]]) @ wk[k]
+    return out.to(x.dtype)
 
 
 def sparse_conv_implicit_bwd_plain(x: torch.Tensor, g: torch.Tensor,
@@ -54,20 +68,22 @@ def sparse_conv_implicit_bwd_plain(x: torch.Tensor, g: torch.Tensor,
                                    want_dx: bool = True):
     """Plain version: the reverse rows by searchsorted, then per reverse
     offset k' a gather of g, one matmul for dX (with W[K-1-k']^T) and one
-    for dW[K-1-k']."""
+    for dW[K-1-k'], in float32; dX rounded to x's type once."""
     n_out, cout = g.shape
     kvol = w.shape[0]
     rows = lookup(skeys, srow, rqkey).long()                 # [K, N_in]
     gp = torch.cat([g, g.new_zeros((1, cout))])
     idx = torch.where(rows < 0, n_out, rows)
-    dx = torch.zeros_like(x) if want_dx else None
+    wk = _operand(w, x.dtype)
+    xf = summing(x)
+    dx = torch.zeros_like(xf) if want_dx else None
     dw = []
     for kp in range(kvol):
-        gg = gp[idx[kp]]                                     # [N_in, Cout]
+        gg = summing(gp[idx[kp]])                            # [N_in, Cout]
         if want_dx:
-            dx = dx + gg @ w[kvol - 1 - kp].T
-        dw.append(x.T @ gg)
-    return dx, torch.stack(dw[::-1])
+            dx = dx + gg @ wk[kvol - 1 - kp].T
+        dw.append(xf.T @ gg)
+    return (dx.to(x.dtype) if want_dx else None), torch.stack(dw[::-1])
 
 
 # a row of the gathered operand is packed beside its 6-bit tile row in one
@@ -157,7 +173,8 @@ def _check_args(x, w, qkey, skeys, srow):
                          f"w {tuple(w.shape)}, qkey {tuple(qkey.shape)}")
     if skeys.dim() != 1 or srow.shape != skeys.shape:
         raise ValueError("skeys and srow must be 1-D of one length")
-    for name, t, dt in (("x", x, torch.float32), ("w", w, torch.float32),
+    check_features("x", x)
+    for name, t, dt in (("w", w, torch.float32),
                         ("qkey", qkey, torch.int32),
                         ("skeys", skeys, torch.int32),
                         ("srow", srow, torch.int32)):
@@ -173,9 +190,9 @@ def sparse_conv_implicit_fwd(x: torch.Tensor, w: torch.Tensor,
     """out[i] = sum_k x[srow[p]] @ w[k] where skeys[p] == qkey[k, i], zero
     where no key matches.
 
-    x f32[N_in, Cin], w f32[K, Cin, Cout], qkey int32[K, N_out],
+    x f32 or bf16 [N_in, Cin], w f32[K, Cin, Cout], qkey int32[K, N_out],
     skeys / srow int32[n] (sorted valid keys of the input level and their
-    rows). Returns f32[N_out, Cout].
+    rows). Returns [N_out, Cout] in x's type.
     """
     _check_args(x, w, qkey, skeys, srow)
     if x.device.type == "cpu":
@@ -189,12 +206,12 @@ def sparse_conv_implicit_fwd(x: torch.Tensor, w: torch.Tensor,
     _check_gather_rows("x", x)
     kvol, cin, cout = w.shape
     n_out = qkey.shape[1]
-    out = torch.empty((n_out, cout), dtype=torch.float32, device=x.device)
+    out = torch.empty((n_out, cout), dtype=x.dtype, device=x.device)
     if n_out == 0:
         return out
-    lib = load_library()
+    w = w.to(x.dtype)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.sparse_conv_implicit_fwd(
+    err = entry("sparse_conv_implicit_fwd", x.dtype)(
         x.data_ptr(), w.data_ptr(), qkey.data_ptr(), skeys.data_ptr(),
         srow.data_ptr(), out.data_ptr(), cin, cout, kvol, n_out,
         skeys.shape[0], stream)
@@ -215,10 +232,11 @@ def sparse_conv_implicit_bwd(x: torch.Tensor, g: torch.Tensor,
     w[K-1-k']^T (None unless want_dx) and dW[K-1-k'] = sum_j x[j]^T
     g[rev(k', j)], dW in forward offset order.
 
-    x f32[N_in, Cin], g f32[N_out, Cout] (any strides: made contiguous
-    here), w f32[K, Cin, Cout], rqkey int32[K, N_in] the reverse-direction
-    query keys (ConvMap.rqkey), skeys / srow the OUTPUT level's sorted
-    valid keys and their rows.
+    x f32 or bf16 [N_in, Cin], g [N_out, Cout] in x's type (any strides:
+    made contiguous here), w f32[K, Cin, Cout], rqkey int32[K, N_in] the
+    reverse-direction query keys (ConvMap.rqkey), skeys / srow the OUTPUT
+    level's sorted valid keys and their rows. dX comes in x's type, dW in
+    float32.
     """
     _check_args(x, w, rqkey, skeys, srow)
     if rqkey.shape[1] != x.shape[0]:
@@ -227,8 +245,8 @@ def sparse_conv_implicit_bwd(x: torch.Tensor, g: torch.Tensor,
     if g.dim() != 2 or g.shape[1] != w.shape[2]:
         raise ValueError(f"g {tuple(g.shape)} does not match w "
                          f"{tuple(w.shape)}")
-    if g.dtype != torch.float32:
-        raise TypeError(f"g must be torch.float32, got {g.dtype}")
+    if g.dtype != x.dtype:
+        raise TypeError(f"g must be {x.dtype} as x is, got {g.dtype}")
     if g.device != x.device:
         raise ValueError(f"g on {g.device}, x on {x.device}")
     if x.device.type == "cpu":
@@ -248,9 +266,9 @@ def sparse_conv_implicit_bwd(x: torch.Tensor, g: torch.Tensor,
     dw = torch.zeros_like(w)
     if n_in == 0 or g.shape[0] == 0:
         return (dx.zero_() if want_dx else None), dw
-    lib = load_library()
+    w = w.to(x.dtype)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.sparse_conv_implicit_bwd(
+    err = entry("sparse_conv_implicit_bwd", x.dtype)(
         x.data_ptr(), g.data_ptr(), w.data_ptr(), rqkey.data_ptr(),
         skeys.data_ptr(), srow.data_ptr(),
         dx.data_ptr() if want_dx else None, dw.data_ptr(), cin, cout, kvol,
@@ -265,16 +283,18 @@ sparse_conv_implicit_bwd.launches = 0
 
 def sparse_conv_table_fwd_plain(x: torch.Tensor, w: torch.Tensor,
                                 idx: torch.Tensor) -> torch.Tensor:
-    """Plain version: a gather and one matmul per offset, summed in offset
-    order (gcl_tpu's scan _conv_forward)."""
+    """Plain version: a gather and one matmul per offset, summed in float32
+    in offset order and rounded to x's type once (gcl_tpu's scan
+    _conv_forward)."""
     n_in, cin = x.shape
     xp = torch.cat([x, x.new_zeros((1, cin))])
     rows = idx.long()
     rows = torch.where((rows < 0) | (rows >= n_in), n_in, rows)
-    out = x.new_zeros((idx.shape[1], w.shape[2]))
+    wk = _operand(w, x.dtype)
+    out = wk.new_zeros((idx.shape[1], w.shape[2]))
     for k in range(w.shape[0]):
-        out = out + xp[rows[k]] @ w[k]
-    return out
+        out = out + summing(xp[rows[k]]) @ wk[k]
+    return out.to(x.dtype)
 
 
 def sparse_conv_dw_plain(x: torch.Tensor, g: torch.Tensor,
@@ -284,21 +304,23 @@ def sparse_conv_dw_plain(x: torch.Tensor, g: torch.Tensor,
                          ) -> torch.Tensor:
     """Plain version: the forward rows (by searchsorted, or read from the
     table when skeys is None), then per offset a gather of x and one
-    matmul."""
+    matmul, in float32."""
     n_in, cin = x.shape
     rows = (qkey if skeys is None else lookup(skeys, srow, qkey)).long()
     rows = torch.where((rows < 0) | (rows >= n_in), n_in, rows)
     xp = torch.cat([x, x.new_zeros((1, cin))])
-    return torch.stack([xp[rows[k]].T @ g for k in range(qkey.shape[0])])
+    gf = summing(g)
+    return torch.stack([summing(xp[rows[k]]).T @ gf
+                        for k in range(qkey.shape[0])])
 
 
 def _check_map(x, idx):
     if x.dim() != 2 or idx.dim() != 2:
         raise ValueError(f"expected x [N_in, Cin] and a map [K, N_out], got "
                          f"{tuple(x.shape)} and {tuple(idx.shape)}")
-    if x.dtype != torch.float32 or idx.dtype != torch.int32:
-        raise TypeError(f"x must be float32 and the map int32, got {x.dtype} "
-                        f"and {idx.dtype}")
+    check_features("x", x)
+    if idx.dtype != torch.int32:
+        raise TypeError(f"the map must be int32, got {idx.dtype}")
     if idx.device != x.device:
         raise ValueError(f"the map on {idx.device}, x on {x.device}")
 
@@ -308,10 +330,10 @@ def sparse_conv_table_fwd(x: torch.Tensor, w: torch.Tensor,
     """out[i] = sum_k x[idx[k, i]] @ w[k], an entry outside [0, N_in)
     (a missing input is -1) contributing zero.
 
-    x f32[N_in, Cin], w f32[K, Cin, Cout], idx int32[K, N_out] (a kernel
-    map of SparseGraph.kmaps). Returns f32[N_out, Cout]. Through the
-    reverse table with flipped, transposed weights it is also the dX of
-    the conv.
+    x f32 or bf16 [N_in, Cin], w f32[K, Cin, Cout], idx int32[K, N_out]
+    (a kernel map of SparseGraph.kmaps). Returns [N_out, Cout] in x's
+    type. Through the reverse table with flipped, transposed weights it is
+    also the dX of the conv.
     """
     _check_map(x, idx)
     if w.dim() != 3 or w.shape[:2] != (idx.shape[0], x.shape[1]):
@@ -330,12 +352,12 @@ def sparse_conv_table_fwd(x: torch.Tensor, w: torch.Tensor,
     _check_gather_rows("x", x)
     kvol, cin, cout = w.shape
     n_out = idx.shape[1]
-    out = torch.empty((n_out, cout), dtype=torch.float32, device=x.device)
+    out = torch.empty((n_out, cout), dtype=x.dtype, device=x.device)
     if n_out == 0:
         return out
-    lib = load_library()
+    w = w.to(x.dtype)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.sparse_conv_table_fwd(
+    err = entry("sparse_conv_table_fwd", x.dtype)(
         x.data_ptr(), w.data_ptr(), idx.data_ptr(), out.data_ptr(), cin,
         cout, kvol, n_out, x.shape[0], stream)
     check(err, "sparse_conv_table_fwd")
@@ -352,8 +374,9 @@ def sparse_conv_dw(x: torch.Tensor, g: torch.Tensor, qkey: torch.Tensor,
     """dW[k] = sum_i x[row(k, i)]^T g[i] over the forward map, f32[K, Cin,
     Cout]: the standalone weight gradient.
 
-    x f32[N_in, Cin], g f32[N_out, Cout] (any strides: made contiguous
-    here). The map comes in one of two forms. Implicit: qkey int32[K,
+    x f32 or bf16 [N_in, Cin], g [N_out, Cout] in x's type (any strides:
+    made contiguous here); dW is float32. The map comes in one of two
+    forms. Implicit: qkey int32[K,
     N_out] the forward query keys (ConvMap.qkey) with skeys / srow the
     INPUT level's sorted valid keys and their rows. Index table: qkey
     int32[K, N_out] holds the rows themselves (a kernel map of
@@ -365,9 +388,9 @@ def sparse_conv_dw(x: torch.Tensor, g: torch.Tensor, qkey: torch.Tensor,
     if g.dim() != 2 or g.shape[0] != qkey.shape[1]:
         raise ValueError(f"g {tuple(g.shape)} does not cover the map "
                          f"{tuple(qkey.shape)}")
-    if g.dtype != torch.float32 or g.device != x.device:
-        raise TypeError(f"g must be float32 on {x.device}, got {g.dtype} "
-                        f"on {g.device}")
+    if g.dtype != x.dtype or g.device != x.device:
+        raise TypeError(f"g must be {x.dtype} on {x.device} as x is, got "
+                        f"{g.dtype} on {g.device}")
     if (skeys is None) != (srow is None):
         raise ValueError("skeys and srow come together or not at all")
     if skeys is not None:
@@ -391,14 +414,13 @@ def sparse_conv_dw(x: torch.Tensor, g: torch.Tensor, qkey: torch.Tensor,
     dw = torch.zeros((kvol, cin, cout), dtype=torch.float32, device=x.device)
     if n_out == 0 or x.shape[0] == 0 or dw.numel() == 0:
         return dw
-    lib = load_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if skeys is None:
-        err = lib.sparse_conv_table_dw(
+        err = entry("sparse_conv_table_dw", x.dtype)(
             x.data_ptr(), g.data_ptr(), qkey.data_ptr(), dw.data_ptr(), cin,
             cout, kvol, n_out, x.shape[0], stream)
     else:
-        err = lib.sparse_conv_implicit_dw(
+        err = entry("sparse_conv_implicit_dw", x.dtype)(
             x.data_ptr(), g.data_ptr(), qkey.data_ptr(), skeys.data_ptr(),
             srow.data_ptr(), dw.data_ptr(), cin, cout, kvol, n_out,
             skeys.shape[0], stream)

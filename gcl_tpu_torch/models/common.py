@@ -5,6 +5,13 @@ torch.autograd.Functions of core.sparse_ops.
 Parameter and buffer names follow the flax modules (``kernel``, ``bias``,
 ``scale``, ``mean``, ``var``) so models.weights maps a flax tree onto the
 state_dict by name alone.
+
+Parameters and BN statistics are float32 whatever the features' type. For
+bf16 features (gcl_tpu's compute_dtype), as in gcl_tpu/models/common.py:
+a conv computes in the features' type (its kernel cast to it; the bias
+added in the output's type), the batch norm takes its statistics and its
+affine map in float32 and returns the features' type, and the input
+jitter's noise is cast to the features' type.
 """
 from __future__ import annotations
 
@@ -69,15 +76,15 @@ class SparseConv(nn.Module):
                 (), generator=generator, device=x.device)
             z = normal if normal is not None else torch.randn(
                 x.shape, generator=generator, device=x.device)
-            noise = z * sigma * lv_mask.to(x.dtype)[:, None]
+            noise = z * sigma * lv_mask.to(z.dtype)[:, None]
             if row_sel is not None:
-                noise = noise * row_sel.to(x.dtype)[:, None]
-            return x + (u < p).to(x.dtype) * noise
+                noise = noise * row_sel.to(z.dtype)[:, None]
+            return x + (u < p).to(x.dtype) * noise.to(x.dtype)
 
         if self.spec.is_identity_map:
             if c1z_jitter is not None:
                 x = input_jitter(x)
-            y = torch.matmul(x, self.kernel)
+            y = torch.matmul(x, self.kernel.to(x.dtype))
         else:
             cmap = graph.maps.get(self.spec.key)
             in_level = graph.levels[self.spec.in_stride]
@@ -91,13 +98,15 @@ class SparseConv(nn.Module):
                     eps = draw_input_eps(generator, sigma, p, in_level.mask,
                                          row_sel, gate_u, normal)
                     y = sparse_conv_c1z_exact_jitter(self.kernel, cmap,
-                                                     in_level, eps, row_sel)
+                                                     in_level, eps, row_sel,
+                                                     x.dtype)
                 else:
                     y = sparse_conv_c1z_jittered(self.kernel, cmap, in_level,
                                                  generator, sigma, p,
-                                                 row_sel, gate_u, normal)
+                                                 row_sel, gate_u, normal,
+                                                 x.dtype)
             elif on_c1z:
-                y = sparse_conv_c1z(self.kernel, cmap.c1z, in_level)
+                y = sparse_conv_c1z(self.kernel, cmap.c1z, in_level, x.dtype)
             elif cmap is not None:
                 y = sparse_conv_implicit(x, self.kernel, cmap, in_level,
                                          graph.levels[self.spec.out_stride])
@@ -110,7 +119,7 @@ class SparseConv(nn.Module):
                 y = sparse_conv(x, self.kernel, graph.kmaps[self.spec.key],
                                 rev)
         if self.bias is not None:
-            y = y + self.bias
+            y = y + self.bias.to(y.dtype)
         return y
 
 
@@ -121,6 +130,8 @@ class MaskedBatchNorm(nn.Module):
     variance) and updates the running stats with the unbiased variance:
     running = (1 - m) * running + m * batch. Eval mode uses the running
     stats. Padded rows are normalized too (they never feed a valid row).
+    Statistics and the affine map are float32 (float64 stays float64);
+    the output is in x's type.
     """
 
     def __init__(self, features: int, momentum: float = 0.1,
@@ -133,8 +144,9 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
-            mean, var, cnt = masked_mean_var(x, mask)
+            mean, var, cnt = masked_mean_var(xf, mask)
             with torch.no_grad():
                 unbiased = var * cnt / (cnt - 1.0).clamp_min(1.0)
                 m = self.momentum
@@ -143,7 +155,7 @@ class MaskedBatchNorm(nn.Module):
         else:
             mean, var = self.mean, self.var
         inv = torch.rsqrt(var + self.eps) * self.scale
-        return (x - mean) * inv + self.bias
+        return ((xf - mean) * inv + self.bias).to(x.dtype)
 
 
 def get_norm(norm_type: str, features: int,

@@ -26,6 +26,7 @@ from torch.profiler import record_function
 from ..core.kernel_maps import METHODS, ConvSpec, build_graph
 from ..data.device_pipeline import (VoxelizedClouds, batch_colocation_groups,
                                     voxelize_per_cloud)
+from ..kernels.build import summing
 from ..losses.gcl import (GCLLossConfig, LossDraws, SpatialNegFilter,
                           finest_contrastive_loss, location_circle_loss,
                           location_contrastive_loss, member_group_index)
@@ -64,6 +65,9 @@ class StepConfig:
     # distribution-matched iid noise per (output, offset) on conv1's
     # output instead (sparse_ops.sparse_conv_c1z_jittered).
     jitter_mode: str = "input"
+    # The features' type through the model: float32, or bfloat16 (root
+    # bench.py's; products in bf16, sums and BN statistics in float32).
+    # Parameters, optimizer state and the loss stay float32.
     compute_dtype: torch.dtype = torch.float32
     # How the convs get their maps (core.kernel_maps.build_graph): 'auto'
     # is implicit maps up to 31 clouds a batch (B * C) and explicit index
@@ -104,11 +108,10 @@ def _sample_gates(generator, p: float, n_samples: int,
 
 
 def _check_config(step_cfg: StepConfig, loss_kind: str) -> None:
-    if step_cfg.compute_dtype != torch.float32:
+    if step_cfg.compute_dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(
             f"compute_dtype {step_cfg.compute_dtype}: the port computes in "
-            f"float32 only (bf16 compute is a later slice of the port, "
-            f"with its own accuracy gates)")
+            f"float32 or bfloat16")
     if step_cfg.neg_filter not in ("spatial", "membership"):
         raise ValueError(f"neg_filter {step_cfg.neg_filter!r}: 'spatial' or "
                          f"'membership'")
@@ -204,11 +207,12 @@ def make_gcl_grad_fn(model: torch.nn.Module, conv_specs: Sequence[ConvSpec],
 
         model.train()
         with record_function("gcl/unet"):
-            f_out = model(graph, flat.feats, conv1_jitter=conv1_jitter,
-                          generator=generator, jitter_draws=draws.jitter)
+            f_out = model(graph, flat.feats.to(step_cfg.compute_dtype),
+                          conv1_jitter=conv1_jitter, generator=generator,
+                          jitter_draws=draws.jitter)
         with record_function("gcl/loss"):
             out = group_loss(
-                f_out, flat.mask, groups, neg_filter, generator,
+                summing(f_out), flat.mask, groups, neg_filter, generator,
                 max_pos_cluster, max_hn_samples, loss_cfg, draws.loss)
             total = (pos_weight * out.pos_loss
                      + finest_weight * out.finest_loss
@@ -328,7 +332,7 @@ def make_dist_err_step(model: torch.nn.Module,
         flat, graph, groups, vox_b = _geometry(
             points, pmask, transforms, radius, conv_specs, step_cfg)
         model.eval()
-        f = model(graph, flat.feats)
+        f = summing(model(graph, flat.feats.to(step_cfg.compute_dtype)))
         # each member voxel's own-frame LiDAR range
         own = torch.sqrt((vox_b.xyz * vox_b.xyz).sum(dim=-1)).reshape(-1)
         central = own[groups.member_idx.long().clamp_min(0)]

@@ -97,6 +97,44 @@ def assert_close_to_max(got, ref, rel: float, what: str = ""):
     assert err <= rel * scale, f"{what}: {err} > {rel} * {scale}"
 
 
+def bf16_ordered(t: torch.Tensor) -> torch.Tensor:
+    """bf16 values as int32 in the order of the values: neighbours in bf16
+    differ by one (+0 and -0 are both 0)."""
+    bits = t.detach().cpu().contiguous().view(torch.int16).to(torch.int32)
+    return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+
+def assert_bf16_close(got, ref, what: str = "", bound=None):
+    """got and ref bf16 of one shape (any array of bf16 values): equal bit
+    for bit on >= 99.9% of the elements, within one bf16 ulp on the rest:
+    the gate for two sums of the same exact products in float32, in
+    another order, each rounded to bf16 once. Where a sum cancels, its
+    float32 rounding can exceed a bf16 ulp of the result in any order;
+    there, with ``bound`` given (a tensor of ref's shape, the two float32
+    sums' error bound), the elements may differ by one ulp plus it."""
+    got, ref = (
+        (t if torch.is_tensor(t) else torch.from_numpy(np.array(t)))
+        .detach().cpu().to(torch.bfloat16) for t in (got, ref))
+    assert got.shape == ref.shape, (what, got.shape, ref.shape)
+    assert bool(ref.float().abs().max() > 0), f"{what}: all zero"
+    ulps = (bf16_ordered(got) - bf16_ordered(ref)).abs()
+    share = float((ulps == 0).float().mean())
+    assert share >= 0.999, f"{what}: bit-equal on {share} of the elements"
+    far = ulps > 1
+    if bound is None or not bool(far.any()):
+        assert int(ulps.max()) <= 1, f"{what}: {int(ulps.max())} ulps apart"
+        return
+    _, e = torch.frexp(ref.float())
+    ulp = torch.where(ref == 0, 0.0, torch.ldexp(torch.ones_like(e, dtype=
+                                                              torch.float32),
+                                                 e - 8))
+    room = ulp + torch.as_tensor(bound).detach().cpu().float()
+    diff = (got.float() - ref.float()).abs()
+    worst = float((diff[far] / room[far]).max())
+    assert worst <= 1, (f"{what}: {int(far.sum())} elements more than one "
+                        f"ulp apart, up to {worst} x one ulp + the bound")
+
+
 def replay_loss_draws(key, n_groups: int, n_voxels: int,
                       max_pos_cluster: int, max_hn_samples: int):
     """The uniforms gcl_tpu's finest_contrastive_loss draws from ``key``

@@ -78,19 +78,22 @@ def test_no_source_of_the_port_names_jax():
 def test_bench_runs_on_the_cpu_when_asked():
     """python -m gcl_tpu_torch.bench refuses to run without a card unless
     --device cpu is given; on the CPU, at a small size, it prints bench.py's
-    keys and names the search that ran, the grid one by default."""
+    keys and names the search and the compute type that ran: the grid
+    search and bfloat16 (root bench.py's) by default, float32 when asked."""
     base = [sys.executable, "-m", "gcl_tpu_torch.bench", "--batch_size", "1",
             "--points", "1500", "--nv", "512", "--iters", "1", "--reps", "1"]
     refused = subprocess.run(base, capture_output=True, text=True,
                              timeout=300)
     assert refused.returncode != 0 and "no CUDA device" in refused.stderr
-    for extra, search in (([], "grid_1.08"),
-                          (["--search", "brute_force"], "brute_force")):
+    for extra, search, dtype in (
+            ([], "grid_1.08", "bfloat16"),
+            (["--search", "brute_force", "--compute_dtype", "float32"],
+             "brute_force", "float32")):
         out = subprocess.run(base + ["--device", "cpu"] + extra,
                              capture_output=True, text=True, timeout=600,
                              check=True)
         res = json.loads(out.stdout.strip().splitlines()[-1])
         assert res["search"] == search and res["device"] == "cpu"
         assert res["metric"] == "gcl_train_voxels_per_sec"
-        assert res["compute_dtype"] == "float32" and res["value"] > 0
+        assert res["compute_dtype"] == dtype and res["value"] > 0
         assert res["voxels_per_step"] > 1000

@@ -41,8 +41,8 @@ from gcl_tpu_torch.kernels import (compacted_rows, counted_dw_rows,
 from gcl_tpu_torch.models.resunet import ResUNetFatBN
 from gcl_tpu_torch.models.weights import random_state_dict
 
-from _torch_parity import (VOXEL, assert_close_to_max, clouds, fatbn_specs,
-                           to_np)
+from _torch_parity import (VOXEL, assert_bf16_close, assert_close_to_max,
+                           clouds, fatbn_specs, to_np)
 
 pytestmark = pytest.mark.cuda
 
@@ -846,3 +846,300 @@ def test_splitk_dw_on_synthetic_maps(dev, form, pattern, cin, cout):
     else:
         n_chunks = -(-n_drive // RESOLVE_ROWS)
         assert (matched > 0).sum() <= blocks <= kvol * n_chunks
+
+
+# --- the bf16 forms (bf16 features, float32 weights rounded to bf16 in the
+# wrapper, float32 sums): every bf16 output bit-equal to the plain bf16
+# version on >= 99.9% of its elements and within one ulp on the rest (two
+# float32 sums of the same exact products in another order, each rounded
+# once); every float32 dW within 1e-4 of the plain version's max ---
+
+BF16_WIDTHS = [(32, 32), (32, 384), (192, 128), (384, 128), (128, 256),
+               (36, 20)]   # 36 x 20: rows not 16-byte aligned in bf16
+SUM_BOUND = 2.0 ** -22
+
+
+def _sum_bound(plain, args, i=0, **kw):
+    """The float32 error bound of two sums of an output's n products,
+    n * 2^-22 * sum |products| (Higham's gamma_n for each sum, with the
+    tensor cores' truncating adder's 2^-23), for output i of plain(*args):
+    the room assert_bf16_close gives elements whose sum cancels (there a
+    float32 sum in any order can be more than a bf16 ulp off, as
+    chip_smoke.py's bf16 cancellation phase measures against float64)."""
+    out = plain(*[t.abs() if torch.is_tensor(t) and t.is_floating_point()
+                  else t for t in args], **kw)
+    s = (out[i] if isinstance(out, tuple) else out).float()
+    w = next(t for t in args if torch.is_tensor(t) and t.dim() == 3
+             and t.dtype == torch.float32)
+    return (w.numel() // s.shape[1]) * SUM_BOUND * s
+
+
+@pytest.mark.parametrize("pattern", ["edges", "dense", "pads"])
+@pytest.mark.parametrize("cin,cout", BF16_WIDTHS)
+def test_bf16_gather_gemm_forward_on_synthetic_maps(dev, pattern, cin, cout):
+    """K6 and K12 in bf16 on the synthetic maps; K6 repeats bit for bit and
+    its row counter equals compacted_rows' count."""
+    kvol, n_out, n_in = 27, 3 * 64 + 13, 150
+    rows = _synthetic_rows(kvol, n_out, n_in, pattern, cin + cout)
+    qkey, skeys, srow = _as_keys(rows, n_in, cin)
+    gen = torch.Generator().manual_seed(cout)
+    x = torch.randn(n_in, cin, generator=gen).to(dev).to(torch.bfloat16)
+    w = (torch.randn(kvol, cin, cout, generator=gen) / cin ** .5).to(dev)
+    args = (x, w, qkey.to(dev), skeys.to(dev), srow.to(dev))
+    idx = torch.where((rows < 0) & (torch.arange(n_out) % 2 == 0), n_in + 3,
+                      rows).to(torch.int32).to(dev)
+    before = (sparse_conv_implicit_fwd.launches,
+              sparse_conv_table_fwd.launches)
+    out = sparse_conv_implicit_fwd(*args)
+    with counted_gather_rows(dev) as counter:
+        again = sparse_conv_implicit_fwd(*args)
+    tab = sparse_conv_table_fwd(x, w, idx)
+    torch.cuda.synchronize()
+    assert (sparse_conv_implicit_fwd.launches,
+            sparse_conv_table_fwd.launches) == (before[0] + 2, before[1] + 1)
+    assert out.dtype == tab.dtype == torch.bfloat16
+    assert torch.equal(out.view(torch.int16), again.view(torch.int16))
+    assert int(counter.item()) == compacted_rows(rows >= 0)[1]
+    if pattern == "pads":
+        assert not out.any() and not tab.any()
+        return
+    assert_bf16_close(out, sparse_conv_implicit_fwd_plain(*args), "K6",
+                      _sum_bound(sparse_conv_implicit_fwd_plain, args))
+    assert_bf16_close(tab, sparse_conv_table_fwd_plain(x, w, idx), "K12",
+                      _sum_bound(sparse_conv_table_fwd_plain, (x, w, idx)))
+
+
+@pytest.mark.parametrize("pattern", ["edges", "dense"])
+@pytest.mark.parametrize("cin,cout", [(1, 32), (1, 1), (4, 24)])
+@pytest.mark.parametrize("kvol", [27, 125])
+def test_bf16_gather_gemm_table_narrow_input(dev, pattern, cin, cout, kvol):
+    """K12 in bf16 with Cin < 8 (conv1 of the explicit route: Cin 1, K
+    125): one k16 step of which Cin channels are real."""
+    n_out, n_in = 2 * 64 + 50, 170
+    rows = _synthetic_rows(kvol, n_out, n_in, pattern, kvol + cin)
+    gen = torch.Generator().manual_seed(cout)
+    x = torch.randn(n_in, cin, generator=gen).to(dev).to(torch.bfloat16)
+    w = torch.randn(kvol, cin, cout, generator=gen).to(dev)
+    idx = rows.to(torch.int32).to(dev)
+    assert_bf16_close(sparse_conv_table_fwd(x, w, idx),
+                      sparse_conv_table_fwd_plain(x, w, idx), "K12",
+                      _sum_bound(sparse_conv_table_fwd_plain, (x, w, idx)))
+
+
+@pytest.mark.parametrize("pattern", ["edges", "dense", "pads"])
+@pytest.mark.parametrize("cin,cout", BF16_WIDTHS)
+@pytest.mark.parametrize("want_dx", [True, False])
+def test_bf16_backward_on_synthetic_maps(dev, pattern, cin, cout, want_dx):
+    """K7 in bf16: dX (the gather-GEMM through W[K-1-k']^T, the kBT B
+    operand read as packed pairs) at the bf16 gate, dW float32 within 1e-4;
+    dX also against K6 through the reverse map (the two-pass route)."""
+    kvol, n_in, n_out = 27, 4 * 64 + 9, 140
+    rows = _synthetic_rows(kvol, n_in, n_out, pattern, cin * cout)
+    rqkey, skeys, srow = _as_keys(rows, n_out, cout)
+    gen = torch.Generator().manual_seed(cin)
+    x = torch.randn(n_in, cin, generator=gen).to(dev).to(torch.bfloat16)
+    g = torch.randn(n_out, cout, generator=gen).to(dev).to(torch.bfloat16)
+    w = (torch.randn(kvol, cin, cout, generator=gen) / cout ** .5).to(dev)
+    args = (x, g, w, rqkey.to(dev), skeys.to(dev), srow.to(dev))
+    before = sparse_conv_implicit_bwd.launches
+    dx, dw = sparse_conv_implicit_bwd(*args, want_dx=want_dx)
+    torch.cuda.synchronize()
+    assert sparse_conv_implicit_bwd.launches == before + 1
+    assert dw.dtype == torch.float32 and (dx is None) == (not want_dx)
+    if pattern == "pads":
+        assert not dw.any() and (dx is None or not dx.any())
+        return
+    rdx, rdw = sparse_conv_implicit_bwd_plain(*args, want_dx=want_dx)
+    _close_to_max(dw, rdw, 1e-4)
+    if want_dx:
+        assert dx.dtype == torch.bfloat16
+        bound = _sum_bound(sparse_conv_implicit_bwd_plain, args)
+        assert_bf16_close(dx, rdx, "K7 dX", bound)
+        two_pass = sparse_conv_implicit_fwd(
+            g, w.flip(0).transpose(1, 2).contiguous(), *args[3:])
+        assert_bf16_close(dx, two_pass, "K7 dX against K6", bound)
+
+
+@pytest.mark.parametrize("pattern", ["stages", "quarter", "dense", "pads"])
+@pytest.mark.parametrize("cin,cout", DW_WIDTHS + [(36, 20)])
+@pytest.mark.parametrize("form", ["forward", "table", "reverse"])
+def test_bf16_splitk_dw_on_synthetic_maps(dev, form, pattern, cin, cout):
+    """The split-K dW core in bf16 (K8 over a forward map and a table, K7's
+    dW over a reverse map): within 1e-4 of the plain version's max, and
+    staging exactly the rows its float32 form stages (the k16 steps' rows
+    past a stage's pairs rounded to 8 go in as zero registers)."""
+    kvol = 125 if (cin, cout) == (1, 32) else 27
+    n_drive = 2 * RESOLVE_ROWS + 77 if pattern == "quarter" else 205
+    n_src = 150
+    rows = _dw_rows(kvol, n_drive, n_src, pattern, cin * 7 + cout)
+    gen = torch.Generator().manual_seed(cin + cout)
+    n_x, n_g = (n_drive, n_src) if form == "reverse" else (n_src, n_drive)
+    x = torch.randn(n_x, cin, generator=gen).to(dev).to(torch.bfloat16)
+    g = torch.randn(cout, n_g, generator=gen).to(dev).to(torch.bfloat16).T
+    if form == "table":
+        miss = torch.where(torch.arange(n_drive) % 3 == 0, -1,
+                           n_src + torch.arange(n_drive) % 2 * 3)
+        args = (x, g, torch.where(rows < 0, miss, rows).to(torch.int32)
+                .to(dev))
+    else:
+        keys = tuple(t.to(dev) for t in _as_keys(rows, n_src, cin))
+    if form == "forward":
+        args = (x, g) + keys
+    if form == "reverse":
+        w = torch.randn(kvol, cin, cout, generator=gen).to(dev)
+        args = (x, g, w) + keys
+
+        def launch():
+            return sparse_conv_implicit_bwd(*args, want_dx=False)[1]
+        ref = sparse_conv_implicit_bwd_plain(*args, want_dx=False)[1]
+    else:
+        def launch():
+            return sparse_conv_dw(*args)
+        ref = sparse_conv_dw_plain(*args)
+    with counted_dw_rows(dev) as counter:
+        dw = launch()
+    staged, blocks = counter.tolist()
+    with counted_dw_rows(dev) as counter:
+        launch_f32 = (sparse_conv_implicit_bwd(
+            x.float(), g.float(), w, *keys, want_dx=False)
+            if form == "reverse" else
+            sparse_conv_dw(x.float(), g.float(), *args[2:]))
+    assert counter.tolist() == [staged, blocks]
+    assert dw.dtype == torch.float32 and dw.shape == (kvol, cin, cout)
+    if pattern == "pads":
+        assert not dw.any() and staged == blocks == 0
+        return
+    del launch_f32
+    _close_to_max(dw, ref, 1e-4)
+    matched = (rows >= 0).sum(1)
+    if cin == 1:
+        assert staged == int(matched.sum())
+    elif n_drive <= RESOLVE_ROWS:
+        assert staged == int(_staged_rows(matched).sum())
+
+
+@pytest.mark.parametrize("key,k", [("s1->s1/k5d1", 125), ("s1->s1/k3d1", 27)])
+@pytest.mark.parametrize("cout", [32, 20])
+def test_bf16_occupancy_kernels_match_plain(dev, key, k, cout):
+    """K2 in bf16 (W rounded in the wrapper, out rounded once; sbits as in
+    float32) and K3 from a bf16 gradient (float32 dW)."""
+    gr = _graph(dev, seed=1)
+    gen = torch.Generator().manual_seed(k + cout)
+    w = torch.randn(k, 1, cout, generator=gen).to(dev)
+    args = (gr.maps[key].c1z, gr.levels[1].skeys, w)
+    b2, b3 = occupancy_conv_fwd.launches, occupancy_conv_dw.launches
+    out, sbits = occupancy_conv_fwd(*args, torch.bfloat16)
+    ref, ref_bits = occupancy_conv_fwd_plain(*args, torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(sbits, ref_bits) and sbits.any()
+    assert torch.equal(sbits, occupancy_conv_fwd(*args)[1])
+    assert_bf16_close(out, ref, "K2", _sum_bound(
+        occupancy_conv_fwd_plain, args + (torch.bfloat16,)))
+    g = (torch.randn(cout, sbits.shape[0], generator=gen).to(dev)
+         .to(torch.bfloat16).T)
+    dw = occupancy_conv_dw(sbits, g, k)
+    torch.cuda.synchronize()
+    assert (occupancy_conv_fwd.launches, occupancy_conv_dw.launches) == (
+        b2 + 2, b3 + 1)
+    assert dw.dtype == torch.float32
+    _close_to_max(dw, occupancy_conv_dw_plain(sbits, g, k), 1e-4)
+
+
+@pytest.mark.parametrize("key,k", [("s1->s1/k5d1", 125), ("s1->s1/k3d1", 27)])
+@pytest.mark.parametrize("cout", [32, 20])
+@pytest.mark.parametrize("gated", [False, True])
+def test_bf16_scalar_conv_kernels_match_plain(dev, key, k, cout, gated):
+    """K4 (bf16 x, float32 W, out rounded once), K5 (float32 dW) and K9
+    (bf16 g, dX rounded once) in bf16; with the row flag and x zero off
+    the flagged cloud, K4 gives the same bits as without it."""
+    gr = _graph(dev, seed=2)
+    lv = gr.levels[1]
+    n = lv.coords.shape[0]
+    gen = torch.Generator().manual_seed(k + cout)
+    x = torch.randn(n, 1, generator=gen).to(dev)
+    w = torch.randn(k, 1, cout, generator=gen).to(dev)
+    g = torch.randn(cout, n, generator=gen).to(dev).to(torch.bfloat16).T
+    sel = None
+    if gated:
+        sel = (lv.coords[:, 0] == 1).to(torch.float32)
+        x = x * sel[:, None]
+    x = x.to(torch.bfloat16)
+    geo = (gr.maps[key].c1z, lv.skeys, lv.srow)
+    before = (scalar_conv_fwd.launches, scalar_conv_dw.launches,
+              scalar_conv_dx.launches)
+    out = scalar_conv_fwd(x, w, *geo, sel)
+    dw = scalar_conv_dw(x, g, *geo, k, sel)
+    dx = scalar_conv_dx(g, w, *geo, sel)
+    torch.cuda.synchronize()
+    assert (scalar_conv_fwd.launches, scalar_conv_dw.launches,
+            scalar_conv_dx.launches) == tuple(b + 1 for b in before)
+    assert out.dtype == dx.dtype == torch.bfloat16
+    assert dw.dtype == torch.float32
+    assert_bf16_close(out, scalar_conv_fwd_plain(x, w, *geo, sel), "K4",
+                      _sum_bound(scalar_conv_fwd_plain, (x, w, *geo, sel)))
+    _close_to_max(dw, scalar_conv_dw_plain(x, g, *geo, k, sel), 1e-4)
+    assert_bf16_close(dx, scalar_conv_dx_plain(g, w, *geo, sel), "K9",
+                      _sum_bound(scalar_conv_dx_plain, (g, w, *geo, sel)))
+    if gated:
+        assert torch.equal(out, scalar_conv_fwd(x, w, *geo, None))
+
+
+def test_bf16_wrappers_refuse_other_types(dev):
+    """float16 features, a g of another type than x and float64 weights
+    raise before any launch."""
+    g = _graph(dev)
+    lv, cmap = g.levels[1], g.maps["s1->s1/k3d1"]
+    n = lv.coords.shape[0]
+    x = torch.randn(n, 8, device=dev)
+    w = torch.randn(27, 8, 16, device=dev)
+    before = dict(K6=sparse_conv_implicit_fwd.launches,
+                  K7=sparse_conv_implicit_bwd.launches,
+                  K8=sparse_conv_dw.launches)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        sparse_conv_implicit_fwd(x.half(), w, cmap.qkey, lv.skeys, lv.srow)
+    with pytest.raises(TypeError, match="float32"):
+        sparse_conv_implicit_fwd(x.bfloat16(), w.double(), cmap.qkey,
+                                 lv.skeys, lv.srow)
+    with pytest.raises(TypeError, match="as x is"):
+        sparse_conv_implicit_bwd(x.bfloat16(), torch.zeros(n, 16, device=dev),
+                                 w, cmap.rqkey, lv.skeys, lv.srow)
+    with pytest.raises(TypeError, match="as x is"):
+        sparse_conv_dw(x.bfloat16(), torch.zeros(n, 16, device=dev),
+                       cmap.qkey, lv.skeys, lv.srow)
+    assert before == dict(K6=sparse_conv_implicit_fwd.launches,
+                          K7=sparse_conv_implicit_bwd.launches,
+                          K8=sparse_conv_dw.launches)
+
+
+def test_bf16_model_on_card_matches_cpu(dev):
+    """ResUNetFatBN in bf16, train mode, forward and backward: kernels on
+    the card against the plain versions on the CPU. Both round every conv
+    to bf16 once but sum in another order, so features and gradients
+    differ by bf16's own noise. Per tensor, as tests/test_torch_bf16.py
+    holds the port to gcl_tpu: |card - cpu|max <= 2 |cpu bf16 - cpu
+    float32|max + 1e-6 (a wrong fragment layout or a second rounding moves
+    them by the whole max)."""
+    pts, pmask = clouds(4, 2, 900)
+    state = random_state_dict(ResUNetFatBN(1, 32, conv1_kernel_size=5), 0)
+    runs = {}
+    for name, d, dt in (("cpu", "cpu", torch.bfloat16),
+                        ("cpu32", "cpu", torch.float32),
+                        ("card", dev, torch.bfloat16)):
+        vox = voxelize_per_cloud(torch.from_numpy(pts).to(d),
+                                 torch.from_numpy(pmask).to(d), VOXEL, 600)
+        flat = vox.flatten()
+        gr = build_graph(flat.coords, flat.mask, fatbn_specs(),
+                         {2: 500, 4: 400, 8: 300}, 2)
+        model = ResUNetFatBN(1, 32, bn_momentum=0.05, normalize_feature=True,
+                             conv1_kernel_size=5).to(d)
+        model.load_state_dict(state)
+        f = model(gr, flat.feats.to(dt))
+        assert f.dtype == dt
+        (f.float() * flat.mask[:, None]).square().sum().backward()
+        runs[name] = {"features": f.detach().float().cpu(),
+                      **{k: p.grad.cpu() for k, p in
+                         model.named_parameters()}}
+    for name, ref in runs["cpu"].items():
+        drift = float((ref - runs["cpu32"][name]).abs().max())
+        err = float((runs["card"][name] - ref).abs().max())
+        assert err <= 2 * drift + 1e-6, (name, err, drift)

@@ -260,13 +260,32 @@ def test_exact_jitter_matches_jax_and_row_flag_is_exact(graphs):
 
 
 def test_float32_only():
+    """Weights are float32 parameters; features float32 or bf16. float64
+    and float16 features and float64 weights are refused; bf16 features
+    build, and their conv comes out in bf16 with a float32 dW."""
     with pytest.raises(TypeError, match="float32"):
         sparse_ops.sparse_conv_c1z(torch.zeros(27, 1, 4, dtype=torch.float64),
                                    None, None)
-    with pytest.raises(TypeError, match="float32"):
-        sparse_ops.sparse_conv_implicit(
-            torch.zeros(4, 2, dtype=torch.bfloat16), torch.zeros(27, 2, 3),
-            None, None, None)
+    for dt in (torch.float64, torch.float16):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            sparse_ops.sparse_conv_implicit(
+                torch.zeros(4, 2, dtype=dt), torch.zeros(27, 2, 3),
+                None, None, None)
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            sparse_ops.sparse_conv(torch.zeros(4, 2, dtype=dt),
+                                   torch.zeros(27, 2, 3),
+                                   torch.zeros(27, 4, dtype=torch.int32))
+    pts, pmask = clouds(5, 1, 60)
+    flat = voxelize_per_cloud(torch.from_numpy(pts), torch.from_numpy(pmask),
+                              VOXEL, 40).flatten()
+    g = build_graph(flat.coords, flat.mask, [ConvSpec("b", 1, 1, 3)], {}, 1)
+    lv, cmap = g.levels[1], g.maps["s1->s1/k3d1"]
+    x = torch.randn(lv.coords.shape[0], 2).to(torch.bfloat16)
+    w = torch.randn(27, 2, 3, requires_grad=True)
+    out = sparse_ops.sparse_conv_implicit(x, w, cmap, lv, lv)
+    assert out.dtype == torch.bfloat16
+    out.float().sum().backward()
+    assert w.grad.dtype == torch.float32 and bool(w.grad.abs().sum() > 0)
 
 
 @pytest.fixture

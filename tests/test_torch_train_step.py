@@ -737,15 +737,21 @@ def test_unported_options_raise():
     """(Kept under its first name.) What still is not ported raises, and an
     option's unknown value is a ValueError; the options ported since
     (jitter_mode 'c1z', neg_filter 'membership', the location and circle
-    losses, search_cell) build."""
+    losses, search_cell, compute_dtype bfloat16) build. A compute type
+    other than float32 and bfloat16 (float16) raises."""
     cfg = _step_cfg(tsteps)
     import dataclasses
     args = (GCLLossConfig(), "finest", 8, 8, 1.0, 1.0, 1.0)
     model = torch.nn.Linear(1, 1)
-    with pytest.raises(NotImplementedError, match="float32"):
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
         tsteps.make_gcl_grad_fn(
             model, fatbn_specs(),
-            dataclasses.replace(cfg, compute_dtype=torch.bfloat16), *args)
+            dataclasses.replace(cfg, compute_dtype=torch.float16), *args)
+    for build in (tsteps.make_gcl_grad_fn, tsteps.make_dist_err_step):
+        extra = args if build is tsteps.make_gcl_grad_fn else ()
+        assert callable(build(
+            model, fatbn_specs(),
+            dataclasses.replace(cfg, compute_dtype=torch.bfloat16), *extra))
     for bad, match in ((dict(jitter_mode="output"), "jitter_mode"),
                        (dict(neg_filter="hash"), "neg_filter")):
         with pytest.raises(ValueError, match=match):
