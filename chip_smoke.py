@@ -13,7 +13,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    the card at the serving path's shapes (two synthetic 65,536-point LiDAR
    clouds, voxel 0.3 m): K6 for every k=3 conv of ResUNetFatBN at its real
    Cin / Cout (rtol = atol = 1e-4), K2 on conv1 (out within 1e-5, sbits
-   exact), and times both versions with CUDA events;
+   exact), and times both versions with CUDA events; K2's staged keys, as
+   the kernel counts them, equal to its window table's sum (see phase 5);
 4. serving slice: registers pairs with ResUNetFatBN (seeded random
    weights) + SC2-PCR at bench_infer.py's settings: exactly 1 K2 and 20 K6
    launches per pair, kernel-path features within 1e-3 of the plain
@@ -27,7 +28,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    K7's dX also against K6 through the reverse map with flipped transposed
    weights, K3, K4 (a dense random x, and the gated eps case bit for bit
    against the ungated kernel), K5, and K6 / K2 again at these shapes (K6
-   also against itself, bit for bit). It times each with CUDA events and
+   also against itself, bit for bit; K2's blocks work out their key
+   windows themselves, and the keys they stage into shared memory,
+   counted by the kernel in a launch of its own, are required equal to
+   the sum of the plain torch window table's lengths and printed a valid
+   row). It times each with CUDA events and
    works out each kernel's bound from the bytes it must move and the
    operations of its matched (offset, row) pairs: for the matrix products
    (K6, K7, K8, K12) split TF32 on the tensor cores, printed beside the
@@ -59,7 +64,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
    1,032,192 stride-1 rows, unblocked levels): K10 for each of the 11
    distinct geometries of ResUNetFatBN (conv1 k = 5, the k = 3 same-level,
    strided and transposed maps with their twins), tables equal to the
-   plain version's; the index-table forward K12 for conv1 and the 20 k = 3
+   plain version's, the keys it stages (counted as K2's) equal to the sum
+   of the plain torch window table's lengths and printed a valid query,
+   and torch.searchsorted alone over the same fused int64 keys (the
+   nearest one-call library counterpart; K10's "library_ms", which K10
+   must beat summed over the geometries); the index-table forward K12 for
+   conv1 and the 20 k = 3
    convs at their real Cin / Cout, K12 through the reverse table (the dX
    of the two-pass backward) against the scatter-add backward, and K8 over
    the tables, each within 1e-4 of the plain tensor's max; times, bounds
@@ -219,6 +229,14 @@ def _bit_equal(a, b) -> bool:
 
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _k2_bytes(aux, skeys, w, out, sbits) -> int:
+    """The bytes K2 must move: columns 0-3 of aux (the key and the grid
+    coords; columns 4-7 are padding it never reads), the level's keys, W
+    in out's type, out and sbits."""
+    return (16 * aux.shape[0] + _nbytes(skeys, out, sbits)
+            + w.numel() * out.element_size())
 
 
 def _bound(n_bytes: float, flops: float, products=None):
@@ -615,8 +633,8 @@ def train_kernel_checks(dev, dtype=None) -> dict:
     g1 = (torch.randn(n, 32, generator=gen).to(dev)
           * lv.mask[:, None]).to(dtype)
     x1 = torch.randn(n, 1, generator=gen).to(dev).to(dtype)
-    k2_args = (c1.c1z, lv.skeys, w1, dtype)
     fn2, plain2 = KERNELS["K2"]
+    k2_args = (c1.c1z, lv.skeys, w1, dtype)
     out, sbits = fn2(*k2_args)
     torch.cuda.synchronize()
     ref, ref_bits = plain2(*k2_args)
@@ -633,7 +651,8 @@ def train_kernel_checks(dev, dtype=None) -> dict:
         max_abs_err=float((out.float() - ref.float()).abs().max()),
         ms=_ms(lambda: fn2(*k2_args), 3),
         plain_ms=_ms(lambda: plain2(*k2_args), 3),
-        bytes=_nbytes(*k2_args[:3], out, sbits), flops=present * 32)
+        bytes=_k2_bytes(*k2_args[:3], out, sbits), flops=present * 32,
+        **_k2_windows(dev, *k2_args, form))
     _, e3, _, _ = run("K3", (sbits, g1, 125), flops=present * 32,
                       n_bytes=_nbytes(sbits, g1, w1), outs=lambda o: (o,))
     # K4 / K5: a dense random x for the function itself; then the train
@@ -711,6 +730,30 @@ def train_kernel_checks(dev, dtype=None) -> dict:
           f"{two_pass['k8_ms']:.3f})")
     rec["K7"]["two_pass"] = two_pass
     return rec
+
+
+def _k2_windows(dev, aux, skeys, w, dtype, what: str) -> dict:
+    """K2's key windows: the keys the forward's blocks stage, as the kernel
+    counts the copies its threads issue (a launch of its own, not a timed
+    one), required equal to the sum of the plain torch window table's
+    lengths; returns them a valid row."""
+    import torch
+
+    from gcl_tpu_torch.kernels import (KERNELS, counted_occupancy_keys,
+                                       occupancy_windows)
+
+    side = round(w.shape[0] ** (1 / 3))
+    win = occupancy_windows(aux, skeys, side)
+    with counted_occupancy_keys(dev) as counter:
+        KERNELS["K2"][0](aux, skeys, w, dtype)
+    staged, in_table = int(counter.item()), int(win[1].sum())
+    _require(staged == in_table, f"K2 {what}: staged {staged} keys, the "
+                                 f"window table sums to {in_table}")
+    rows = int((aux[:, 1] > -(1 << 19)).sum())
+    print(f"K2 {what}: staged {staged} keys = the window table's sum, "
+          f"{staged / rows:.4f} a valid row ({rows} rows, {side} dx windows "
+          f"a row)")
+    return dict(staged_keys_per_valid_row=staged / rows)
 
 
 def _cancellation(x, w, qkey, skeys, srow, out, ref, what: str) -> None:
@@ -940,13 +983,14 @@ def explicit_kernel_checks(dev, dtype=None) -> dict:
     import torch
 
     from gcl_tpu_torch import bench
-    from gcl_tpu_torch.core.coords import kernel_offsets
+    from gcl_tpu_torch.core.coords import kernel_offsets, key64
     from gcl_tpu_torch.core.kernel_maps import (ConvSpec, build_graph,
                                                 two_word_query_keys)
     from gcl_tpu_torch.core.sparse_ops import sparse_conv
     from gcl_tpu_torch.data.device_pipeline import voxelize_per_cloud
-    from gcl_tpu_torch.kernels import (KERNELS, compacted_rows, launch_counts,
-                                       reset_launch_counts)
+    from gcl_tpu_torch.kernels import (KERNELS, compacted_rows,
+                                       counted_join_keys, join_windows,
+                                       launch_counts, reset_launch_counts)
 
     dtype = dtype or torch.float32
     bf16 = dtype == torch.bfloat16
@@ -980,7 +1024,12 @@ def explicit_kernel_checks(dev, dtype=None) -> dict:
         a, b = key.split("/")[0].split("->")
         return int(a[1:]), int(b[1:]), int(key.split("/k")[1][0])
 
-    # K10, geometry by geometry
+    # K10, geometry by geometry: the kernel against the plain version, the
+    # keys its blocks stage against the plain torch window table's sum,
+    # and torch.searchsorted alone over the fused keys (the nearest
+    # one-call library counterpart: K10's plain version fuses the two
+    # words into an int64, searches, then compares)
+    join = dict(valid=0, staged=0)
     for key in sorted(graph.kmaps) if not bf16 else ():
         s_in, s_out, ksize = strides(key)
         sp = ConvSpec("geometry", s_in, s_out, ksize)
@@ -995,11 +1044,39 @@ def explicit_kernel_checks(dev, dtype=None) -> dict:
                  f"K10 {key}: the graph's table")
         found = int((kmap >= 0).sum())
         _require(found > 0, f"K10 {key} finds rows")
+        with counted_join_keys(dev) as counter:
+            KERNELS["K10"][0](*args)
+        staged = int(counter.item())
+        in_table = int(join_windows(*args[:2], qhi, qlo)[1].sum())
+        _require(staged == in_table,
+                 f"K10 {key}: staged {staged} keys, the window table sums "
+                 f"to {in_table}")
+        keys64, q64 = key64(lv.key_hi, lv.key_lo), key64(qhi, qlo)
+        lib_ms = _ms(lambda: torch.searchsorted(keys64, q64), 3)
+        del keys64, q64
+        valid = int((qhi != 0x7FFFFFFF).sum())
+        join["valid"] += valid
+        join["staged"] += staged
+        rec["K10"]["library_ms"] = rec["K10"].get("library_ms", 0.0) + lib_ms
         print(f"K10 {key}: {qhi.shape[0]} x {qhi.shape[1]} queries, "
-              f"{int((qhi != 0x7FFFFFFF).sum())} live, {found} found, "
-              f"{lv.key_hi.shape[0]} keys: equal to plain; kernel "
-              f"{ms:.3f} ms, plain {pms:.3f} ms")
+              f"{valid} valid, {found} found, {lv.key_hi.shape[0]} keys: "
+              f"equal to plain; kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+              f"torch.searchsorted alone {lib_ms:.3f} ms; staged {staged} "
+              f"keys = the table's sum ({staged / max(valid, 1):.4f} a "
+              f"valid query)")
         del qhi, qlo, kmap, args
+    if not bf16:
+        _require(rec["K10"]["ms"] < rec["K10"]["library_ms"],
+                 f"K10 ({rec['K10']['ms']:.3f} ms a step) beats "
+                 f"torch.searchsorted alone over the same keys "
+                 f"({rec['K10']['library_ms']:.3f} ms)")
+        rec["K10"]["staged_keys_per_valid_query"] = (join["staged"]
+                                                     / join["valid"])
+        print(f"K10 per explicit train step: {rec['K10']['ms']:.3f} ms, "
+              f"{join['staged']} keys staged for {join['valid']} valid "
+              f"queries ({join['staged'] / join['valid']:.4f} a query; "
+              f"equal to the window tables' sums), torch.searchsorted "
+              f"alone {rec['K10']['library_ms']:.3f} ms")
 
     # K12 (forward, and the dX of the two-pass backward through the reverse
     # table) and K8 over the tables, conv by conv
@@ -1425,8 +1502,9 @@ def main() -> None:
     k2_plain_ms = _ms(lambda: occupancy_conv_fwd_plain(*k2_args), 5)
     print(f"K2 conv1 k5 1->32: max_abs_err {k2_err:.3g} kernel "
           f"{k2_ms:.3f} ms plain {k2_plain_ms:.3f} ms")
+    k2_win = _k2_windows(dev, *k2_args, None, "at serving")
     k6_bound = _bound(k6_bytes, k6_flops, "split_tf32")
-    k2_bound = _bound(_nbytes(*k2_args, out, sbits),
+    k2_bound = _bound(_k2_bytes(*k2_args, out, sbits),
                       32 * int(c1z_unpack_bits(sbits, 125).sum()))
     print(f"bounds per serving pair: K6 {k6_bound[0]:.3f} ms by "
           f"{k6_bound[1]} (split TF32; CUDA-core FP32 "
@@ -1569,10 +1647,10 @@ def main() -> None:
             "launches": r.get("launches", (explicit16 if on_explicit
                                            else step16)[k]),
             **{key: r[key] for key in numbers},
-            # no single PyTorch call computes any of these functions
-            # (torch.searchsorted takes one-word keys: K10's plain version
-            # fuses the two words into an int64 first and compares after)
-            "library_ms": None,
+            # no single PyTorch call computes any of these functions; K10's
+            # nearest is torch.searchsorted alone over the fused int64 keys
+            # (its plain version then compares the found keys)
+            "library_ms": r.get("library_ms"),
             "path": paths.get(k, f"train step {BATCH} x 7, implicit route"),
             "train_step_launches": step16[k],
             "explicit_step_launches": explicit16[k]}
@@ -1594,7 +1672,14 @@ def main() -> None:
     kernels[2]["float32"].update(
         serving_launches=launches["K2"], serving_max_abs_err=k2_err,
         serving_ms=k2_ms, serving_plain_ms=k2_plain_ms,
-        serving_bound_ms=k2_bound[0])
+        serving_bound_ms=k2_bound[0],
+        **{f"serving_{k}": v for k, v in k2_win.items()})
+    windowed = ("staged_keys_per_valid_row", "staged_keys_per_valid_query")
+    for i in (2, 10):  # K2 (each form), K10
+        for row, r in ((kernels[i], rec16.get(table[i][0], rec[table[i][0]])),
+                       (kernels[i].get("float32"), rec[table[i][0]])):
+            if row is not None:
+                row.update({key: r[key] for key in windowed if key in r})
     kernels[1].update(two_pass=rec16["K7"].pop("two_pass"))
     kernels[1]["float32"].update(two_pass=rec["K7"].pop("two_pass"))
     kernels[9].update(convs=rec16["K8"].pop("convs"))

@@ -135,7 +135,7 @@ def lookup(skeys: torch.Tensor, srow: torch.Tensor,
     return torch.where(found, srow[pos_c], -1).to(torch.int32)
 
 
-def _key64(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+def key64(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     """One int64 whose signed order is the lexicographic signed order of
     the int32 pair (hi, lo)."""
     return (hi.long() << 32) + (lo.long() + (1 << 31))
@@ -146,8 +146,8 @@ def searchsorted2(key_hi: torch.Tensor, key_lo: torch.Tensor,
     """Lower bound of each (q_hi, q_lo) among the lexicographically sorted
     (key_hi, key_lo): the first position p with keys[p] >= query, int64 of
     the queries' shape. All four are int32, compared as signed."""
-    return torch.searchsorted(_key64(key_hi, key_lo),
-                              _key64(q_hi, q_lo).contiguous())
+    return torch.searchsorted(key64(key_hi, key_lo),
+                              key64(q_hi, q_lo).contiguous())
 
 
 def lookup2(key_hi: torch.Tensor, key_lo: torch.Tensor, perm: torch.Tensor,

@@ -4,10 +4,12 @@ Each module holds its kernels' wrappers, their plain PyTorch versions and
 their launch counters (``wrapper.launches``): a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises.
 """
-from .join_kmap import join_kmap, join_kmap_plain
-from .occupancy_conv import (c1z_unpack_bits, occupancy_conv_dw,
-                             occupancy_conv_dw_plain, occupancy_conv_fwd,
-                             occupancy_conv_fwd_plain)
+from .join_kmap import (counted_join_keys, join_kmap, join_kmap_plain,
+                        join_windows)
+from .occupancy_conv import (c1z_unpack_bits, counted_occupancy_keys,
+                             occupancy_conv_dw, occupancy_conv_dw_plain,
+                             occupancy_conv_fwd, occupancy_conv_fwd_plain,
+                             occupancy_windows)
 from .radius_topk import (windowed_cell_topk, windowed_cell_topk_exact,
                           windowed_cell_topk_packed, windowed_cell_topk_plain)
 from .scalar_conv import (scalar_conv_dw, scalar_conv_dw_plain,

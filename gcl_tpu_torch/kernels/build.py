@@ -9,6 +9,7 @@ anew and an unchanged one is reused. Nothing here runs at import time.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -27,19 +28,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_L = ctypes.c_longlong
-# C entry point -> argtypes (pointers and the stream as void*, ints as int,
-# a count of queries as long long)
+# C entry point -> argtypes (pointers and the stream as void*, ints as int)
 SIGNATURES = {
     "sparse_conv_implicit_fwd": [_P] * 6 + [_I] * 5 + [_P],
-    "occupancy_conv_fwd": [_P] * 5 + [_I] * 4 + [_P],
+    "occupancy_conv_fwd": [_P] * 5 + [_I] * 5 + [_P],
     "sparse_conv_implicit_bwd": [_P] * 8 + [_I] * 6 + [_P],
     "occupancy_conv_dw": [_P] * 3 + [_I] * 3 + [_P],
     "scalar_conv_fwd": [_P] * 7 + [_I] * 4 + [_P],
     "scalar_conv_dw": [_P] * 7 + [_I] * 4 + [_P],
     "scalar_conv_dx": [_P] * 7 + [_I] * 4 + [_P],
     "windowed_cell_topk": [_P] * 10 + [_I] * 5 + [ctypes.c_float, _P],
-    "join_kmap": [_P] * 6 + [_I, _L, _P],
+    "join_kmap": [_P] * 6 + [_I] * 6 + [_P],
     "sparse_conv_table_fwd": [_P] * 4 + [_I] * 5 + [_P],
     "sparse_conv_implicit_dw": [_P] * 6 + [_I] * 5 + [_P],
     "sparse_conv_table_dw": [_P] * 4 + [_I] * 5 + [_P],
@@ -47,6 +46,8 @@ SIGNATURES = {
     "sparse_conv_bwd_count_rows": [_P],
     "sparse_conv_bwd_count_dw_rows": [_P],
     "sparse_conv_dw_count_rows": [_P],
+    "join_kmap_count_keys": [_P],
+    "occupancy_conv_fwd_count_keys": [_P],
 }
 
 # the bf16 forms of the conv kernels take their float32 forms' arguments
@@ -148,6 +149,14 @@ def summing(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
+def tiled(v: torch.Tensor, tile: int, fill: int) -> torch.Tensor:
+    """[..., N] -> [..., ceil(N / tile), tile], the ragged tail filled."""
+    pad = -v.shape[-1] % tile
+    if pad:
+        v = torch.cat([v, v.new_full((*v.shape[:-1], pad), fill)], -1)
+    return v.reshape(*v.shape[:-1], -1, tile)
+
+
 def entry(name: str, dtype: torch.dtype):
     """The C entry point ``name`` in the form for features of ``dtype``."""
     return getattr(load_library(),
@@ -158,3 +167,27 @@ def check(err: int, name: str) -> None:
     """Raise on a non-zero cudaError_t returned by a C entry point."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+@contextlib.contextmanager
+def counted(device, setters, size: int, what: str):
+    """While the block runs, the launches of the sources whose C counter
+    setters (entry point names) are ``setters`` add what they count on
+    ``device`` into an int64 tensor [size] on the card, which this yields
+    and which holds the sums once the block has ended. For checks: one
+    atomic add per block, and launches outside the block count nothing."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the kernels count on a CUDA device, not {device}")
+    lib = load_library()
+    counter = torch.zeros(size, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        torch.cuda.synchronize()
+        for name in setters:
+            check(getattr(lib, name)(counter.data_ptr()), what)
+        try:
+            yield counter
+        finally:
+            torch.cuda.synchronize()
+            for name in setters:
+                check(getattr(lib, name)(None), what)

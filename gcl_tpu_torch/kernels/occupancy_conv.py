@@ -13,6 +13,13 @@ Both take float32 or bf16: the forward's out in a given type (W rounded to
 it once per launch, as gcl_tpu's _c1z_w3 does, sums in float32, out
 rounded once), the weight gradient's g in either type (sums and dW in
 float32). The bf16 forms are the kernels' ``*_bf16`` entry points.
+
+The forward kernel resolves the neighbours of a tile of rows inside a
+window of the level's sorted keys per dx, which each of its blocks works
+out for its tile (gcl_tpu's compute_windows_h does the same in XLA before
+its pallas_call); ``occupancy_windows`` is the same table in plain torch,
+the reference that the tests hold sound and that the keys the kernel
+stages are counted against.
 """
 from __future__ import annotations
 
@@ -20,9 +27,15 @@ import numpy as np
 import torch
 
 from ..core.coords import DEFAULT_KEY_BITS, kernel_offsets, lookup, wrap_int32
-from .build import FEATURE_DTYPES, check, check_features, entry, summing
+from .build import (FEATURE_DTYPES, check, check_features, counted, entry,
+                    summing, tiled)
 
 MAX_SIDE = 5  # side^2 presence bits must fit one int32 column
+TILE = 128    # rows of a tile of the forward kernel: kTile of its source
+CHUNK = 1024  # keys the forward kernel stages at a time
+_I64_MAX = torch.iinfo(torch.int64).max
+_I64_MIN = torch.iinfo(torch.int64).min
+_I32 = torch.iinfo(torch.int32)
 
 
 def cube_side(kcube: int) -> int:
@@ -50,6 +63,48 @@ def neighbor_rows(aux: torch.Tensor, skeys: torch.Tensor,
     return torch.where(in_range, lookup(skeys, srow, nkey), -1)
 
 
+def occupancy_windows(aux: torch.Tensor, skeys: torch.Tensor,
+                      side: int) -> torch.Tensor:
+    """int32[2, side, ceil(N / TILE), 2]: [0] the first position and [1]
+    the length of the runs of skeys that hold every neighbour, at dx group
+    g, of the rows of each tile: [..., 0] the run of negative keys, [..., 1]
+    the run of non-negative ones (clouds >= 16 have negative packed keys, so
+    a tile that mixes clouds 15 and 16 would otherwise window over every
+    cloud between). A row's neighbours at dx lie among the keys q + (dx <<
+    (BY + BZ)) + (dy << BZ) + dz, |dy|, |dz| <= R, q = aux[:, 0], where the
+    neighbour's coords are in range (then no field carries); rows that
+    have no neighbour at dx (pads included) stay out of the bounds. The
+    windows that the forward kernel's blocks stage."""
+    bx, by, bz = DEFAULT_KEY_BITS
+    r = side // 2
+    dev = aux.device
+    u = aux[:, 1:4].long()
+    lim = torch.tensor([1 << by, 1 << bz], device=dev)
+    yz = ((u[:, 1:] >= -r) & (u[:, 1:] < lim + r)).all(1)
+    dx = torch.arange(-r, r + 1, device=dev)[:, None]
+    ux = u[None, :, 0] + dx                                   # [side, N]
+    live = yz & (ux >= 0) & (ux < (1 << bx))
+    reach = (r << bz) + r
+    lo = aux[None, :, 0].long() + (dx << (by + bz)) - reach
+    hi = lo + 2 * reach
+    neg, pos = live & (lo < 0), live & (hi >= 0)
+    # [side, n_tiles, 2]: the negative run, then the non-negative one
+    tmin = tiled(torch.stack([torch.where(neg, lo, _I64_MAX),
+                              torch.where(pos, lo.clamp(min=0), _I64_MAX)]),
+                 TILE, _I64_MAX).amin(-1).permute(1, 2, 0)
+    tmax = tiled(torch.stack([torch.where(neg, hi.clamp(max=-1), _I64_MIN),
+                              torch.where(pos, hi, _I64_MIN)]),
+                 TILE, _I64_MIN).amax(-1).permute(1, 2, 0)
+    start = torch.searchsorted(
+        skeys, tmin.clamp(_I32.min, _I32.max).to(torch.int32).contiguous())
+    end = torch.searchsorted(
+        skeys, tmax.clamp(_I32.min, _I32.max).to(torch.int32).contiguous(),
+        right=True)
+    ok = tmin <= tmax
+    length = torch.where(ok, end - start, 0).clamp(min=0)
+    return torch.stack([torch.where(ok, start, 0), length]).to(torch.int32)
+
+
 def c1z_unpack_bits(sbits: torch.Tensor, kcube: int) -> torch.Tensor:
     """Presence bit per (row, kernel offset) from the occupancy forward's
     packed bitmasks: offset k = (dx, dy, dz) in kernel_offsets order lives
@@ -64,10 +119,10 @@ def c1z_unpack_bits(sbits: torch.Tensor, kcube: int) -> torch.Tensor:
 
 def occupancy_conv_fwd_plain(aux: torch.Tensor, skeys: torch.Tensor,
                              w: torch.Tensor, out_dtype=None):
-    """Plain version: presence by searchsorted of every neighbour key,
-    then ``bits @ W[:, 0, :]`` with W rounded to ``out_dtype`` (w's type
-    when None), summed in float32 and rounded once; sbits packs the same
-    bits."""
+    """Plain version: presence by searchsorted of every neighbour key over
+    the whole level, then ``bits @ W[:, 0, :]``
+    with W rounded to ``out_dtype`` (w's type when None), summed in float32
+    and rounded once; sbits packs the same bits."""
     side = cube_side(w.shape[0])
     dtype = out_dtype or w.dtype
     rows = neighbor_rows(aux, skeys, torch.zeros_like(skeys), side)
@@ -92,15 +147,19 @@ def occupancy_conv_dw_plain(sbits: torch.Tensor, g: torch.Tensor,
 
 
 def occupancy_conv_fwd(aux: torch.Tensor, skeys: torch.Tensor,
-                       w: torch.Tensor, out_dtype=None):
+                       w: torch.Tensor, out_dtype=None, *,
+                       chunk: int = CHUNK):
     """(out, sbits) of the occupancy conv over a stride-1 level.
 
     aux int32[N, 8] (kernel_maps._c1z_aux layout), skeys int32[n] (the
     level's sorted valid keys), w f32[side^3, 1, Cout] with odd side <= 5.
     out [N, Cout] in ``out_dtype`` (float32 or bfloat16, the features'
     type of the model; w's type when None) = sum_k present_k(i) * w[k, 0],
-    w rounded to out_dtype; sbits int32[N, 8] has bit dy*side + dz of column dx set iff
-    offset (dx, dy, dz) is present.
+    w rounded to out_dtype; sbits int32[N, 8] has bit dy*side + dz of
+    column dx set iff offset (dx, dy, dz) is present. The kernel finds a
+    neighbour only inside its tile's window (``occupancy_windows``). chunk:
+    the keys the kernel stages at a time (a small one forces windows of
+    many chunks, for tests).
     """
     side = cube_side(w.shape[0])
     if aux.dim() != 2 or aux.shape[1] != 8 or w.shape[1] != 1:
@@ -129,17 +188,29 @@ def occupancy_conv_fwd(aux: torch.Tensor, skeys: torch.Tensor,
     sbits = torch.empty((n, 8), dtype=torch.int32, device=aux.device)
     if n == 0:
         return out, sbits
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
     w = w.to(out_dtype)
     stream = torch.cuda.current_stream(aux.device).cuda_stream
     err = entry("occupancy_conv_fwd", out_dtype)(
         aux.data_ptr(), skeys.data_ptr(), w.data_ptr(), out.data_ptr(),
-        sbits.data_ptr(), n, side, cout, skeys.shape[0], stream)
+        sbits.data_ptr(), skeys.shape[0], n, side, cout, chunk, stream)
     check(err, "occupancy_conv_fwd")
     occupancy_conv_fwd.launches += 1
     return out, sbits
 
 
 occupancy_conv_fwd.launches = 0
+
+
+def counted_occupancy_keys(device):
+    """While the block runs, K2's launches on ``device`` count the keys they
+    stage into shared memory (each block its windows; the kernel adds up
+    the copies its threads issue). Yields an int64 tensor [1] on the card
+    that holds the sum once the block has ended: ``occupancy_windows``'s
+    sum of lengths when the kernel stages what the table says."""
+    return counted(device, ("occupancy_conv_fwd_count_keys",), 1,
+                   "K2's staged-key counter")
 
 
 def occupancy_conv_dw(sbits: torch.Tensor, g: torch.Tensor,

@@ -31,13 +31,12 @@ same arithmetic. Both forms count under one launch counter.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Optional
 
 import torch
 
 from ..core.coords import lookup
-from .build import check, check_features, entry, load_library, summing
+from .build import check, check_features, counted, entry, summing
 
 
 def _operand(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -104,7 +103,6 @@ def compacted_rows(hit: torch.Tensor, tile: int = 64, frag: int = 16):
     return int(per.sum()), int(((per + frag - 1) // frag * frag).sum())
 
 
-@contextlib.contextmanager
 def counted_gather_rows(device):
     """While the block runs, the gather-GEMM launches (K6, K12, K7's dX)
     on ``device`` count the rows they multiply: per (64-row tile, offset)
@@ -112,25 +110,11 @@ def counted_gather_rows(device):
     block ran. Yields an int64 tensor [1] on the card that holds the sum
     once the block has ended. For checks: the count is one atomic add per
     block, and launches outside the block count nothing."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError(f"the kernels count on a CUDA device, not {device}")
-    lib = load_library()
-    setters = (lib.sparse_conv_fwd_count_rows, lib.sparse_conv_bwd_count_rows)
-    counter = torch.zeros(1, dtype=torch.int64, device=device)
-    with torch.cuda.device(device):
-        torch.cuda.synchronize()
-        for fn in setters:
-            check(fn(counter.data_ptr()), "the gather-GEMM's row counter")
-        try:
-            yield counter
-        finally:
-            torch.cuda.synchronize()
-            for fn in setters:
-                check(fn(None), "the gather-GEMM's row counter")
+    return counted(device, ("sparse_conv_fwd_count_rows",
+                            "sparse_conv_bwd_count_rows"), 1,
+                   "the gather-GEMM's row counter")
 
 
-@contextlib.contextmanager
 def counted_dw_rows(device):
     """While the block runs, the split-K dW launches (K7's dW, K8 in both
     forms) on ``device`` count what they stage: yields an int64 tensor [2]
@@ -139,23 +123,9 @@ def counted_dw_rows(device):
     them, both over the first Cin x Cout tile of each launch. For checks:
     one atomic add per block, and launches outside the block count
     nothing."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError(f"the kernels count on a CUDA device, not {device}")
-    lib = load_library()
-    setters = (lib.sparse_conv_dw_count_rows,
-               lib.sparse_conv_bwd_count_dw_rows)
-    counter = torch.zeros(2, dtype=torch.int64, device=device)
-    with torch.cuda.device(device):
-        torch.cuda.synchronize()
-        for fn in setters:
-            check(fn(counter.data_ptr()), "the dW's staged-row counter")
-        try:
-            yield counter
-        finally:
-            torch.cuda.synchronize()
-            for fn in setters:
-                check(fn(None), "the dW's staged-row counter")
+    return counted(device, ("sparse_conv_dw_count_rows",
+                            "sparse_conv_bwd_count_dw_rows"), 2,
+                   "the dW's staged-row counter")
 
 
 def _check_gather_rows(name, t):

@@ -153,3 +153,108 @@ def replay_loss_draws(key, n_groups: int, n_voxels: int,
     return LossDraws(u(k_sel, max_pos_cluster, n_groups),
                      u(k1, max_hn_samples, n_voxels),
                      u(k2, max_hn_samples, n_voxels))
+
+
+# --- key-window cases (K10's and K2's window tables) ---------------------
+
+def _face_coords():
+    """One cloud of voxels on the faces of the key window: x, y at -512 /
+    511 (the two-word keys' window) and z at -64 / 63 (the packed keys'
+    z field), with neighbours inside, in key order; pads at the tail."""
+    from gcl_tpu_torch.core.types import INVALID_BATCH
+    xyz = np.array([(x, y, z) for x in (-512, -511, 0, 510, 511)
+                    for y in (-512, -511, 0, 511) for z in (-64, -63, 0, 62, 63)],
+                   np.int32)
+    xyz = xyz[np.lexsort((xyz[:, 2], xyz[:, 1], xyz[:, 0]))]
+    return _one_cloud(xyz, INVALID_BATCH)
+
+
+def _one_cloud(xyz, invalid):
+    n = len(xyz)
+    cap = -(-n // 256) * 256 + 256
+    coords = np.full((cap, 4), -1, np.int32)
+    coords[:, 0] = invalid
+    coords[:n, 0] = 0
+    coords[:n, 1:] = xyz
+    return coords, np.arange(cap) < n
+
+
+def _upmap_coords(seed=0):
+    """tests/test_core.py::test_upmap_window_soundness's level: ~4000
+    unique voxels of one cloud in key order, pads at the tail."""
+    from gcl_tpu_torch.core.types import INVALID_BATCH
+    rng = np.random.RandomState(seed)
+    pts = rng.randint(-30, 30, size=(4000, 2))
+    z = rng.randint(-16, 16, size=(4000, 1))
+    xyz = np.unique(np.concatenate([pts, z], axis=1), axis=0)
+    xyz = xyz[np.lexsort((xyz[:, 2], xyz[:, 1], xyz[:, 0]))]
+    return _one_cloud(xyz.astype(np.int32), INVALID_BATCH)
+
+
+def _clouds_level(seed, n_clouds, nv, n_points):
+    from gcl_tpu_torch.data.device_pipeline import voxelize_per_cloud
+    pts, pmask = clouds(seed, n_clouds, n_points)
+    flat = voxelize_per_cloud(torch.from_numpy(pts), torch.from_numpy(pmask),
+                              VOXEL, nv).flatten()
+    return to_np(flat.coords), to_np(flat.mask)
+
+
+# name -> (level-0 coords, mask, clouds, conv specs)
+def window_case(name: str):
+    from gcl_tpu_torch.core.kernel_maps import ConvSpec
+    s13 = [ConvSpec("block", 1, 1, 3), ConvSpec("down", 1, 2, 3),
+           ConvSpec("block2", 2, 2, 3)]
+    if name == "blocked_28":     # 4 x 7 clouds: cloud-blocked levels
+        return (*_clouds_level(11, 28, 160, 300), 28, fatbn_specs())
+    if name == "compacted_56":   # 8 x 7 clouds: one compacted run
+        return (*_clouds_level(12, 56, 64, 120), 56, fatbn_specs())
+    if name == "faces":
+        return (*_face_coords(), 1, [ConvSpec("conv1", 1, 1, 5)] + s13)
+    if name == "upmap_scale":
+        return (*_upmap_coords(), 1, [ConvSpec("conv1", 1, 1, 5)] + s13)
+    if name == "clouds_20_nv90":  # clouds >= 16, tiles that mix clouds
+        return (*_clouds_level(13, 20, 90, 260), 20,
+                [ConvSpec("conv1", 1, 1, 5), ConvSpec("block", 1, 1, 3)])
+    if name == "clouds_31_nv70":  # the most clouds packed keys address
+        return (*_clouds_level(14, 31, 70, 200), 31,
+                [ConvSpec("conv1", 1, 1, 5), ConvSpec("block", 1, 1, 3)])
+    raise KeyError(name)
+
+
+JOIN_WINDOW_CASES = ("blocked_28", "compacted_56", "faces", "upmap_scale")
+OCC_WINDOW_CASES = ("blocked_28", "clouds_20_nv90", "clouds_31_nv70",
+                    "faces", "upmap_scale")
+
+
+def join_window_geometries(name: str, device="cpu"):
+    """The explicit route's geometries of case ``name``: (map key, level
+    keys (key_hi, key_lo, perm), queries (qhi, qlo), out coords, in
+    stride, offsets) for every table build_graph makes."""
+    from gcl_tpu_torch.core import kernel_maps as tkm
+    coords, mask, n_clouds, specs = window_case(name)
+    caps = tkm.default_level_caps(len(coords), strides_of(specs), 0.7)
+    g = tkm.build_graph(torch.from_numpy(coords).to(device),
+                        torch.from_numpy(mask).to(device), specs, caps,
+                        n_clouds, method="explicit")
+    out = []
+    for key in sorted(g.kmaps):
+        a, b = key.split("/")[0].split("->")
+        s_in, s_out = int(a[1:]), int(b[1:])
+        k = int(key.split("/k")[1].split("d")[0])
+        offs = tkm.kernel_offsets(k) * min(s_in, s_out)
+        lv, lv_out = g.levels[s_in], g.levels[s_out]
+        qhi, qlo = tkm.two_word_query_keys(lv_out, s_in, offs)
+        out.append((key, (lv.key_hi, lv.key_lo, lv.perm), (qhi, qlo),
+                    lv_out.coords, s_in, offs))
+    return out
+
+
+def occupancy_window_inputs(name: str, side: int, device="cpu"):
+    """(aux, skeys) of case ``name``'s stride-1 level for an occupancy conv
+    of the given side, and the level's coords."""
+    from gcl_tpu_torch.core.kernel_maps import ConvSpec, build_graph
+    coords, mask, n_clouds, _ = window_case(name)
+    spec = ConvSpec("occ", 1, 1, side)
+    g = build_graph(torch.from_numpy(coords).to(device),
+                    torch.from_numpy(mask).to(device), [spec], {}, n_clouds)
+    return g.maps[spec.key].c1z, g.levels[1].skeys, g.levels[1].coords

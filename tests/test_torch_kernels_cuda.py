@@ -1,5 +1,6 @@
 """CUDA legs of the port's kernels (K1-K12): each kernel against its
-plain PyTorch version on the card, at small shapes with ragged tile edges.
+plain PyTorch version on the card, at small shapes with ragged tile edges
+(K10 and K2 also on the key-window cases of tests/_torch_parity.py).
 
 A CUDA kernel has no CPU mode, so these skip where
 torch.cuda.is_available() is false. On a machine with a card (no JAX
@@ -19,7 +20,10 @@ from gcl_tpu_torch.data.device_pipeline import (_batched_grid_core,
                                                 radius_knn)
 from gcl_tpu_torch.core import kernel_maps, sparse_ops
 from gcl_tpu_torch.kernels import (compacted_rows, counted_dw_rows,
-                                   counted_gather_rows, join_kmap, join_kmap_plain,
+                                   counted_gather_rows, counted_join_keys,
+                                   counted_occupancy_keys, join_kmap,
+                                   join_kmap_plain, join_windows,
+                                   occupancy_windows,
                                    sparse_conv_dw, sparse_conv_dw_plain,
                                    sparse_conv_table_fwd,
                                    sparse_conv_table_fwd_plain,
@@ -38,11 +42,15 @@ from gcl_tpu_torch.kernels import (compacted_rows, counted_dw_rows,
                                    windowed_cell_topk_exact,
                                    windowed_cell_topk_packed,
                                    windowed_cell_topk_plain)
+from gcl_tpu_torch.kernels.join_kmap import CHUNK as JOIN_CHUNK
+from gcl_tpu_torch.kernels.occupancy_conv import CHUNK as OCC_CHUNK
 from gcl_tpu_torch.models.resunet import ResUNetFatBN
 from gcl_tpu_torch.models.weights import random_state_dict
 
-from _torch_parity import (VOXEL, assert_bf16_close, assert_close_to_max,
-                           clouds, fatbn_specs, to_np)
+from _torch_parity import (JOIN_WINDOW_CASES, OCC_WINDOW_CASES, VOXEL,
+                           assert_bf16_close, assert_close_to_max, clouds,
+                           fatbn_specs, join_window_geometries,
+                           occupancy_window_inputs, to_np)
 
 pytestmark = pytest.mark.cuda
 
@@ -1143,3 +1151,58 @@ def test_bf16_model_on_card_matches_cpu(dev):
         drift = float((ref - runs["cpu32"][name]).abs().max())
         err = float((runs["card"][name] - ref).abs().max())
         assert err <= 2 * drift + 1e-6, (name, err, drift)
+
+
+# --- K10 and K2 inside their key windows (tests/test_torch_key_windows.py
+# checks the same tables' soundness on the CPU) ---
+
+@pytest.mark.parametrize("chunk", [JOIN_CHUNK, 6])
+@pytest.mark.parametrize("case", JOIN_WINDOW_CASES)
+def test_join_kernel_in_windows(dev, case, chunk):
+    """K10 on every geometry of the window cases (blocked and compacted
+    levels, every strided and transposed geometry of ResUNetFatBN, the key
+    window's faces, a level at test_upmap_window_soundness's scale) equal
+    to its plain version, at the default chunk and at 6 keys a chunk
+    (windows of many chunks); the keys its blocks stage, as the kernel
+    counts its copies, equal the plain torch table's sum (the table on the
+    card equal to the one on the CPU)."""
+    for key, (kh, kl, perm), (qhi, qlo), *_ in join_window_geometries(
+            case, dev):
+        win = join_windows(kh, kl, qhi, qlo)
+        assert torch.equal(win.cpu(), join_windows(
+            kh.cpu(), kl.cpu(), qhi.cpu(), qlo.cpu())), key
+        ref = join_kmap_plain(kh, kl, perm, qhi, qlo)
+        with counted_join_keys(dev) as counter:
+            got = join_kmap(kh, kl, perm, qhi, qlo, chunk=chunk)
+        assert torch.equal(got, ref), key
+        assert int(counter.item()) == int(win[1].sum()), key
+
+
+@pytest.mark.parametrize("chunk", [OCC_CHUNK, 3])
+@pytest.mark.parametrize("side", [3, 5])
+@pytest.mark.parametrize("case", OCC_WINDOW_CASES)
+def test_occupancy_kernel_in_windows(dev, case, side, chunk):
+    """K2 in float32 and bf16 on the window cases (clouds >= 16 and tiles
+    that mix clouds 15 and 16, the grid's faces), at the default chunk and
+    at 3 keys a chunk (a dz run split between chunks): sbits equal the
+    plain version's, out within 1e-5 (float32) or at the bf16 gate, and
+    the keys its blocks stage, as the kernel counts its copies, equal the
+    plain torch table's sum."""
+    aux, skeys, _ = occupancy_window_inputs(case, side, dev)
+    gen = torch.Generator().manual_seed(side)
+    w = torch.randn(side ** 3, 1, 32, generator=gen).to(dev)
+    win = occupancy_windows(aux, skeys, side)
+    assert torch.equal(win.cpu(), occupancy_windows(aux.cpu(), skeys.cpu(),
+                                                    side))
+    for dtype in (torch.float32, torch.bfloat16):
+        with counted_occupancy_keys(dev) as counter:
+            out, sbits = occupancy_conv_fwd(aux, skeys, w, dtype,
+                                            chunk=chunk)
+        ref, ref_bits = occupancy_conv_fwd_plain(aux, skeys, w, dtype)
+        assert torch.equal(sbits, ref_bits) and sbits.any()
+        assert int(counter.item()) == int(win[1].sum())
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+        else:
+            assert_bf16_close(out, ref, f"K2 {case}", _sum_bound(
+                occupancy_conv_fwd_plain, (aux, skeys, w, dtype)))

@@ -1,0 +1,150 @@
+"""Soundness of the key windows that K10 (the join) and K2 (the occupancy
+conv) search in: every key that the plain version resolves lies inside
+its tile's window from the window table, at scale and on the adversarial
+cases (ROADMAP Queue 3: test every window or bound at scale).
+
+The tables are plain torch, so they are checked here on the CPU. The
+kernels work out the same windows block by block and run only on the
+card: tests/test_torch_kernels_cuda.py holds them to their plain versions
+on the same cases, and the keys they stage to the tables' sums.
+"""
+import numpy as np
+import pytest
+import torch
+
+from gcl_tpu_torch.core.coords import searchsorted2
+from gcl_tpu_torch.core.types import INVALID_BATCH
+from gcl_tpu_torch.kernels import (join_kmap, join_kmap_plain, join_windows,
+                                   occupancy_conv_fwd,
+                                   occupancy_conv_fwd_plain,
+                                   occupancy_windows)
+from gcl_tpu_torch.kernels.join_kmap import TILE, num_offset_groups
+from gcl_tpu_torch.kernels.occupancy_conv import TILE as OCC_TILE
+from gcl_tpu_torch.kernels.occupancy_conv import neighbor_rows
+
+from _torch_parity import (JOIN_WINDOW_CASES, OCC_WINDOW_CASES,
+                           join_window_geometries, occupancy_window_inputs)
+
+SEN = 0x7FFFFFFF
+
+
+def _tile_any(v: torch.Tensor, tile: int) -> torch.Tensor:
+    """[..., N] bool -> [..., ceil(N / tile)]: any per tile."""
+    pad = -v.shape[-1] % tile
+    v = torch.cat([v, v.new_zeros((*v.shape[:-1], pad))], -1)
+    return v.reshape(*v.shape[:-1], -1, tile).any(-1)
+
+
+@pytest.mark.parametrize("case", JOIN_WINDOW_CASES)
+def test_join_windows_hold_every_match(case):
+    """Every geometry of the case: every query that finds a row finds it
+    at a position inside its (offset group, tile) window; a tile whose
+    group has no valid query has an empty window. The cases between them
+    hold tiles without a valid query and tiles over several x-slabs."""
+    empty = straddle = 0
+    for key, (kh, kl, perm), (qhi, qlo), oc, s_in, offs in \
+            join_window_geometries(case):
+        win = join_windows(kh, kl, qhi, qlo)
+        k_all, n_out = qhi.shape
+        grp = num_offset_groups(k_all)
+        kg = k_all // grp
+        assert win.shape == (2, grp, -(-n_out // TILE)), key
+        kmap = join_kmap_plain(kh, kl, perm, qhi, qlo)
+        k, i = torch.nonzero(kmap >= 0, as_tuple=True)
+        assert len(k) > 0, key
+        pos = searchsorted2(kh, kl, qhi[k, i], qlo[k, i])
+        start, length = win[0][k // kg, i // TILE], win[1][k // kg, i // TILE]
+        assert bool(((pos >= start) & (pos < start + length)).all()), key
+        valid = _tile_any((qhi != SEN).reshape(grp, kg, n_out).any(1), TILE)
+        assert bool((win[1][~valid] == 0).all()), key
+        assert bool((win[1] <= kh.shape[0]).all()), key
+        empty += int((~valid).sum())
+        live, x, big = oc[:, 0] < INVALID_BATCH, oc[:, 1].long(), 1 << 20
+        pad = x.new_full((-x.shape[0] % TILE,), big)
+        lo = torch.cat([torch.where(live, x, big), pad]).reshape(-1, TILE)
+        hi = torch.cat([torch.where(live, x, -big), -pad]).reshape(-1, TILE)
+        straddle += int((hi.amax(1) > lo.amin(1)).sum())
+    assert straddle > 0, "no tile spans several x-slabs"
+    if case in ("blocked_28", "faces", "upmap_scale"):
+        assert empty > 0, "no tile without a valid query"
+
+
+def test_join_windows_group_offsets_by_dx():
+    """A cubic table's offsets fall into one group per dx (side^2 offsets
+    each, kernel_offsets order), so a tile's window per group spans the
+    keys of one x-slab; any other table is one group."""
+    assert [num_offset_groups(k) for k in (1, 8, 27, 125, 343, 2, 26)] \
+        == [1, 2, 3, 5, 7, 1, 1]
+    (key, (kh, kl, perm), (qhi, qlo), *_), *_ = join_window_geometries(
+        "faces")
+    win = join_windows(kh, kl, qhi, qlo)
+    one = join_windows(kh, kl, qhi[:26], qlo[:26])
+    assert one.shape[1] == 1 and win.shape[1] == num_offset_groups(
+        qhi.shape[0]) > 1
+    # the group of offsets 0..side^2 - 1 spans no more than all 26 offsets
+    assert bool((win[1][0] <= one[1][0]).all()), key
+
+
+def test_join_windows_change_nothing_on_the_cpu():
+    """On the CPU the join takes its plain version, which searches the
+    whole level: the keys staged at a time change nothing."""
+    for key, (kh, kl, perm), (qhi, qlo), *_ in join_window_geometries(
+            "faces"):
+        assert torch.equal(join_kmap(kh, kl, perm, qhi, qlo, chunk=6),
+                           join_kmap_plain(kh, kl, perm, qhi, qlo)), key
+
+
+@pytest.mark.parametrize("side", [3, 5])
+@pytest.mark.parametrize("case", OCC_WINDOW_CASES)
+def test_occupancy_windows_hold_every_neighbour(case, side):
+    """Every present neighbour (row i, offset (dx, dy, dz)) that the plain
+    version finds lies inside the window of i's tile at dx: in its
+    negative-key run if its key is negative, else in the non-negative run.
+    The negative run lies before the non-negative one, so the two staged
+    one after the other stay sorted; a tile with no row that can have a
+    neighbour (pads only) has empty windows."""
+    aux, skeys, coords = occupancy_window_inputs(case, side)
+    n, nk, tile = aux.shape[0], skeys.shape[0], OCC_TILE
+    win = occupancy_windows(aux, skeys, side)
+    n_tiles = -(-n // tile)
+    assert win.shape == (2, side, n_tiles, 2)
+    pos = neighbor_rows(aux, skeys, torch.arange(nk, dtype=torch.int32),
+                        side)
+    i, k = torch.nonzero(pos >= 0, as_tuple=True)
+    assert len(i) > 0
+    p = pos[i, k].long()
+    half = (skeys[p] >= 0).long()
+    g, t = k // (side * side), i // tile
+    start, length = win[0][g, t, half], win[1][g, t, half]
+    assert bool(((p >= start) & (p < start + length)).all())
+    s, ln = win[0].long(), win[1].long()
+    assert bool((ln >= 0).all() and (s + ln <= nk).all())
+    both = (ln[..., 0] > 0) & (ln[..., 1] > 0)
+    assert bool((s[..., 0] + ln[..., 0] <= s[..., 1])[both].all())
+    assert bool((skeys[s[..., 0][ln[..., 0] > 0]] < 0).all())
+    assert bool((skeys[s[..., 1][ln[..., 1] > 0]] >= 0).all())
+    live = _tile_any(aux[:, 1] > -(1 << 19), tile)
+    assert bool((win[1][:, ~live] == 0).all())
+    if case.startswith("clouds_"):
+        # tiles that mix clouds, one with clouds 15 and 16 (keys of both
+        # signs), both runs non-empty there
+        cloud = torch.where(coords[:, 0] < INVALID_BATCH, coords[:, 0], -1)
+        pad = -n % tile
+        c = torch.cat([cloud, cloud.new_full((pad,), -1)]).reshape(-1, tile)
+        has = lambda v: (c == v).any(1)
+        mixed = has(15) & has(16)
+        assert bool(mixed.any())
+        assert bool((win[1][side // 2, mixed] > 0).all())
+
+
+@pytest.mark.parametrize("case", OCC_WINDOW_CASES)
+def test_occupancy_windows_change_nothing_on_the_cpu(case):
+    """On the CPU the forward takes its plain version: the keys staged at a
+    time change nothing."""
+    aux, skeys, _ = occupancy_window_inputs(case, 5)
+    w = torch.from_numpy(np.random.RandomState(0).randn(125, 1, 8)
+                         .astype(np.float32))
+    out, sbits = occupancy_conv_fwd(aux, skeys, w, None, chunk=3)
+    ref, ref_bits = occupancy_conv_fwd_plain(aux, skeys, w)
+    assert torch.equal(out, ref) and torch.equal(sbits, ref_bits)
+    assert bool(sbits.any())
