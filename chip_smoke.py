@@ -27,7 +27,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    atomics): K7's dX and dW for every k=3 geometry at its real Cin / Cout,
    K7's dX also against K6 through the reverse map with flipped transposed
    weights, K3, K4 (a dense random x, and the gated eps case bit for bit
-   against the ungated kernel), K5, and K6 / K2 again at these shapes (K6
+   against the ungated kernel), K5 (the keys each K4 and K5 launch stages,
+   dense and gated, counted by the kernel in a launch of its own, equal to
+   the plain torch window table of the rows it flags), and K6 / K2 again
+   at these shapes (K6
    also against itself, bit for bit; K2's blocks work out their key
    windows themselves, and the keys they stage into shared memory,
    counted by the kernel in a launch of its own, are required equal to
@@ -231,12 +234,43 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _aux_bytes(aux) -> int:
+    """The bytes of aux that the conv1 kernels (K2, K4, K5, K9) read:
+    columns 0-3 (the key and the grid coords; columns 4-7 are padding they
+    never read)."""
+    return 16 * aux.shape[0]
+
+
 def _k2_bytes(aux, skeys, w, out, sbits) -> int:
-    """The bytes K2 must move: columns 0-3 of aux (the key and the grid
-    coords; columns 4-7 are padding it never reads), the level's keys, W
-    in out's type, out and sbits."""
-    return (16 * aux.shape[0] + _nbytes(skeys, out, sbits)
+    """The bytes K2 must move: aux's used columns, the level's keys, W in
+    out's type, out and sbits."""
+    return (_aux_bytes(aux) + _nbytes(skeys, out, sbits)
             + w.numel() * out.element_size())
+
+
+def _flagged_bytes(aux, skeys, row_sel, side: int, *per_row) -> int:
+    """The bytes a gated K4 or K5 launch must read besides W: the row
+    flags, and for the flagged rows only aux's used columns and each
+    per-row tensor of per_row (x, and K5's g); the level's keys and their
+    rows (skeys and srow, 8 bytes a key) once for each key that a flagged
+    row's neighbour can be, the union of the flagged tiles' windows
+    (occupancy_windows with row_sel)."""
+    import torch
+
+    from gcl_tpu_torch.kernels import occupancy_windows
+
+    start, length = occupancy_windows(aux, skeys, side, row_sel).flatten(
+        1).long()
+    start, length = start[length > 0], length[length > 0]
+    edge = torch.zeros(skeys.shape[0] + 1, dtype=torch.int64,
+                       device=skeys.device)
+    edge.index_add_(0, start, torch.ones_like(start))
+    edge.index_add_(0, start + length, -torch.ones_like(start))
+    keys = int((edge.cumsum(0)[:-1] > 0).sum())
+    flagged = int((row_sel > 0).sum())
+    return (row_sel.numel() * row_sel.element_size() + 8 * keys
+            + flagged * (_aux_bytes(aux[:1]) + sum(
+                t[:1].numel() * t.element_size() for t in per_row)))
 
 
 def _bound(n_bytes: float, flops: float, products=None):
@@ -500,7 +534,8 @@ def train_kernel_checks(dev, dtype=None) -> dict:
     from gcl_tpu_torch.core.coords import lookup
     from gcl_tpu_torch.core.kernel_maps import build_graph
     from gcl_tpu_torch.data.device_pipeline import voxelize_per_cloud
-    from gcl_tpu_torch.kernels import KERNELS, c1z_unpack_bits, compacted_rows
+    from gcl_tpu_torch.kernels import (KERNELS, c1z_unpack_bits,
+                                       compacted_rows, counted_scalar_keys)
 
     points, pmask, _, _ = bench.bench_batch(SEED, BATCH, N_POINTS, dev)
     n_clouds = BATCH * bench.N_CLOUDS
@@ -657,22 +692,36 @@ def train_kernel_checks(dev, dtype=None) -> dict:
                       n_bytes=_nbytes(sbits, g1, w1), outs=lambda o: (o,))
     # K4 / K5: a dense random x for the function itself; then the train
     # step's case, x zero off the jittered centre clouds and those rows
-    # flagged, which is what the step launches and what is timed
+    # flagged, which is what the step launches and what is timed. The keys
+    # each launch stages (a launch of its own) must equal the window table
+    # of the rows it flags, in both cases.
     geo = (c1.c1z, lv.skeys, lv.srow)
-    run("K4", (x1, w1, *geo), mult=0, outs=lambda o: (o,))
-    run("K5", (x1, g1, *geo, 125), mult=0, outs=lambda o: (o,))
     sel = ((torch.remainder(lv.coords[:, 0], bench.N_CLOUDS) == 0)
            & lv.mask).to(torch.float32)
     xs = (x1.float() * sel[:, None]).to(dtype)
+    for xk, flag, case in ((x1, None, "dense"), (xs, sel, "gated")):
+        for k, args in (("K4", (xk, w1, *geo, flag)),
+                        ("K5", (xk, g1, *geo, 125, flag))):
+            rec[k][f"staged_keys_per_flagged_row_{case}"] = _window_keys(
+                counted_scalar_keys(dev), lambda: KERNELS[k][0](*args),
+                c1.c1z, lv.skeys, 5, flag, f"{k} {case} ({form})")
+    run("K4", (x1, w1, *geo), mult=0, outs=lambda o: (o,))
+    run("K5", (x1, g1, *geo, 125), mult=0, outs=lambda o: (o,))
+    # the gated launches' bytes: K4 writes every row of out, K5 all of dW
+    # (W's size); both read only what the flagged rows need
     sel_pairs = int((bits * sel[:, None].to(torch.int32)).sum())
+    gated_reads = dict(K4=_flagged_bytes(c1.c1z, lv.skeys, sel, 5, xs),
+                       K5=_flagged_bytes(c1.c1z, lv.skeys, sel, 5, xs, g1))
     gated, e4, _, _ = run(
         "K4", (xs, w1, *geo, sel), flops=2 * sel_pairs * 32,
-        n_bytes=_nbytes(xs, w1, *geo, sel, out), outs=lambda o: (o,))
+        n_bytes=(_nbytes(w1) + n * w1.shape[2] * xs.element_size()
+                 + gated_reads["K4"]), outs=lambda o: (o,))
     _require(torch.equal(gated, KERNELS["K4"][0](xs, w1, *geo, None)),
              "K4 with the row flag equals K4 without it, bit for bit")
     _, e5, _, _ = run(
         "K5", (xs, g1, *geo, 125, sel), flops=2 * sel_pairs * 32,
-        n_bytes=_nbytes(xs, g1, *geo, sel, w1), outs=lambda o: (o,))
+        n_bytes=_nbytes(w1) + gated_reads["K5"],
+        outs=lambda o: (o,))
     _rel_err(KERNELS["K5"][0](xs, g1, *geo, 125, sel),
              KERNELS["K5"][0](xs, g1, *geo, 125, None),
              "K5 with the row flag against K5 without it")
@@ -681,7 +730,9 @@ def train_kernel_checks(dev, dtype=None) -> dict:
     # float32 as the adjoint of K4 (in bf16 both sides round to bf16)
     w9 = w1.to(dtype).float()
     dx, e9, _, _ = run("K9", (g1, w9, *geo), flops=2 * present * 32,
-                       n_bytes=_nbytes(g1, w9, *geo, x1), outs=lambda o: (o,))
+                       n_bytes=(_nbytes(g1, w9, x1, lv.skeys, lv.srow)
+                                + _aux_bytes(c1.c1z)),
+                       outs=lambda o: (o,))
     adj = float("nan")
     if not bf16:
         fwd = KERNELS["K4"][0](x1, w1, *geo)
@@ -705,7 +756,11 @@ def train_kernel_checks(dev, dtype=None) -> dict:
     _require(torch.equal(xr.grad, dx), "ScalarConv's dX is K9's")
     print(f"conv1 k5 1->32 ({form}; {present} present pairs, {sel_pairs} on "
           f"the centre clouds): K3 rel_err {e3:.3g}, K4 gated {e4:.3g}, "
-          f"K5 gated {e5:.3g}, K9 {e9:.3g} (adjoint identity {adj:.3g})")
+          f"K5 gated {e5:.3g}, K9 {e9:.3g} (adjoint identity {adj:.3g}); "
+          f"gated bytes K4 {rec['K4']['bytes'] / 1e6:.3f} MB, K5 "
+          f"{rec['K5']['bytes'] / 1e6:.3f} MB, of which reads of the flagged "
+          f"rows and windows {gated_reads['K4'] / 1e6:.3f} / "
+          f"{gated_reads['K5'] / 1e6:.3f} MB")
     _bounds(rec, f"train step ({form})", bf16)
     print(f"work of the 20 k=3 convs per train step ({form}): matched "
           f"{work['matched'] / 1e9:.1f} GFLOP a direction; executed, as the "
@@ -733,27 +788,41 @@ def train_kernel_checks(dev, dtype=None) -> dict:
 
 
 def _k2_windows(dev, aux, skeys, w, dtype, what: str) -> dict:
-    """K2's key windows: the keys the forward's blocks stage, as the kernel
-    counts the copies its threads issue (a launch of its own, not a timed
-    one), required equal to the sum of the plain torch window table's
-    lengths; returns them a valid row."""
-    import torch
-
-    from gcl_tpu_torch.kernels import (KERNELS, counted_occupancy_keys,
-                                       occupancy_windows)
+    """K2's key windows: the keys the forward's blocks stage, as
+    _window_keys counts them; returns them a valid row."""
+    from gcl_tpu_torch.kernels import KERNELS, counted_occupancy_keys
 
     side = round(w.shape[0] ** (1 / 3))
-    win = occupancy_windows(aux, skeys, side)
-    with counted_occupancy_keys(dev) as counter:
-        KERNELS["K2"][0](aux, skeys, w, dtype)
+    return dict(staged_keys_per_valid_row=_window_keys(
+        counted_occupancy_keys(dev),
+        lambda: KERNELS["K2"][0](aux, skeys, w, dtype), aux, skeys, side,
+        None, f"K2 {what}"))
+
+
+def _window_keys(counted, launch, aux, skeys, side: int, row_sel,
+                 what: str) -> float:
+    """The keys that a launch of K2, K4 or K5 (launch(): one of its own,
+    not a timed one) stages, as the kernel counts the copies its threads
+    issue inside ``counted`` (kernels.counted_occupancy_keys or
+    counted_scalar_keys on the card), required equal to the sum of the
+    plain torch window table of the rows it flags (row_sel; None: every
+    row); returns them a flagged valid row."""
+    from gcl_tpu_torch.kernels import occupancy_windows
+
+    win = occupancy_windows(aux, skeys, side, row_sel)
+    with counted as counter:
+        launch()
     staged, in_table = int(counter.item()), int(win[1].sum())
-    _require(staged == in_table, f"K2 {what}: staged {staged} keys, the "
-                                 f"window table sums to {in_table}")
-    rows = int((aux[:, 1] > -(1 << 19)).sum())
-    print(f"K2 {what}: staged {staged} keys = the window table's sum, "
-          f"{staged / rows:.4f} a valid row ({rows} rows, {side} dx windows "
-          f"a row)")
-    return dict(staged_keys_per_valid_row=staged / rows)
+    _require(staged == in_table, f"{what}: staged {staged} keys, the window "
+                                 f"table sums to {in_table}")
+    rows = aux[:, 1] > -(1 << 19)
+    if row_sel is not None:
+        rows = rows & (row_sel > 0)
+    rows = int(rows.sum())
+    print(f"{what}: staged {staged} keys = the window table's sum, "
+          f"{staged / rows:.4f} a flagged valid row ({rows} rows, {side} dx "
+          f"windows a row)")
+    return staged / rows
 
 
 def _cancellation(x, w, qkey, skeys, srow, out, ref, what: str) -> None:
@@ -1674,8 +1743,10 @@ def main() -> None:
         serving_ms=k2_ms, serving_plain_ms=k2_plain_ms,
         serving_bound_ms=k2_bound[0],
         **{f"serving_{k}": v for k, v in k2_win.items()})
-    windowed = ("staged_keys_per_valid_row", "staged_keys_per_valid_query")
-    for i in (2, 10):  # K2 (each form), K10
+    windowed = ("staged_keys_per_valid_row", "staged_keys_per_valid_query",
+                "staged_keys_per_flagged_row_gated",
+                "staged_keys_per_flagged_row_dense")
+    for i in (2, 4, 5, 10):  # K2, K4, K5 (each form), K10
         for row, r in ((kernels[i], rec16.get(table[i][0], rec[table[i][0]])),
                        (kernels[i].get("float32"), rec[table[i][0]])):
             if row is not None:

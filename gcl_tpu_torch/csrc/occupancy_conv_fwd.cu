@@ -29,7 +29,8 @@
 // torch). The block stages the runs of all dx one
 // after the other into shared memory -- each dx's negative run before its
 // non-negative one, so each dx's keys stay sorted -- with cp.async, in
-// chunks double-buffered when they exceed one. In a chunk, one lower bound
+// chunks double-buffered when they exceed one (the cube windows of
+// csrc/key_window.cuh, which K4 and K5 share). In a chunk, one lower bound
 // in shared memory at the dz = -R key of each (row, dx, dy), then at most
 // side consecutive keys, set the side dz bits: side^2 short searches a row
 // in shared memory in place of side^3 long ones in global memory.
@@ -44,12 +45,9 @@
 // it in float32 as above and rounds each output to bf16 once; sbits are
 // the same.
 
-#include <climits>
-
 #include <cuda_runtime.h>
 
 #include "elem.cuh"
-#include "key_search.cuh"
 #include "key_window.cuh"
 
 namespace {
@@ -57,7 +55,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTile = 128;    // rows of a tile: occupancy_conv.TILE
 constexpr int kMaxSide = 5;   // occupancy_conv.MAX_SIDE
-constexpr int kRowWarps = kTile / 32;
 
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
@@ -69,10 +66,6 @@ __device__ __forceinline__ void store4(bf16* p, float4 v) {
   u.x = *reinterpret_cast<unsigned int*>(&a);
   u.y = *reinterpret_cast<unsigned int*>(&b);
   *reinterpret_cast<uint2*>(p) = u;
-}
-
-__device__ __forceinline__ int clamp_int32(long long v) {
-  return static_cast<int>(max((long long)INT_MIN, min((long long)INT_MAX, v)));
 }
 
 // T: the element type of w and out (float or bf16); sums are float32
@@ -87,20 +80,11 @@ occupancy_conv_fwd_kernel(const int* __restrict__ aux,
   extern __shared__ __align__(16) float ws[];
   __shared__ unsigned int bits_s[kTile][8];
   __shared__ int aux_s[kTile][4];
-  // per row warp, dx group and run: the least and greatest key (run 0:
-  // negative keys, run 1: non-negative ones), then the same over the tile
-  __shared__ long long red[kRowWarps][kMaxSide][2][2];
-  __shared__ long long bnd[kMaxSide][2][2];
-  __shared__ int ends[kMaxSide][2][2];
-  // window of dx group g: run h of it at s0[g][h], ln[g][h] keys; it sits at
-  // [off[g], off[g + 1]) of the staged sequence
-  __shared__ int s0[kMaxSide][2], ln[kMaxSide][2], off[kMaxSide + 1];
+  __shared__ kw::CubeWindows<kTile, kMaxSide> cw;
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
   const int kvol = side * side * side;
   const int s2 = side * side;
-  const int rad = side / 2;
   const int row0 = blockIdx.x * kTile;
   int* keys = reinterpret_cast<int*>(ws + kvol * cout);
 
@@ -111,140 +95,33 @@ occupancy_conv_fwd_kernel(const int* __restrict__ aux,
     aux_s[e / 4][e % 4] = i < n ? __ldg(aux + (size_t)i * 8 + e % 4) : 0;
   }
   __syncthreads();
+  kw::cube_windows<kTile, kMaxSide, kThreads>(cw, aux_s, nullptr, n - row0,
+                                              side, skeys, n_keys);
 
-  // The windows. A row that can have a neighbour at dx (its y and z within
-  // R of the grid, x + dx on it) has them among the keys [q + (dx << (BY +
-  // BZ)) - (R << BZ) - R, q + (dx << (BY + BZ)) + (R << BZ) + R], split at
-  // 0 into a negative and a non-negative part.
-  if (warp < kRowWarps) {
-    const int lr = tid;
-    const bool row = row0 + lr < n && aux_s[lr][2] >= -rad &&
-                     aux_s[lr][2] < (1 << kKeyBY) + rad &&
-                     aux_s[lr][3] >= -rad &&
-                     aux_s[lr][3] < (1 << kKeyBZ) + rad;
-    const long long reach = (long long)rad * (1 << kKeyBZ) + rad;
-    for (int g = 0; g < side; ++g) {
-      const int dx = g - rad;
-      const bool live = row && aux_s[lr][1] + dx >= 0 &&
-                        aux_s[lr][1] + dx < (1 << kKeyBX);
-      const long long lo = (long long)aux_s[lr][0] +
-                           (long long)dx * (1 << (kKeyBY + kKeyBZ)) - reach;
-      const long long hi = lo + 2 * reach;
-      const bool neg = live && lo < 0, pos = live && hi >= 0;
-      const long long nlo = kw::warp_reduce<false>(neg ? lo : LLONG_MAX);
-      const long long nhi =
-          kw::warp_reduce<true>(neg ? min(hi, -1LL) : LLONG_MIN);
-      const long long plo =
-          kw::warp_reduce<false>(pos ? max(lo, 0LL) : LLONG_MAX);
-      const long long phi = kw::warp_reduce<true>(pos ? hi : LLONG_MIN);
-      if (lane == 0) {
-        red[warp][g][0][0] = nlo;
-        red[warp][g][0][1] = nhi;
-        red[warp][g][1][0] = plo;
-        red[warp][g][1][1] = phi;
-      }
-    }
-  }
-  __syncthreads();
-  if (tid < 4 * side) {
-    const int g = tid >> 2, h = (tid >> 1) & 1, e = tid & 1;
-    long long r = e ? LLONG_MIN : LLONG_MAX;
-    for (int wp = 0; wp < kRowWarps; ++wp) {
-      r = e ? max(r, red[wp][g][h][e]) : min(r, red[wp][g][h][e]);
-    }
-    bnd[g][h][e] = r;
-  }
-  __syncthreads();
-  // end e of run h of dx group g: the first key >= its least key (e = 0)
-  // or > its greatest (e = 1), one warp a search
-  for (int j = warp; j < 4 * side; j += kThreads / 32) {
-    const int g = j >> 2, h = (j >> 1) & 1, e = j & 1;
-    if (bnd[g][h][0] > bnd[g][h][1]) continue;
-    const int v = clamp_int32(bnd[g][h][e]);
-    const int p = kw::warp_partition_point(n_keys, [&](int p) {
-      const int k = __ldg(skeys + p);
-      return e ? k <= v : k < v;
-    });
-    if (lane == 0) ends[g][h][e] = p;
-  }
-  __syncthreads();
-  if (tid < 2 * side) {
-    const int g = tid >> 1, h = tid & 1;
-    const bool any = bnd[g][h][0] <= bnd[g][h][1];
-    s0[g][h] = any ? ends[g][h][0] : 0;
-    ln[g][h] = any ? max(ends[g][h][1] - ends[g][h][0], 0) : 0;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    off[0] = 0;
-    for (int g = 0; g < side; ++g) off[g + 1] = off[g] + ln[g][0] + ln[g][1];
-  }
-  __syncthreads();
-  const int total = off[side];
-  const int nch = (total + chunk - 1) / chunk;
-
-  // copy positions [c * chunk, ...) of the staged sequence into buf,
-  // counting the keys this thread issues copies for
-  unsigned int staged = 0u;
-  auto stage = [&](int* buf, int c) {
-    const int c0 = c * chunk, c1 = min(total, c0 + chunk);
-    for (int g = 0; g < side; ++g) {
-      const int a = max(off[g], c0), b = min(off[g + 1], c1);
-      for (int e = a + tid; e < b; e += kThreads, ++staged) {
-        const int v = e - off[g];
-        kw::cp_async4(buf + (e - c0),
-                      skeys + (v < ln[g][0] ? s0[g][0] + v
-                                            : s0[g][1] + v - ln[g][0]));
-      }
-    }
-    kw::cp_async_commit();
-  };
-
-  if (nch > 0) stage(keys, 0);
-  for (int c = 0; c < nch; ++c) {
-    const int* buf = keys + (c & 1) * chunk;
-    if (c + 1 < nch) {
-      stage(keys + ((c + 1) & 1) * chunk, c + 1);
-      kw::cp_async_wait<1>();
-    } else {
-      kw::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int c0 = c * chunk, c1 = min(total, c0 + chunk);
-    for (int e = tid; e < kTile * s2; e += kThreads) {
-      const int lr = e / s2;
-      const int g = (e % s2) / side;
-      const int dyi = e % side;
-      // dx group g's keys in this chunk: buf[a, b)
-      const int a = max(off[g], c0) - c0, b = min(off[g + 1], c1) - c0;
-      if (a >= b || row0 + lr >= n) continue;
-      const int ux = aux_s[lr][1] + g - rad;
-      const int uy = aux_s[lr][2] + dyi - rad;
-      if (ux < 0 || ux >= (1 << kKeyBX) || uy < 0 || uy >= (1 << kKeyBY)) {
-        continue;
-      }
-      // the keys of dz = -R .. R (no carry past the z field when dx and dy
-      // stay in range; int64 so that the ends of the run cannot wrap)
-      const long long lo = (long long)aux_s[lr][0] +
-                           (long long)(g - rad) * (1 << (kKeyBY + kKeyBZ)) +
-                           (long long)(dyi - rad) * (1 << kKeyBZ) - rad;
-      const long long hi = lo + 2 * rad;
-      if (hi < buf[a] || lo > buf[b - 1]) continue;
-      const int uz = aux_s[lr][3];
-      unsigned int found = 0u;
-      int p = lo < buf[a] ? a
-                          : a + kw::smem_lower_bound(buf + a, b - a, (int)lo);
-      for (; p < b && buf[p] <= hi; ++p) {
-        const int dzi = static_cast<int>(buf[p] - lo);
-        const int z = uz + dzi - rad;
-        if (z >= 0 && z < (1 << kKeyBZ)) found |= 1u << dzi;
-      }
-      if (found) atomicOr(&bits_s[lr][g], found << (dyi * side));
-    }
-    __syncthreads();  // the buffer is staged over two chunks later
-  }
-  __syncthreads();  // bits_s, also where no window had keys
-  kw::count_staged_keys(staged);
+  // In a chunk, one lower bound at the dz = -R key of each (row, dx, dy)
+  // and a scan of at most side keys set its side dz bits.
+  kw::for_each_window_chunk<kTile, kMaxSide, kThreads>(
+      cw, side, skeys, keys, chunk, [](int, int) {},
+      [&](int, const int* buf, int, int c0, int c1) {
+        for (int e = tid; e < kTile * s2; e += kThreads) {
+          const int lr = e / s2;
+          const int g = (e % s2) / side;
+          const int dyi = e % side;
+          int a, b, first;
+          long long lo;
+          if (row0 + lr >= n || !kw::chunk_run(cw, g, c0, c1, &a, &b) ||
+              !kw::cube_run_keys(aux_s[lr], g, dyi, side, &lo) ||
+              lo + 2 * (side / 2) < buf[a] || lo > buf[b - 1]) {
+            continue;
+          }
+          int p = lo < buf[a]
+                      ? a
+                      : a + kw::smem_lower_bound(buf + a, b - a, (int)lo);
+          const unsigned int found =
+              kw::cube_run_scan(buf, &p, b, lo, aux_s[lr][3], side, &first);
+          if (found) atomicOr(&bits_s[lr][g], found << (dyi * side));
+        }
+      });
 
   for (int e = tid; e < kTile * 8; e += kThreads) {
     const int i = row0 + e / 8;

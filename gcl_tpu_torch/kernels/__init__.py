@@ -12,7 +12,8 @@ from .occupancy_conv import (c1z_unpack_bits, counted_occupancy_keys,
                              occupancy_windows)
 from .radius_topk import (windowed_cell_topk, windowed_cell_topk_exact,
                           windowed_cell_topk_packed, windowed_cell_topk_plain)
-from .scalar_conv import (scalar_conv_dw, scalar_conv_dw_plain,
+from .scalar_conv import (counted_scalar_keys, scalar_conv_dw,
+                          scalar_conv_dw_plain,
                           scalar_conv_dx, scalar_conv_dx_plain,
                           scalar_conv_fwd, scalar_conv_fwd_plain)
 from .sparse_conv import (compacted_rows, counted_dw_rows,

@@ -34,8 +34,8 @@ SIGNATURES = {
     "occupancy_conv_fwd": [_P] * 5 + [_I] * 5 + [_P],
     "sparse_conv_implicit_bwd": [_P] * 8 + [_I] * 6 + [_P],
     "occupancy_conv_dw": [_P] * 3 + [_I] * 3 + [_P],
-    "scalar_conv_fwd": [_P] * 7 + [_I] * 4 + [_P],
-    "scalar_conv_dw": [_P] * 7 + [_I] * 4 + [_P],
+    "scalar_conv_fwd": [_P] * 7 + [_I] * 5 + [_P],
+    "scalar_conv_dw": [_P] * 7 + [_I] * 5 + [_P],
     "scalar_conv_dx": [_P] * 7 + [_I] * 4 + [_P],
     "windowed_cell_topk": [_P] * 10 + [_I] * 5 + [ctypes.c_float, _P],
     "join_kmap": [_P] * 6 + [_I] * 6 + [_P],
@@ -48,6 +48,7 @@ SIGNATURES = {
     "sparse_conv_dw_count_rows": [_P],
     "join_kmap_count_keys": [_P],
     "occupancy_conv_fwd_count_keys": [_P],
+    "scalar_conv_count_keys": [_P],
 }
 
 # the bf16 forms of the conv kernels take their float32 forms' arguments

@@ -23,6 +23,8 @@ stages are counted against.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -63,8 +65,9 @@ def neighbor_rows(aux: torch.Tensor, skeys: torch.Tensor,
     return torch.where(in_range, lookup(skeys, srow, nkey), -1)
 
 
-def occupancy_windows(aux: torch.Tensor, skeys: torch.Tensor,
-                      side: int) -> torch.Tensor:
+def occupancy_windows(aux: torch.Tensor, skeys: torch.Tensor, side: int,
+                      row_sel: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """int32[2, side, ceil(N / TILE), 2]: [0] the first position and [1]
     the length of the runs of skeys that hold every neighbour, at dx group
     g, of the rows of each tile: [..., 0] the run of negative keys, [..., 1]
@@ -73,8 +76,10 @@ def occupancy_windows(aux: torch.Tensor, skeys: torch.Tensor,
     cloud between). A row's neighbours at dx lie among the keys q + (dx <<
     (BY + BZ)) + (dy << BZ) + dz, |dy|, |dz| <= R, q = aux[:, 0], where the
     neighbour's coords are in range (then no field carries); rows that
-    have no neighbour at dx (pads included) stay out of the bounds. The
-    windows that the forward kernel's blocks stage."""
+    have no neighbour at dx (pads included) stay out of the bounds, and
+    so do the rows with ``row_sel`` <= 0 where a row flag f32[N] is given.
+    The windows that the blocks of K2 (no flag) and of K4 / K5 (their
+    ``row_sel``) stage."""
     bx, by, bz = DEFAULT_KEY_BITS
     r = side // 2
     dev = aux.device
@@ -84,6 +89,8 @@ def occupancy_windows(aux: torch.Tensor, skeys: torch.Tensor,
     dx = torch.arange(-r, r + 1, device=dev)[:, None]
     ux = u[None, :, 0] + dx                                   # [side, N]
     live = yz & (ux >= 0) & (ux < (1 << bx))
+    if row_sel is not None:
+        live = live & (row_sel > 0)
     reach = (r << bz) + r
     lo = aux[None, :, 0].long() + (dx << (by + bz)) - reach
     hi = lo + 2 * reach

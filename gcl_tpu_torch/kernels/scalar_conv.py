@@ -16,6 +16,11 @@ x and g are float32 or bf16 (g in x's type); W stays float32 in both, as
 gcl_tpu's c1 / co1 kernels keep it: products and sums are float32, out and
 dX rounded to the features' type once, dW float32. The bf16 forms are the
 kernels' ``*_bf16`` entry points.
+
+K4 and K5 resolve the neighbours of a tile of flagged rows inside the
+windows of the level's sorted keys that K2 stages
+(``occupancy_conv.occupancy_windows`` with their ``row_sel`` is the same
+table in plain torch); ``counted_scalar_keys`` counts the keys they stage.
 """
 from __future__ import annotations
 
@@ -23,8 +28,10 @@ from typing import Optional
 
 import torch
 
-from .build import check, check_features, entry, summing
+from .build import check, check_features, counted, entry, summing
 from .occupancy_conv import cube_side, neighbor_rows
+
+CHUNK = 1024  # keys K4 and K5 stage at a time
 
 
 def _matched_scalars(x, aux, skeys, srow, row_sel, side):
@@ -112,9 +119,15 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _check_chunk(chunk: int) -> None:
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+
+
 def scalar_conv_fwd(x: torch.Tensor, w: torch.Tensor, aux: torch.Tensor,
                     skeys: torch.Tensor, srow: torch.Tensor,
-                    row_sel: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    row_sel: Optional[torch.Tensor] = None, *,
+                    chunk: int = CHUNK) -> torch.Tensor:
     """out [N, Cout] in x's type = sum_k x[match(k, i)] * w[k, 0, :].
 
     x f32 or bf16 [N, 1] (any values), w f32[side^3, 1, Cout] with odd
@@ -122,12 +135,16 @@ def scalar_conv_fwd(x: torch.Tensor, w: torch.Tensor, aux: torch.Tensor,
     aux int32[N, 8] (kernel_maps._c1z_aux), skeys / srow the level's sorted
     valid keys and their rows. ``row_sel`` f32[N], optional: output rows
     with row_sel <= 0 are skipped and come out zero -- exact where x is
-    zero on every row of an unselected row's cloud.
+    zero on every row of an unselected row's cloud. chunk: the keys the
+    kernel stages at a time (a small one forces windows of many chunks,
+    for tests). On the card Cout is at most 196 at side 5 and the default
+    chunk (the block's shared memory); a wider one raises at launch.
     """
     side = cube_side(w.shape[0])
     if w.dim() != 3 or w.shape[1] != 1:
         raise ValueError(f"expected w [K, 1, Cout], got {tuple(w.shape)}")
     _check_args(x, w, "w", aux, skeys, srow, row_sel)
+    _check_chunk(chunk)
     if x.device.type == "cpu":
         return scalar_conv_fwd_plain(x, w, aux, skeys, srow, row_sel)
     n, cout = aux.shape[0], w.shape[2]
@@ -138,7 +155,7 @@ def scalar_conv_fwd(x: torch.Tensor, w: torch.Tensor, aux: torch.Tensor,
     err = entry("scalar_conv_fwd", x.dtype)(x.data_ptr(), w.data_ptr(), aux.data_ptr(),
                               skeys.data_ptr(), srow.data_ptr(),
                               _ptr(row_sel), out.data_ptr(), n, side, cout,
-                              skeys.shape[0], stream)
+                              skeys.shape[0], chunk, stream)
     check(err, "scalar_conv_fwd")
     scalar_conv_fwd.launches += 1
     return out
@@ -146,14 +163,17 @@ def scalar_conv_fwd(x: torch.Tensor, w: torch.Tensor, aux: torch.Tensor,
 
 def scalar_conv_dw(x: torch.Tensor, g: torch.Tensor, aux: torch.Tensor,
                    skeys: torch.Tensor, srow: torch.Tensor, kcube: int,
-                   row_sel: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   row_sel: Optional[torch.Tensor] = None, *,
+                   chunk: int = CHUNK) -> torch.Tensor:
     """dW f32[kcube, 1, Cout] of scalar_conv_fwd: dW[k, 0, :] = sum_i
     x[match(k, i)] * g[i, :], rows with row_sel <= 0 skipped. g [N, Cout]
-    in x's type may have any strides; it is made contiguous here."""
+    in x's type may have any strides; it is made contiguous here. chunk
+    and the widest Cout as scalar_conv_fwd's."""
     side = cube_side(kcube)
     if g.dim() != 2 or g.shape[0] != aux.shape[0]:
         raise ValueError(f"expected g [N, Cout], got {tuple(g.shape)}")
     _check_args(x, g, "g", aux, skeys, srow, row_sel)
+    _check_chunk(chunk)
     if x.device.type == "cpu":
         return scalar_conv_dw_plain(x, g, aux, skeys, srow, kcube, row_sel)
     g = g.contiguous()
@@ -165,7 +185,7 @@ def scalar_conv_dw(x: torch.Tensor, g: torch.Tensor, aux: torch.Tensor,
     err = entry("scalar_conv_dw", x.dtype)(x.data_ptr(), g.data_ptr(), aux.data_ptr(),
                              skeys.data_ptr(), srow.data_ptr(),
                              _ptr(row_sel), dw.data_ptr(), n, side, cout,
-                             skeys.shape[0], stream)
+                             skeys.shape[0], chunk, stream)
     check(err, "scalar_conv_dw")
     scalar_conv_dw.launches += 1
     return dw
@@ -209,3 +229,14 @@ def scalar_conv_dx(g: torch.Tensor, w: torch.Tensor, aux: torch.Tensor,
 scalar_conv_fwd.launches = 0
 scalar_conv_dw.launches = 0
 scalar_conv_dx.launches = 0
+
+
+def counted_scalar_keys(device):
+    """While the block runs, K4 and K5's launches on ``device`` count the
+    keys they stage into shared memory (each block its windows; the
+    kernels add up the copies their threads issue). Yields an int64 tensor
+    [1] on the card that holds the sum once the block has ended:
+    ``occupancy_windows(aux, skeys, side, row_sel)``'s sum of lengths a
+    launch when the kernels stage what the table says."""
+    return counted(device, ("scalar_conv_count_keys",), 1,
+                   "K4 and K5's staged-key counter")

@@ -249,12 +249,34 @@ def join_window_geometries(name: str, device="cpu"):
     return out
 
 
-def occupancy_window_inputs(name: str, side: int, device="cpu"):
-    """(aux, skeys) of case ``name``'s stride-1 level for an occupancy conv
-    of the given side, and the level's coords."""
+def _occupancy_level(name: str, side: int, device):
+    """(aux, level) of case ``name``'s stride-1 level for a cube conv of
+    the given side."""
     from gcl_tpu_torch.core.kernel_maps import ConvSpec, build_graph
     coords, mask, n_clouds, _ = window_case(name)
     spec = ConvSpec("occ", 1, 1, side)
     g = build_graph(torch.from_numpy(coords).to(device),
                     torch.from_numpy(mask).to(device), [spec], {}, n_clouds)
-    return g.maps[spec.key].c1z, g.levels[1].skeys, g.levels[1].coords
+    return g.maps[spec.key].c1z, g.levels[1]
+
+
+def occupancy_window_inputs(name: str, side: int, device="cpu"):
+    """(aux, skeys) of case ``name``'s stride-1 level for an occupancy conv
+    of the given side, and the level's coords."""
+    aux, lv = _occupancy_level(name, side, device)
+    return aux, lv.skeys, lv.coords
+
+
+def scalar_window_inputs(name: str, side: int, device="cpu"):
+    """(aux, skeys, srow, row_sel) of case ``name``'s stride-1 level for the
+    scalar conv (K4, K5) of the given side. row_sel f32[N] flags about 70%
+    of the valid rows (seeded) of two tiles in three and no row of the
+    third, so that some tiles have no flagged row and the others a flag
+    that varies inside them."""
+    from gcl_tpu_torch.kernels.occupancy_conv import TILE
+    aux, lv = _occupancy_level(name, side, device)
+    n = aux.shape[0]
+    rng = np.random.RandomState(side)
+    flag = (rng.rand(n) < 0.7) & (np.arange(n) // TILE % 3 != 1)
+    sel = torch.from_numpy(flag.astype(np.float32)).to(device)
+    return aux, lv.skeys, lv.srow, sel * lv.mask.to(torch.float32)

@@ -1,6 +1,7 @@
 """CUDA legs of the port's kernels (K1-K12): each kernel against its
 plain PyTorch version on the card, at small shapes with ragged tile edges
-(K10 and K2 also on the key-window cases of tests/_torch_parity.py).
+(K10, K2, K4 and K5 also on the key-window cases of
+tests/_torch_parity.py).
 
 A CUDA kernel has no CPU mode, so these skip where
 torch.cuda.is_available() is false. On a machine with a card (no JAX
@@ -21,7 +22,8 @@ from gcl_tpu_torch.data.device_pipeline import (_batched_grid_core,
 from gcl_tpu_torch.core import kernel_maps, sparse_ops
 from gcl_tpu_torch.kernels import (compacted_rows, counted_dw_rows,
                                    counted_gather_rows, counted_join_keys,
-                                   counted_occupancy_keys, join_kmap,
+                                   counted_occupancy_keys,
+                                   counted_scalar_keys, join_kmap,
                                    join_kmap_plain, join_windows,
                                    occupancy_windows,
                                    sparse_conv_dw, sparse_conv_dw_plain,
@@ -44,13 +46,15 @@ from gcl_tpu_torch.kernels import (compacted_rows, counted_dw_rows,
                                    windowed_cell_topk_plain)
 from gcl_tpu_torch.kernels.join_kmap import CHUNK as JOIN_CHUNK
 from gcl_tpu_torch.kernels.occupancy_conv import CHUNK as OCC_CHUNK
+from gcl_tpu_torch.kernels.scalar_conv import CHUNK as SCALAR_CHUNK
 from gcl_tpu_torch.models.resunet import ResUNetFatBN
 from gcl_tpu_torch.models.weights import random_state_dict
 
 from _torch_parity import (JOIN_WINDOW_CASES, OCC_WINDOW_CASES, VOXEL,
                            assert_bf16_close, assert_close_to_max, clouds,
                            fatbn_specs, join_window_geometries,
-                           occupancy_window_inputs, to_np)
+                           occupancy_window_inputs, scalar_window_inputs,
+                           to_np)
 
 pytestmark = pytest.mark.cuda
 
@@ -1153,8 +1157,9 @@ def test_bf16_model_on_card_matches_cpu(dev):
         assert err <= 2 * drift + 1e-6, (name, err, drift)
 
 
-# --- K10 and K2 inside their key windows (tests/test_torch_key_windows.py
-# checks the same tables' soundness on the CPU) ---
+# --- K10, K2, K4 and K5 inside their key windows
+# (tests/test_torch_key_windows.py checks the same tables' soundness on the
+# CPU) ---
 
 @pytest.mark.parametrize("chunk", [JOIN_CHUNK, 6])
 @pytest.mark.parametrize("case", JOIN_WINDOW_CASES)
@@ -1206,3 +1211,72 @@ def test_occupancy_kernel_in_windows(dev, case, side, chunk):
         else:
             assert_bf16_close(out, ref, f"K2 {case}", _sum_bound(
                 occupancy_conv_fwd_plain, (aux, skeys, w, dtype)))
+
+
+def _scalar_inputs(dev, n, side, cout, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, 1, generator=gen).to(dev).to(dtype)
+    w = torch.randn(side ** 3, 1, cout, generator=gen).to(dev)
+    g = torch.randn(n, cout, generator=gen).to(dev).to(dtype)
+    return x, w, g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk", [SCALAR_CHUNK, 3])
+@pytest.mark.parametrize("side", [3, 5])
+@pytest.mark.parametrize("case", OCC_WINDOW_CASES)
+def test_scalar_conv_kernels_in_windows(dev, case, side, chunk, dtype):
+    """K4 and K5 on the window cases (clouds >= 16 and tiles that mix
+    clouds 15 and 16, the grid's faces), with no row flag and with a flag
+    that varies inside tiles and leaves whole tiles out, at the default
+    chunk and at 3 keys a chunk: K4 within 1e-4 of the max (float32) or at
+    the bf16 gate, K5 within 1e-4; the keys each launch stages, as the
+    kernels count their copies, equal to the sum of the plain torch table
+    of the windows its flagged rows bound."""
+    aux, skeys, srow, sel = scalar_window_inputs(case, side, dev)
+    x, w, g = _scalar_inputs(dev, aux.shape[0], side, 24, dtype, side)
+    for flag in (None, sel):
+        geo = (aux, skeys, srow)
+        win = occupancy_windows(aux, skeys, side, flag)
+        in_table = int(win[1].sum())
+        b4, b5 = scalar_conv_fwd.launches, scalar_conv_dw.launches
+        with counted_scalar_keys(dev) as counter:
+            out = scalar_conv_fwd(x, w, *geo, flag, chunk=chunk)
+        assert int(counter.item()) == in_table > 0
+        with counted_scalar_keys(dev) as counter:
+            dw = scalar_conv_dw(x, g, *geo, side ** 3, flag, chunk=chunk)
+        assert int(counter.item()) == in_table
+        assert (scalar_conv_fwd.launches, scalar_conv_dw.launches) == (
+            b4 + 1, b5 + 1)
+        ref = scalar_conv_fwd_plain(x, w, *geo, flag)
+        assert out.dtype == dtype and bool(ref.any())
+        if dtype == torch.float32:
+            _close_to_max(out, ref, 1e-4)
+        else:
+            assert_bf16_close(out, ref, f"K4 {case}", _sum_bound(
+                scalar_conv_fwd_plain, (x, w, *geo, flag)))
+        _close_to_max(dw, scalar_conv_dw_plain(x, g, *geo, side ** 3, flag),
+                      1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scalar_conv_kernels_with_no_row_flagged(dev, dtype):
+    """A flag that selects no row: K4 launches and writes zeros, K5 leaves
+    dW zero, and neither stages a key."""
+    gr = _graph(dev, seed=2)
+    lv = gr.levels[1]
+    n = lv.coords.shape[0]
+    x, w, g = _scalar_inputs(dev, n, 5, 32, dtype, 3)
+    geo = (gr.maps["s1->s1/k5d1"].c1z, lv.skeys, lv.srow)
+    none = torch.zeros(n, device=dev)
+    b4, b5 = scalar_conv_fwd.launches, scalar_conv_dw.launches
+    with counted_scalar_keys(dev) as counter:
+        out = scalar_conv_fwd(x, w, *geo, none)
+        dw = scalar_conv_dw(x, g, *geo, 125, none)
+    assert int(counter.item()) == 0
+    assert (scalar_conv_fwd.launches, scalar_conv_dw.launches) == (b4 + 1,
+                                                                   b5 + 1)
+    assert out.dtype == dtype and out.shape == (n, 32)
+    assert torch.equal(out, torch.zeros_like(out))
+    assert torch.equal(dw, torch.zeros_like(dw))
+    assert bool(scalar_conv_fwd(x, w, *geo, None).any())

@@ -1,7 +1,8 @@
-"""Soundness of the key windows that K10 (the join) and K2 (the occupancy
-conv) search in: every key that the plain version resolves lies inside
-its tile's window from the window table, at scale and on the adversarial
-cases (ROADMAP Queue 3: test every window or bound at scale).
+"""Soundness of the key windows that K10 (the join), K2 (the occupancy
+conv) and K4 / K5 (the scalar conv, bounded by their flagged rows) search
+in: every key that the plain version resolves lies inside its tile's
+window from the window table, at scale and on the adversarial cases
+(ROADMAP Queue 3: test every window or bound at scale).
 
 The tables are plain torch, so they are checked here on the CPU. The
 kernels work out the same windows block by block and run only on the
@@ -17,13 +18,16 @@ from gcl_tpu_torch.core.types import INVALID_BATCH
 from gcl_tpu_torch.kernels import (join_kmap, join_kmap_plain, join_windows,
                                    occupancy_conv_fwd,
                                    occupancy_conv_fwd_plain,
-                                   occupancy_windows)
+                                   occupancy_windows, scalar_conv_dw,
+                                   scalar_conv_dw_plain, scalar_conv_fwd,
+                                   scalar_conv_fwd_plain)
 from gcl_tpu_torch.kernels.join_kmap import TILE, num_offset_groups
 from gcl_tpu_torch.kernels.occupancy_conv import TILE as OCC_TILE
 from gcl_tpu_torch.kernels.occupancy_conv import neighbor_rows
 
 from _torch_parity import (JOIN_WINDOW_CASES, OCC_WINDOW_CASES,
-                           join_window_geometries, occupancy_window_inputs)
+                           join_window_geometries, occupancy_window_inputs,
+                           scalar_window_inputs)
 
 SEN = 0x7FFFFFFF
 
@@ -148,3 +152,53 @@ def test_occupancy_windows_change_nothing_on_the_cpu(case):
     ref, ref_bits = occupancy_conv_fwd_plain(aux, skeys, w)
     assert torch.equal(out, ref) and torch.equal(sbits, ref_bits)
     assert bool(sbits.any())
+
+
+@pytest.mark.parametrize("side", [3, 5])
+@pytest.mark.parametrize("case", OCC_WINDOW_CASES)
+def test_flagged_windows_hold_every_flagged_neighbour(case, side):
+    """The windows of K4 / K5, bounded by their flagged rows: every present
+    neighbour of a flagged row lies inside its tile's window at its dx and
+    sign; a tile with no flagged row has empty windows; no window is longer
+    than the unflagged one; a flag of all ones gives the unflagged table."""
+    aux, skeys, srow, sel = scalar_window_inputs(case, side)
+    n, nk, tile = aux.shape[0], skeys.shape[0], OCC_TILE
+    win = occupancy_windows(aux, skeys, side, sel)
+    full = occupancy_windows(aux, skeys, side)
+    assert win.shape == full.shape == (2, side, -(-n // tile), 2)
+    pos = neighbor_rows(aux, skeys, torch.arange(nk, dtype=torch.int32),
+                        side)
+    i, k = torch.nonzero((pos >= 0) & (sel > 0)[:, None], as_tuple=True)
+    assert len(i) > 0
+    p = pos[i, k].long()
+    half = (skeys[p] >= 0).long()
+    g, t = k // (side * side), i // tile
+    start, length = win[0][g, t, half], win[1][g, t, half]
+    assert bool(((p >= start) & (p < start + length)).all())
+    flagged = _tile_any(sel > 0, tile)
+    assert bool(flagged.any()) and bool((~flagged).any())
+    assert bool((win[1][:, ~flagged] == 0).all())
+    assert bool((win[1] <= full[1]).all())
+    assert torch.equal(occupancy_windows(aux, skeys, side,
+                                         torch.ones(n)), full)
+
+
+@pytest.mark.parametrize("case", OCC_WINDOW_CASES)
+def test_scalar_conv_windows_change_nothing_on_the_cpu(case):
+    """On the CPU K4 and K5 take their plain versions: the keys staged at
+    a time change nothing, flagged or not."""
+    aux, skeys, srow, sel = scalar_window_inputs(case, 5)
+    rng = np.random.RandomState(1)
+    n = aux.shape[0]
+    x = torch.from_numpy(rng.randn(n, 1).astype(np.float32))
+    w = torch.from_numpy(rng.randn(125, 1, 8).astype(np.float32))
+    g = torch.from_numpy(rng.randn(n, 8).astype(np.float32))
+    for flag in (None, sel):
+        out = scalar_conv_fwd(x, w, aux, skeys, srow, flag, chunk=3)
+        assert torch.equal(out, scalar_conv_fwd_plain(x, w, aux, skeys, srow,
+                                                      flag))
+        assert bool(out.any())
+        dw = scalar_conv_dw(x, g, aux, skeys, srow, 125, flag, chunk=3)
+        assert torch.equal(dw, scalar_conv_dw_plain(x, g, aux, skeys, srow,
+                                                    125, flag))
+        assert bool(dw.any())
