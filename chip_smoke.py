@@ -26,7 +26,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    tensor's max (float32 sums in another order; dW sums over blocks by
    atomics): K7's dX and dW for every k=3 geometry at its real Cin / Cout,
    K7's dX also against K6 through the reverse map with flipped transposed
-   weights, K3, K4 (a dense random x, and the gated eps case bit for bit
+   weights, K3 (and its yardstick: one cuBLAS torch.mm of the bits,
+   unpacked beforehand, by g, timed as K3's "library_ms"), K4 (a dense
+   random x, and the gated eps case bit for bit
    against the ungated kernel), K5 (the keys each K4 and K5 launch stages,
    dense and gated, counted by the kernel in a launch of its own, equal to
    the plain torch window table of the rows it flags), and K6 / K2 again
@@ -52,7 +54,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    of its own) and requires each between the matched pairs and 1.05 x
    them plus 8 rows per block; and it holds the explicit tables of this
    batch (K10) equal to the rows the implicit maps' keys resolve to;
-   then the group kernels K1 and K11 (see group_kernel_checks);
+   then the group kernels K1 and K11 (see group_kernel_checks; K1's
+   staged targets, counted by the kernel in a launch of its own, equal to
+   the plain torch window table's sum and printed a valid query, and
+   torch.searchsorted of the run starts timed as its "library_ms", the
+   searches only);
 6. train step: make_gcl_train_step at gcl_tpu_torch.bench's settings,
    float32: one step on the kernel path and one on the plain path from
    the same weights and the same draws (loss within 1e-4, every gradient
@@ -688,8 +694,25 @@ def train_kernel_checks(dev, dtype=None) -> dict:
         plain_ms=_ms(lambda: plain2(*k2_args), 3),
         bytes=_k2_bytes(*k2_args[:3], out, sbits), flops=present * 32,
         **_k2_windows(dev, *k2_args, form))
-    _, e3, _, _ = run("K3", (sbits, g1, 125), flops=present * 32,
-                      n_bytes=_nbytes(sbits, g1, w1), outs=lambda o: (o,))
+    dw3, e3, ms3, _ = run("K3", (sbits, g1, 125), flops=present * 32,
+                          n_bytes=_nbytes(sbits, g1, w1),
+                          outs=lambda o: (o,))
+    # K3's yardstick: one cuBLAS product of the bits, unpacked to the
+    # features' type beforehand (not timed), by g; the port never calls it
+    bits_t = bits.to(dtype)
+    lib3 = torch.mm(bits_t.T, g1).float()
+    lib3_err = float((lib3 - dw3[:, 0]).abs().max()) / float(
+        dw3.abs().max())
+    if not bf16:
+        _require(lib3_err <= REL_TOL, f"K3's cuBLAS yardstick agrees with "
+                                      f"K3 within {REL_TOL}: {lib3_err}")
+    rec["K3"].update(library_ms=_ms(lambda: torch.mm(bits_t.T, g1), 3),
+                     library_call=f"torch.mm(bits^T, g), bits [N, 125] "
+                                  f"unpacked to {form} beforehand")
+    print(f"K3 ({form}): {ms3:.4f} ms; cuBLAS yardstick torch.mm(bits^T, "
+          f"g) {rec['K3']['library_ms']:.4f} ms (bits unpacked beforehand; "
+          f"output {lib3.numel()} values, max rel diff to K3 {lib3_err:.3g})")
+    del bits_t, lib3, dw3
     # K4 / K5: a dense random x for the function itself; then the train
     # step's case, x zero off the jittered centre clouds and those rows
     # flagged, which is what the step launches and what is timed. The keys
@@ -902,8 +925,10 @@ def group_kernel_checks(dev) -> dict:
 
     from gcl_tpu_torch import bench
     from gcl_tpu_torch.data import device_pipeline as dp
-    from gcl_tpu_torch.kernels import (KERNELS, launch_counts,
-                                       reset_launch_counts)
+    from gcl_tpu_torch.kernels import (KERNELS, counted_topk_keys,
+                                       launch_counts, reset_launch_counts,
+                                       topk_windows)
+    from gcl_tpu_torch.kernels.radius_topk import RUNS
 
     k, cell = 5, bench.SEARCH_CELL
     points, pmask, transforms, radius = bench.bench_batch(SEED, BATCH,
@@ -934,10 +959,33 @@ def group_kernel_checks(dev) -> dict:
                      plain_ms=_ms(lambda: plain(*arrays, k), 1),
                      bytes=n_bytes, flops=flops)
     s_n, t_n = arrays[0].shape
+    # the targets K1's blocks stage, as the kernel counts its copies (a
+    # launch of its own), equal to the plain torch window table's sum
+    win = topk_windows(arrays[0], arrays[3])
+    with counted_topk_keys(dev) as counter:
+        fn(*arrays, k)
+    staged, in_table = int(counter.item()), int(win[1].sum())
+    _require(staged == in_table, f"K1 staged {staged} targets, the window "
+                                 f"table sums to {in_table}")
+    n_valid = int((arrays[3] != 0x7FFFFFFF).sum())
+    rec["K1"]["staged_keys_per_valid_query"] = staged / n_valid
+    # the nearest one-call library form covers the searches only:
+    # torch.searchsorted of the 4 Q run starts of each search (int64 keys
+    # made beforehand, not timed)
+    keys64 = arrays[0].long()
+    starts = (arrays[3].long()[..., None] + torch.tensor(
+        RUNS, device=dev)).reshape(s_n, -1).contiguous()
+    rec["K1"].update(
+        library_ms=_ms(lambda: torch.searchsorted(keys64, starts), 10),
+        library_call="torch.searchsorted of the 4 Q run starts of each "
+                     "search (the searches only)")
     print(f"K1 S={s_n} T=Q={t_n} kn={k}: rows equal, d2 bit for bit; "
           f"{cand} candidates ({cand / rows[..., 0].numel():.1f} a query), "
-          f"{int((rows >= 0).sum())} neighbours; kernel "
-          f"{rec['K1']['ms']:.3f} ms, plain {rec['K1']['plain_ms']:.1f} ms")
+          f"{int((rows >= 0).sum())} neighbours; staged {staged} targets = "
+          f"the window table's sum, {staged / n_valid:.4f} a valid query "
+          f"({n_valid}); kernel {rec['K1']['ms']:.4f} ms, plain "
+          f"{rec['K1']['plain_ms']:.1f} ms, torch.searchsorted of the run "
+          f"starts alone {rec['K1']['library_ms']:.4f} ms")
 
     # the grid search against the brute-force one, group by group
     bidx, bhit = [], []
@@ -1716,9 +1764,10 @@ def main() -> None:
             "launches": r.get("launches", (explicit16 if on_explicit
                                            else step16)[k]),
             **{key: r[key] for key in numbers},
-            # no single PyTorch call computes any of these functions; K10's
-            # nearest is torch.searchsorted alone over the fused int64 keys
-            # (its plain version then compares the found keys)
+            # one PyTorch call of the same function where there is a near
+            # one: K3's cuBLAS product of the bits unpacked beforehand;
+            # torch.searchsorted alone for K10 (over the fused int64 keys)
+            # and for K1 (the run starts, the searches only); else null
             "library_ms": r.get("library_ms"),
             "path": paths.get(k, f"train step {BATCH} x 7, implicit route"),
             "train_step_launches": step16[k],
@@ -1728,8 +1777,11 @@ def main() -> None:
             row["float32"] = {
                 "launches": f32_launches,
                 **{key: r32[key] for key in numbers},
+                "library_ms": r32.get("library_ms"),
                 "train_step_launches": step_launches[k],
                 "explicit_step_launches": explicit_launches[k]}
+        if "library_call" in r:
+            row["library_call"] = r["library_call"]
         kernels.append(row)
     kernels[6].update(
         brute_force_search_ms=rec["K1"]["brute_force_search_ms"],
@@ -1746,7 +1798,7 @@ def main() -> None:
     windowed = ("staged_keys_per_valid_row", "staged_keys_per_valid_query",
                 "staged_keys_per_flagged_row_gated",
                 "staged_keys_per_flagged_row_dense")
-    for i in (2, 4, 5, 10):  # K2, K4, K5 (each form), K10
+    for i in (2, 4, 5, 6, 10):  # K2, K4, K5 (each form), K1, K10
         for row, r in ((kernels[i], rec16.get(table[i][0], rec[table[i][0]])),
                        (kernels[i].get("float32"), rec[table[i][0]])):
             if row is not None:

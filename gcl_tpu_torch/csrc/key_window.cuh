@@ -244,26 +244,28 @@ __device__ __forceinline__ int cube_windows(
 }
 
 // Stages the tile's staged sequence into shared memory `chunk` keys at a
-// time and runs body on each chunk, in order. keys: 2 * chunk ints, the
-// double buffer; the copy of chunk c + 1 (cp.async) overlaps body on chunk
-// c. For each key it copies, stage_also(p, slot) runs too, p the key's
-// position in the level and slot its place in the double buffer (to stage
-// what belongs beside the key). body(c, buf, base, c0, c1): chunk c holds
-// positions [c0, c1) of the sequence at buf = keys + base; the block
-// synchronises before and after it. Adds the keys this launch's threads
-// copy to the staged-key counter. Every thread of the block (kThreads)
-// calls it.
-template <int kTile, int kMaxSide, int kThreads, typename StageAlso,
-          typename Body>
+// time and runs body on each chunk, in order. keys: kBuffers * chunk ints;
+// with two (the default), a double buffer: the copy of chunk c + 1
+// (cp.async) overlaps body on chunk c; with one, each chunk is copied after
+// the body of the one before. For each key it copies, stage_also(p, slot)
+// runs too, p the key's position in the level and slot its place in the
+// buffers (to stage what belongs beside the key). body(c, buf, base, c0,
+// c1): chunk c holds positions [c0, c1) of the sequence at buf = keys +
+// base; the block synchronises before and after it. Adds the keys this
+// launch's threads copy to the staged-key counter. Every thread of the
+// block (kThreads) calls it.
+template <int kTile, int kMaxSide, int kThreads, int kBuffers = 2,
+          typename StageAlso, typename Body>
 __device__ __forceinline__ void for_each_window_chunk(
     const CubeWindows<kTile, kMaxSide>& cw, int side,
     const int* __restrict__ skeys, int* keys, int chunk,
     StageAlso stage_also, Body body) {
+  static_assert(kBuffers == 1 || kBuffers == 2, "one or two buffers");
   const int total = cw.off[side];
   const int nch = (total + chunk - 1) / chunk;
   unsigned int staged = 0u;
   auto stage = [&](int c) {
-    const int base = (c & 1) * chunk;
+    const int base = (c % kBuffers) * chunk;
     const int c0 = c * chunk, c1 = min(total, c0 + chunk);
     for (int g = 0; g < side; ++g) {
       const int a = max(cw.off[g], c0), b = min(cw.off[g + 1], c1);
@@ -280,16 +282,17 @@ __device__ __forceinline__ void for_each_window_chunk(
 
   if (nch > 0) stage(0);
   for (int c = 0; c < nch; ++c) {
-    if (c + 1 < nch) {
+    if (kBuffers == 2 && c + 1 < nch) {
       stage(c + 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const int base = (c & 1) * chunk, c0 = c * chunk;
+    const int base = (c % kBuffers) * chunk, c0 = c * chunk;
     body(c, keys + base, base, c0, min(total, c0 + chunk));
-    __syncthreads();  // the buffer is staged over two chunks later
+    __syncthreads();  // the buffer takes chunk c + kBuffers next
+    if (kBuffers == 1 && c + 1 < nch) stage(c + 1);
   }
   count_staged_keys(staged);
 }

@@ -62,13 +62,12 @@
 // float32 whatever the features' type), and every product and sum is
 // float32; dW is float32.
 
-#include <mutex>
-
 #include <cuda_runtime.h>
 
 #include "elem.cuh"
 #include "key_search.cuh"
 #include "key_window.cuh"
+#include "launch_cache.cuh"
 
 namespace {
 
@@ -399,61 +398,6 @@ scalar_conv_dx_kernel(const T* __restrict__ g,
   }
 }
 
-// What a launcher works out about its kernel once a device and reuses
-// after (asking the runtime at every launch costs host time beside a
-// kernel of a tenth of a millisecond): the dynamic shared memory its
-// attribute allows, and how many blocks fit on the card at once with a
-// given size. One for each kernel instantiation (a static in its
-// launcher).
-class LaunchCache {
- public:
-  // Lets kernel launch on device dev with smem bytes of dynamic shared
-  // memory (always asked for explicitly: K4 / K5's sit beside a static
-  // Tile, K9's beside its neighbour table).
-  template <typename Kernel>
-  cudaError_t allow(Kernel kernel, int dev, size_t smem) {
-    std::lock_guard<std::mutex> lock(mu_);
-    if (dev < kMaxDevices && allowed_[dev] >= smem) return cudaSuccess;
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err == cudaSuccess && dev < kMaxDevices) allowed_[dev] = smem;
-    return err;
-  }
-
-  // *blocks: how many blocks of kernel (threads each, smem bytes of
-  // dynamic shared memory) fit on device dev at once, at least one an SM.
-  template <typename Kernel>
-  cudaError_t resident_blocks(Kernel kernel, int dev, int threads,
-                              size_t smem, int* blocks) {
-    std::lock_guard<std::mutex> lock(mu_);
-    if (dev < kMaxDevices && occ_smem_[dev] == smem && occ_[dev] > 0) {
-      *blocks = occ_[dev];
-      return cudaSuccess;
-    }
-    int sms = 0, per_sm = 0;
-    cudaError_t err =
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        threads, smem);
-    if (err != cudaSuccess) return err;
-    *blocks = (per_sm > 1 ? per_sm : 1) * sms;
-    if (dev < kMaxDevices) {
-      occ_smem_[dev] = smem;
-      occ_[dev] = *blocks;
-    }
-    return cudaSuccess;
-  }
-
- private:
-  static constexpr int kMaxDevices = 64;
-  std::mutex mu_;
-  size_t allowed_[kMaxDevices] = {};
-  size_t occ_smem_[kMaxDevices] = {};
-  int occ_[kMaxDevices] = {};
-};
-
 // K4 / K5's dynamic shared memory: [kvol, cout] and [kTile, cout] floats,
 // then 2 x chunk keys and 2 x chunk scalars
 size_t tile_smem(int side, int cout, int chunk) {
@@ -469,7 +413,7 @@ template <typename T>
 int launch_fwd(const T* x, const float* w, const int* aux, const int* skeys,
                const int* srow, const float* row_sel, T* out, int n,
                int side, int cout, int n_keys, int chunk, void* stream) {
-  static LaunchCache cache;
+  static lc::LaunchCache cache;
   if (!tile_args_ok(side, chunk)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -491,7 +435,7 @@ template <typename T>
 int launch_dw(const T* x, const T* g, const int* aux, const int* skeys,
               const int* srow, const float* row_sel, float* dw, int n,
               int side, int cout, int n_keys, int chunk, void* stream) {
-  static LaunchCache cache;
+  static lc::LaunchCache cache;
   if (!tile_args_ok(side, chunk)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -519,7 +463,7 @@ template <typename T>
 int launch_dx(const T* g, const float* w, const int* aux, const int* skeys,
               const int* srow, const float* row_sel, T* dx, int n, int side,
               int cout, int n_keys, void* stream) {
-  static LaunchCache cache;
+  static lc::LaunchCache cache;
   const size_t smem = sizeof(float) * side * side * side * cout;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);

@@ -10,7 +10,8 @@ from .occupancy_conv import (c1z_unpack_bits, counted_occupancy_keys,
                              occupancy_conv_dw, occupancy_conv_dw_plain,
                              occupancy_conv_fwd, occupancy_conv_fwd_plain,
                              occupancy_windows)
-from .radius_topk import (windowed_cell_topk, windowed_cell_topk_exact,
+from .radius_topk import (counted_topk_keys, topk_windows,
+                          windowed_cell_topk, windowed_cell_topk_exact,
                           windowed_cell_topk_packed, windowed_cell_topk_plain)
 from .scalar_conv import (counted_scalar_keys, scalar_conv_dw,
                           scalar_conv_dw_plain,

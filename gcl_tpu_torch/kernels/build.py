@@ -49,6 +49,7 @@ SIGNATURES = {
     "join_kmap_count_keys": [_P],
     "occupancy_conv_fwd_count_keys": [_P],
     "scalar_conv_count_keys": [_P],
+    "windowed_cell_topk_count_keys": [_P],
 }
 
 # the bf16 forms of the conv kernels take their float32 forms' arguments

@@ -245,7 +245,7 @@ def occupancy_conv_dw(sbits: torch.Tensor, g: torch.Tensor,
     g = g.contiguous()
     n, cout = g.shape
     dw = torch.zeros((kcube, 1, cout), dtype=torch.float32, device=g.device)
-    if n == 0:
+    if n == 0 or cout == 0:
         return dw
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = entry("occupancy_conv_dw", g.dtype)(

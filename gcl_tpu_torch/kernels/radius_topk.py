@@ -15,6 +15,13 @@ bodies are the two orders of one selection:
 
 Each keeps its own launch counter (``windowed_cell_topk_packed.launches``
 and ``windowed_cell_topk_exact.launches``).
+
+K1's kernel searches a tile of TILE queries of one search inside windows
+of the search's sorted keys, one a run of the 2x2x2 probe block, which
+each of its blocks works out for its tile (gcl_tpu works them out in XLA
+before its pallas_call); ``topk_windows`` is the same table in plain
+torch, the reference that the tests hold sound and that the keys the
+kernel stages are counted against.
 """
 from __future__ import annotations
 
@@ -23,13 +30,20 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .build import check, load_library
+from .build import check, counted, load_library, tiled
 
 SENTINEL = 0x7FFFFFFF
 # the three per-axis "+1 cell" bits of the packed cell key (x<<20 | y<<10 | z)
 BLOCK3 = (1 << 20) | (1 << 10) | 1
+# the key offsets of the four runs of a probe block: its cells at +0 / +1
+# in x and y, each run the two z cells
+RUNS = (0, 1 << 10, 1 << 20, (1 << 20) + (1 << 10))
 MAX_KN = 8
+TILE = 256    # queries of a tile of K1's kernel: kTile of its source
+CHUNK = 2048  # targets K1's kernel stages at a time: kChunk of its source
 _BIG = 1e30
+_I64_MAX = torch.iinfo(torch.int64).max
+_I64_MIN = torch.iinfo(torch.int64).min
 
 
 def row_bits(t_cap: int) -> int:
@@ -46,10 +60,48 @@ def _quantizer(r2: torch.Tensor, rowb: int):
     (qmax << ROWB) | max_row would equal the no-candidate value."""
     qmax = float((1 << (31 - rowb)) - 1)
     floor = r2.clamp_min(1e-12)
-    scale = torch.tensor(qmax, dtype=torch.float32, device=r2.device) / floor
-    inv_scale = floor / torch.tensor(qmax, dtype=torch.float32,
-                                     device=r2.device)
-    return scale, inv_scale, float(np.float32(qmax - 1.0))
+    # float32 divisions of two tensors (a Python scalar divisor would be a
+    # multiply by its reciprocal); qmax filled on the device, as a copy
+    # from the host would wait for the work queued before it
+    q = torch.full_like(floor, qmax)
+    return q / floor, floor / q, float(np.float32(qmax - 1.0))
+
+
+def topk_windows(tkey_s: torch.Tensor, pbase: torch.Tensor,
+                 tile: int = TILE) -> torch.Tensor:
+    """int32[2, S, ceil(Q / tile), 4]: [0] the first position and [1] the
+    length of the keys of search s that K1's block for (s, tile) stages
+    for run r. Run r of every query in the tile lies in the keys [lo +
+    RUNS[r], hi + RUNS[r] + 1], lo and hi the least and the greatest of
+    the tile's non-sentinel bases (queries sorted by home cell give bases
+    that are only about monotone); the run's window is the positions of
+    those keys. The windows of a tile overlap (runs 0 and 1 differ by one
+    y line, as do runs 2 and 3) and their ends ascend with r, so each run
+    holds its window less the positions of the windows before it: the
+    four are disjoint, ascending, and hold the union of the windows. A
+    tile without a valid base has length 0 everywhere."""
+    s_n, q_n = pbase.shape
+    valid = pbase != SENTINEL
+    pb = pbase.long()
+    lo = tiled(torch.where(valid, pb, _I64_MAX), tile, _I64_MAX).amin(-1)
+    hi = tiled(torch.where(valid, pb, _I64_MIN), tile, _I64_MIN).amax(-1)
+    live = (lo <= hi)[..., None]                                # [S, n, 1]
+    runs = torch.tensor(RUNS, dtype=torch.int64, device=pbase.device)
+    n_tiles = lo.shape[1]
+    keys = tkey_s.long().contiguous()
+    first = torch.searchsorted(keys, (torch.where(
+        live, lo[..., None], 0) + runs).reshape(s_n, -1)).reshape(
+            s_n, n_tiles, 4)
+    end = torch.searchsorted(keys, (torch.where(
+        live, hi[..., None], 0) + runs + 1).reshape(s_n, -1),
+        right=True).reshape(s_n, n_tiles, 4)
+    # the end of the windows of the runs before r: their positions are held
+    held = torch.cat([torch.zeros_like(end[..., :1]),
+                      torch.cummax(end, -1)[0][..., :-1]], -1)
+    start = torch.maximum(first, held)
+    length = torch.where(live, (end - start).clamp(min=0), 0)
+    return torch.stack([torch.where(length > 0, start, 0),
+                        length]).to(torch.int32)
 
 
 def windowed_cell_topk_plain(tkey_s, trow_s, txyz_s, pbase, qxyz, r2, kn: int,
@@ -174,6 +226,16 @@ def windowed_cell_topk_packed(tkey_s, trow_s, txyz_s, pbase, qxyz, r2,
     out = _launch(tkey_s, trow_s, txyz_s, pbase, qxyz, r2, kn, rowb)
     _PACKED.launches += 1
     return out
+
+
+def counted_topk_keys(device):
+    """While the block runs, K1's launches on ``device`` count the targets
+    they stage into shared memory (each block its windows; the kernel adds
+    up the copies its threads issue). Yields an int64 tensor [1] on the
+    card that holds the sum once the block has ended: ``topk_windows``'s
+    sum of lengths when the kernel stages what the table says."""
+    return counted(device, ("windowed_cell_topk_count_keys",), 1,
+                   "K1's staged-key counter")
 
 
 def windowed_cell_topk_exact(tkey_s, trow_s, txyz_s, pbase, qxyz, r2,

@@ -280,3 +280,109 @@ def scalar_window_inputs(name: str, side: int, device="cpu"):
     flag = (rng.rand(n) < 0.7) & (np.arange(n) // TILE % 3 != 1)
     sel = torch.from_numpy(flag.astype(np.float32)).to(device)
     return aux, lv.skeys, lv.srow, sel * lv.mask.to(torch.float32)
+
+
+TOPK_WINDOW_CASES = ("home_sorted", "sorted", "sentinels", "grid_edge")
+
+
+def _captured_topk(search):
+    """The six arrays (tkey_s, trow_s, txyz_s, pbase, qxyz, r2) that
+    search() hands kernels.radius_topk.windowed_cell_topk_packed (K1), in
+    place of which an empty result comes back: the cases need the arrays,
+    not a dense search of them on the CPU."""
+    from gcl_tpu_torch.kernels import radius_topk
+    seen = []
+
+    def record(*a):
+        seen.append(a[:6])
+        s_n, q_n, kn = a[3].shape[0], a[3].shape[1], a[6]
+        return (torch.full((s_n, q_n, kn), -1, dtype=torch.int32,
+                           device=a[0].device),
+                torch.full((s_n, q_n, kn), 1e30, device=a[0].device))
+
+    real = radius_topk.windowed_cell_topk_packed
+    radius_topk.windowed_cell_topk_packed = record
+    try:
+        search()
+    finally:
+        radius_topk.windowed_cell_topk_packed = real
+    assert len(seen) == 1
+    return seen[0]
+
+
+def _random_search(seed, s_n, q_n, t_n, spread, drop=0.1, device="cpu",
+                   shift=0.0):
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn(s_n, q_n, 3, generator=gen) * spread + shift
+    t = torch.randn(s_n, t_n, 3, generator=gen) * spread + shift
+    qm = torch.rand(s_n, q_n, generator=gen) > drop
+    tm = torch.rand(s_n, t_n, generator=gen) > drop
+    return q.to(device), qm.to(device), t.to(device), tm.to(device)
+
+
+def topk_window_inputs(name: str, device="cpu"):
+    """The arrays that K1 (kernels.windowed_cell_topk_packed) receives in
+    case ``name``, as the port's group search prepares them:
+
+    * home_sorted: the train step's search (data.device_pipeline.
+      _grid_searches): 2 samples x 3 clouds, queries sorted by HOME cell,
+      so the bases are only about monotone;
+    * sorted: batched_grid_radius_knn's, queries sorted by base;
+    * sentinels: as sorted, with 40% of the queries invalid (their
+      sentinel bases sort last: whole tiles of them, and a tile of both);
+    * grid_edge: queries and targets in the cells next to the +-2^9 grid
+      edge of each axis: bases at its first and last cells, and sentinel
+      bases for the queries whose probe block leaves it;
+    * step: the 4 x 7 train step's search (root bench.py's batch, seed 0:
+      S = 28, T = Q = 18,432).
+
+    Tiles that straddle x cells occur in every case."""
+    from gcl_tpu_torch.data import device_pipeline as dp
+    if name == "home_sorted":
+        pts, pmask = clouds(21, 6, 900)
+        vox = dp.voxelize_per_cloud(torch.from_numpy(pts).to(device),
+                                    torch.from_numpy(pmask).to(device),
+                                    VOXEL, 600)
+        vox_b = dp.VoxelizedClouds(vox.coords.reshape(2, 3, 600, 4),
+                                   vox.mask.reshape(2, 3, 600),
+                                   vox.xyz.reshape(2, 3, 600, 3))
+        trans = torch.eye(4).repeat(2, 3, 1, 1)
+        trans[:, 1, 0, 3], trans[:, 2, 1, 3] = 0.4, -0.3
+        return _captured_topk(lambda: dp._grid_searches(
+            vox_b, trans.to(device), torch.tensor([0.45, 0.7], device=device),
+            5, 1.2))
+    if name == "step":
+        from gcl_tpu_torch import bench
+        b, c, p, nv = 4, bench.N_CLOUDS, 65536, 18432
+        points, pmask, trans, radius = bench.bench_batch(0, b, p, device)
+        vox = dp.voxelize_per_cloud(points.reshape(b * c, p, 3),
+                                    pmask.reshape(b * c, p), 0.3, nv)
+        vox_b = dp.VoxelizedClouds(vox.coords.reshape(b, c, nv, 4),
+                                   vox.mask.reshape(b, c, nv),
+                                   vox.xyz.reshape(b, c, nv, 3))
+        return _captured_topk(lambda: dp._grid_searches(
+            vox_b, trans, radius, 5, bench.SEARCH_CELL))
+    if name == "sorted":
+        q, qm, t, tm = _random_search(31, 3, 1500, 1800, 3.0, device=device)
+    elif name == "sentinels":
+        q, qm, t, tm = _random_search(32, 2, 1500, 1200, 2.5, drop=0.4,
+                                      device=device)
+    elif name == "grid_edge":
+        # cell 1: the cells of the grid are -512 .. 511 on each axis; the
+        # points sit in -512 .. -509 and 508 .. 511, on every axis at once
+        q, qm, t, tm = _random_search(33, 2, 900, 1400, 1.0, drop=0.0,
+                                      device=device)
+        gen = torch.Generator().manual_seed(34)
+
+        def at_edges(x):
+            corner = torch.where(torch.rand(x.shape[:2] + (1,),
+                                            generator=gen) < 0.5,
+                                 -510.0, 510.0)
+            return x.clamp(-1.99, 1.99) + corner.to(device)
+
+        q, t = at_edges(q), at_edges(t)
+    else:
+        raise KeyError(name)
+    r = torch.linspace(0.3, 0.5, q.shape[0], device=device)
+    return _captured_topk(lambda: dp._batched_grid_core(
+        q, qm, t, tm, r, 5, 1.0, presorted=False))

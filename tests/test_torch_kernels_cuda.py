@@ -1,7 +1,8 @@
 """CUDA legs of the port's kernels (K1-K12): each kernel against its
 plain PyTorch version on the card, at small shapes with ragged tile edges
-(K10, K2, K4 and K5 also on the key-window cases of
-tests/_torch_parity.py).
+(K10, K2, K4, K5 and K1 also on the key-window cases of
+tests/_torch_parity.py; K3 also on synthetic bitmasks at the widths and
+row counts its tensor-core tiles cut).
 
 A CUDA kernel has no CPU mode, so these skip where
 torch.cuda.is_available() is false. On a machine with a card (no JAX
@@ -9,6 +10,7 @@ needed, hence no conftest):
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
 """
+import numpy as np
 import pytest
 import torch
 
@@ -23,7 +25,8 @@ from gcl_tpu_torch.core import kernel_maps, sparse_ops
 from gcl_tpu_torch.kernels import (compacted_rows, counted_dw_rows,
                                    counted_gather_rows, counted_join_keys,
                                    counted_occupancy_keys,
-                                   counted_scalar_keys, join_kmap,
+                                   counted_scalar_keys, counted_topk_keys,
+                                   join_kmap,
                                    join_kmap_plain, join_windows,
                                    occupancy_windows,
                                    sparse_conv_dw, sparse_conv_dw_plain,
@@ -40,7 +43,7 @@ from gcl_tpu_torch.kernels import (compacted_rows, counted_dw_rows,
                                    sparse_conv_implicit_bwd_plain,
                                    sparse_conv_implicit_fwd,
                                    sparse_conv_implicit_fwd_plain,
-                                   windowed_cell_topk,
+                                   topk_windows, windowed_cell_topk,
                                    windowed_cell_topk_exact,
                                    windowed_cell_topk_packed,
                                    windowed_cell_topk_plain)
@@ -50,11 +53,11 @@ from gcl_tpu_torch.kernels.scalar_conv import CHUNK as SCALAR_CHUNK
 from gcl_tpu_torch.models.resunet import ResUNetFatBN
 from gcl_tpu_torch.models.weights import random_state_dict
 
-from _torch_parity import (JOIN_WINDOW_CASES, OCC_WINDOW_CASES, VOXEL,
-                           assert_bf16_close, assert_close_to_max, clouds,
-                           fatbn_specs, join_window_geometries,
-                           occupancy_window_inputs, scalar_window_inputs,
-                           to_np)
+from _torch_parity import (JOIN_WINDOW_CASES, OCC_WINDOW_CASES,
+                           TOPK_WINDOW_CASES, VOXEL, assert_bf16_close,
+                           assert_close_to_max, clouds, fatbn_specs,
+                           join_window_geometries, occupancy_window_inputs,
+                           scalar_window_inputs, to_np, topk_window_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -1280,3 +1283,83 @@ def test_scalar_conv_kernels_with_no_row_flagged(dev, dtype):
     assert torch.equal(out, torch.zeros_like(out))
     assert torch.equal(dw, torch.zeros_like(dw))
     assert bool(scalar_conv_fwd(x, w, *geo, None).any())
+
+
+def _synthetic_sbits(n, side, seed, density=0.3):
+    """int32[n, 8] presence bitmasks as K2 writes them: bit dy * side + dz
+    of column dx, each set with the given density; columns past side 0."""
+    rng = np.random.RandomState(seed)
+    s2 = side * side
+    bits = rng.rand(n, side, s2) < density
+    words = (bits.astype(np.int64) << np.arange(s2)).sum(-1)
+    out = np.zeros((n, 8), np.int32)
+    out[:, :side] = words.astype(np.int32)
+    return torch.from_numpy(out)
+
+
+# rows below one 64-row chunk, a ragged last chunk, and enough chunks
+# that every block walks its ring of stages more than once
+K3_ROWS = [37, 64 * 41 + 13, 100003]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", K3_ROWS)
+@pytest.mark.parametrize("cout", [1, 20, 32, 64, 96])
+@pytest.mark.parametrize("side", [3, 5])
+def test_occupancy_dw_tensor_core_tiles(dev, side, cout, n, dtype):
+    """K3 in both forms on synthetic bitmasks: the 16-offset m-tiles (two
+    at side 3, eight at side 5, the last padded), column slices of 32 or
+    64 padded with zero columns (Cout 1, 20) or cut in two (96), row
+    counts below and across the 64-row chunks: dW within 1e-4 of the
+    plain version's max (float32 sums in another order, by atomics)."""
+    kcube = side ** 3
+    sbits = _synthetic_sbits(n, side, side * 1000 + cout).to(dev)
+    gen = torch.Generator().manual_seed(n + cout)
+    g = torch.randn(n, cout, generator=gen).to(dev).to(dtype)
+    before = occupancy_conv_dw.launches
+    dw = occupancy_conv_dw(sbits, g, kcube)
+    torch.cuda.synchronize()
+    assert occupancy_conv_dw.launches == before + 1
+    assert dw.dtype == torch.float32 and dw.shape == (kcube, 1, cout)
+    _close_to_max(dw, occupancy_conv_dw_plain(sbits, g, kcube), 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_occupancy_dw_unaligned_and_empty(dev, dtype):
+    """K3 on g whose rows are not 16-byte aligned (the element copies),
+    and on all-zero bitmasks: dW exactly zero."""
+    n, cout = 5000, 32
+    sbits = _synthetic_sbits(n, 5, 7).to(dev)
+    gen = torch.Generator().manual_seed(8)
+    flat = torch.randn(n * cout + 1, generator=gen).to(dev).to(dtype)
+    g = flat[1:].view(n, cout)
+    assert g.data_ptr() % 16 != 0
+    dw = occupancy_conv_dw(sbits, g, 125)
+    _close_to_max(dw, occupancy_conv_dw_plain(sbits, g, 125), 1e-4)
+    zero = torch.zeros_like(sbits)
+    dw0 = occupancy_conv_dw(zero, g, 125)
+    torch.cuda.synchronize()
+    assert torch.equal(dw0, torch.zeros_like(dw0))
+
+
+@pytest.mark.parametrize("kn", [1, 5, 8])
+@pytest.mark.parametrize("case", TOPK_WINDOW_CASES + ("step",))
+def test_windowed_topk_kernel_in_windows(dev, case, kn):
+    """K1 on the window cases (bases only about monotone, tiles over x
+    cells, sentinel tiles, the grid edge, the 4 x 7 step's shapes): rows
+    equal and d2 bit for bit, and the targets its blocks stage, as the
+    kernel counts its copies, equal to the plain torch table's sum."""
+    arrays = topk_window_inputs(case, dev)
+    win = topk_windows(arrays[0], arrays[3])
+    assert torch.equal(win.cpu(), topk_windows(arrays[0].cpu(),
+                                               arrays[3].cpu()))
+    before = windowed_cell_topk_packed.launches
+    with counted_topk_keys(dev) as counter:
+        rows, d2 = windowed_cell_topk_packed(*arrays, kn)
+    assert windowed_cell_topk_packed.launches == before + 1
+    prow, pd2 = windowed_cell_topk_plain(*arrays, kn)
+    assert torch.equal(rows, prow)
+    assert torch.equal(d2.view(torch.int32), pd2.view(torch.int32))
+    assert int(counter.item()) == int(win[1].sum()) > 0
+    assert int((rows >= 0).sum()) > 100
+

@@ -1,8 +1,9 @@
 """Soundness of the key windows that K10 (the join), K2 (the occupancy
-conv) and K4 / K5 (the scalar conv, bounded by their flagged rows) search
-in: every key that the plain version resolves lies inside its tile's
-window from the window table, at scale and on the adversarial cases
-(ROADMAP Queue 3: test every window or bound at scale).
+conv), K4 / K5 (the scalar conv, bounded by their flagged rows) and K1
+(the grid group search) search in: every key that the plain version
+resolves lies inside its tile's window from the window table, at scale
+and on the adversarial cases (ROADMAP Queue 3: test every window or bound
+at scale).
 
 The tables are plain torch, so they are checked here on the CPU. The
 kernels work out the same windows block by block and run only on the
@@ -20,14 +21,20 @@ from gcl_tpu_torch.kernels import (join_kmap, join_kmap_plain, join_windows,
                                    occupancy_conv_fwd_plain,
                                    occupancy_windows, scalar_conv_dw,
                                    scalar_conv_dw_plain, scalar_conv_fwd,
-                                   scalar_conv_fwd_plain)
+                                   scalar_conv_fwd_plain, topk_windows,
+                                   windowed_cell_topk,
+                                   windowed_cell_topk_plain)
 from gcl_tpu_torch.kernels.join_kmap import TILE, num_offset_groups
 from gcl_tpu_torch.kernels.occupancy_conv import TILE as OCC_TILE
 from gcl_tpu_torch.kernels.occupancy_conv import neighbor_rows
+from gcl_tpu_torch.kernels.radius_topk import CHUNK as TOPK_CHUNK
+from gcl_tpu_torch.kernels.radius_topk import RUNS
+from gcl_tpu_torch.kernels.radius_topk import TILE as TOPK_TILE
 
 from _torch_parity import (JOIN_WINDOW_CASES, OCC_WINDOW_CASES,
-                           join_window_geometries, occupancy_window_inputs,
-                           scalar_window_inputs)
+                           TOPK_WINDOW_CASES, join_window_geometries,
+                           occupancy_window_inputs, scalar_window_inputs,
+                           topk_window_inputs)
 
 SEN = 0x7FFFFFFF
 
@@ -202,3 +209,110 @@ def test_scalar_conv_windows_change_nothing_on_the_cpu(case):
         assert torch.equal(dw, scalar_conv_dw_plain(x, g, aux, skeys, srow,
                                                     125, flag))
         assert bool(dw.any())
+
+
+def _run_positions(keys: torch.Tensor, base: torch.Tensor, off: int):
+    """(query, position) of every target in run ``off`` of each query's
+    probe block: the positions of the keys base + off and base + off + 1
+    in the sorted keys (the candidates the plain version's key test
+    passes there)."""
+    b = base.long() + off
+    first = torch.searchsorted(keys, b)
+    n = torch.searchsorted(keys, b + 1, right=True) - first
+    qi = torch.repeat_interleave(torch.arange(len(b)), n)
+    step = torch.arange(int(n.sum())) - torch.repeat_interleave(
+        torch.cumsum(n, 0) - n, n)
+    return qi, torch.repeat_interleave(first, n) + step
+
+
+@pytest.mark.parametrize("case", TOPK_WINDOW_CASES + ("step",))
+def test_topk_windows_hold_every_candidate(case):
+    """K1's windows: every target that the plain version's key test takes
+    for run r of a valid query lies in its tile's windows of runs 0..r
+    (each run holds its window less what the runs before it hold, so the
+    pieces are disjoint and ascend); a tile with no valid base stages
+    nothing. The cases between them hold bases only about monotone (the
+    train step's queries sorted by home cell), tiles that straddle x
+    cells, tiles of sentinel bases only and of both, bases at the +-2^9
+    grid edge, and the 4 x 7 step's shapes, where the windows hold at
+    most 16 targets a valid query and some tile's more than one chunk."""
+    tkey, _, _, pbase, _, _ = topk_window_inputs(case)
+    s_n, q_n = pbase.shape
+    t_n = tkey.shape[1]
+    n_tiles = -(-q_n // TOPK_TILE)
+    win = topk_windows(tkey, pbase)
+    assert win.shape == (2, s_n, n_tiles, 4)
+    start, length = win[0].long(), win[1].long()
+    assert bool((length >= 0).all() and (start + length <= t_n).all())
+    # the pieces of a tile ascend and are disjoint: the staged sequence is
+    # sorted
+    end = torch.cummax(torch.where(length > 0, start + length, 0), -1)[0]
+    assert bool(((start[..., 1:] >= end[..., :-1]) | (length[..., 1:] == 0))
+                .all())
+    valid = pbase != 0x7FFFFFFF
+    live = _tile_any(valid, TOPK_TILE)
+    assert bool((win[1][~live] == 0).all())
+    keys = tkey.long()
+    total = 0
+    for s in range(s_n):
+        base = torch.where(valid[s], pbase[s].long(), -(1 << 40))  # none
+        for r, off in enumerate(RUNS):
+            qi, pos = _run_positions(keys[s], base, off)
+            t = qi // TOPK_TILE
+            st, ln = start[s, t, :r + 1], length[s, t, :r + 1]
+            assert bool(((pos[:, None] >= st) & (pos[:, None] < st + ln))
+                        .any(1).all()), (case, s, r)
+            total += len(pos)
+    assert total > 0
+    # the case holds what it is for
+    tiles = torch.where(valid, pbase.long(), -1)
+    tiles = torch.cat([tiles, tiles.new_full((s_n, n_tiles * TOPK_TILE - q_n),
+                                             -1)], 1).reshape(s_n, n_tiles,
+                                                              TOPK_TILE)
+    lo = torch.where(tiles >= 0, tiles, 1 << 40).amin(-1)
+    hi = tiles.amax(-1)
+    assert bool(((lo >> 20) != (hi >> 20))[live].any()), "no tile straddles"
+    if case in ("home_sorted", "step"):
+        assert bool(((pbase[:, 1:] < pbase[:, :-1]) & valid[:, 1:]).any())
+    if case == "sentinels":
+        # tiles of sentinel bases only, and tiles of both
+        assert bool((~live).any())
+        assert bool((live & _tile_any(~valid, TOPK_TILE)).any())
+    if case == "grid_edge":
+        bx = pbase[valid] >> 20
+        assert int(bx.min()) == 0 and int(bx.max()) == 1022
+        assert bool((~valid).any())
+    if case == "step":
+        assert (s_n, q_n, t_n) == (28, 18432, 18432)
+        assert int(win[1].sum()) <= 16 * int(valid.sum())
+        assert int(win[1].sum(-1).max()) > TOPK_CHUNK
+
+
+@pytest.mark.parametrize("case", TOPK_WINDOW_CASES)
+def test_topk_windows_change_nothing_on_the_cpu(case):
+    """A search of only the targets each tile stages gives the plain
+    version's rows and d2 bit for bit (the windows lose no candidate), and
+    on the CPU windowed_cell_topk takes the plain version."""
+    arrays = topk_window_inputs(case)
+    tkey, trow, txyz, pbase, qxyz, r2 = arrays
+    s_n, q_n = pbase.shape
+    win = topk_windows(tkey, pbase)
+    pos = torch.arange(tkey.shape[1])
+    for kn in (1, 5, 8):
+        rows, d2 = windowed_cell_topk_plain(*arrays, kn)
+        wrows, wd2 = torch.empty_like(rows), torch.empty_like(d2)
+        for t in range(win.shape[2]):
+            st, ln = win[0, :, t].long(), win[1, :, t].long()   # [S, 4]
+            staged = ((pos[None, :, None] >= st[:, None])
+                      & (pos[None, :, None] < (st + ln)[:, None])).any(-1)
+            sl = slice(t * TOPK_TILE, (t + 1) * TOPK_TILE)
+            wrows[:, sl], wd2[:, sl] = windowed_cell_topk_plain(
+                torch.where(staged, tkey, 0x7FFFFFFF), trow,
+                torch.where(staged[..., None], txyz, 1e30),
+                pbase[:, sl].contiguous(), qxyz[:, sl].contiguous(), r2, kn)
+        assert torch.equal(wrows, rows)
+        assert torch.equal(wd2.view(torch.int32), d2.view(torch.int32))
+        got = windowed_cell_topk(*arrays, kn)
+        assert torch.equal(got[0], rows) and torch.equal(got[1], d2)
+        assert int((rows >= 0).sum()) > 100
+
