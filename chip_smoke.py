@@ -31,7 +31,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    random x, and the gated eps case bit for bit
    against the ungated kernel), K5 (the keys each K4 and K5 launch stages,
    dense and gated, counted by the kernel in a launch of its own, equal to
-   the plain torch window table of the rows it flags), and K6 / K2 again
+   the plain torch window table of the rows it flags), K9 (conv1's dX, by
+   the adjoint identity with K4 and through ScalarConv's backward, with
+   and without the step's row flag; the keys it stages equal to the
+   unflagged window table's sum, its flag gating the rows of g it
+   gathers), and K6 / K2 again
    at these shapes (K6
    also against itself, bit for bit; K2's blocks work out their key
    windows themselves, and the keys they stage into shared memory,
@@ -58,7 +62,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    staged targets, counted by the kernel in a launch of its own, equal to
    the plain torch window table's sum and printed a valid query, and
    torch.searchsorted of the run starts timed as its "library_ms", the
-   searches only);
+   searches only; K11 over 589,824 targets at 4096 and at 18,432 queries,
+   both timed, and on ties that enter a window chunk after another chunk
+   filled the slots, in gcl_tpu's order, through the wrapper);
 6. train step: make_gcl_train_step at gcl_tpu_torch.bench's settings,
    float32: one step on the kernel path and one on the plain path from
    the same weights and the same draws (loss within 1e-4, every gradient
@@ -107,8 +113,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    at 4 x 7 on the explicit route, checked the same way;
 11. prints {"kernels": [...]} (twelve kernels; a conv kernel's row holds
    its bf16 form's numbers, the main path's, and its float32 form's under
-   "float32"), the card line and, last, the {"ok": true, "device": {...}}
-   line.
+   "float32"; K11's holds its 18,432-query shape under "second_shape"),
+   the card line and, last, the {"ok": true, "device": {...}} line.
 """
 import contextlib
 import json
@@ -750,8 +756,18 @@ def train_kernel_checks(dev, dtype=None) -> dict:
              "K5 with the row flag against K5 without it")
     # K9: conv1's dX of a dense upstream gradient (with the weights rounded
     # to the features' type, as ScalarConv's backward hands them), and in
-    # float32 as the adjoint of K4 (in bf16 both sides round to bf16)
+    # float32 as the adjoint of K4 (in bf16 both sides round to bf16); the
+    # keys it stages, with and without a row flag (which gates the rows of
+    # g it gathers, not its windows), equal to the unflagged window table's
+    # sum; and with the step's row flag against its plain version (not
+    # timed)
     w9 = w1.to(dtype).float()
+    for flag, case in ((None, "dense"), (sel, "gated")):
+        rec["K9"][f"staged_keys_per_valid_row_{case}"] = _window_keys(
+            counted_scalar_keys(dev),
+            lambda: KERNELS["K9"][0](g1, w9, *geo, flag), c1.c1z, lv.skeys,
+            5, None, f"K9 {case} ({form})")
+    run("K9", (g1, w9, *geo, sel), mult=0, outs=lambda o: (o,))
     dx, e9, _, _ = run("K9", (g1, w9, *geo), flops=2 * present * 32,
                        n_bytes=(_nbytes(g1, w9, x1, lv.skeys, lv.srow)
                                 + _aux_bytes(c1.c1z)),
@@ -928,7 +944,7 @@ def group_kernel_checks(dev) -> dict:
     from gcl_tpu_torch.kernels import (KERNELS, counted_topk_keys,
                                        launch_counts, reset_launch_counts,
                                        topk_windows)
-    from gcl_tpu_torch.kernels.radius_topk import RUNS
+    from gcl_tpu_torch.kernels.radius_topk import RUNS, cross_chunk_ties
 
     k, cell = 5, bench.SEARCH_CELL
     points, pmask, transforms, radius = bench.bench_batch(SEED, BATCH,
@@ -1023,43 +1039,72 @@ def group_kernel_checks(dev) -> dict:
     print(f"groups of the batch: grid search {grid_ms:.2f} ms (sorts, K1, "
           f"tables), brute-force search {brute_ms:.2f} ms")
 
-    # K11: T > 2^19 targets in one search, through the entry point
+    # K11: T > 2^19 targets in one search, through the entry point, at Q =
+    # 4096 queries (the main measurement) and at Q = 18,432 (one whole
+    # centre cloud, the row's second shape)
     n_copy = (1 << 19) // NV_CAP + 4       # 32 clouds of 18,432 voxels
     shift = torch.arange(n_copy, device=dev, dtype=torch.float32) * 0.11
     clouds = vox.xyz[torch.arange(n_copy, device=dev) % (b * c)]
     targets = (clouds + shift[:, None, None]).reshape(1, -1, 3)
     t_mask = vox.mask[torch.arange(n_copy, device=dev) % (b * c)].reshape(
         1, -1)
-    queries, q_mask = vox.xyz[:1, :4096], vox.mask[:1, :4096]  # Q <= 4096
     r11 = torch.full((1,), 0.45, device=dev)
-    reset_launch_counts()
-    (idx11, hit11), arrays = _captured(
-        "windowed_cell_topk_exact",
-        lambda: dp.batched_grid_radius_knn(queries, q_mask, targets, t_mask,
-                                           r11, k, cell))
-    torch.cuda.synchronize()
-    rec11_launches = launch_counts()["K11"]
-    _require(launch_counts() == {**{kk: 0 for kk in KERNELS}, "K11": 1},
-             f"the large-T search launches K11 once and nothing else, got "
-             f"{launch_counts()}")
-    arrays = arrays[:6]
     fn, plain = KERNELS["K11"]
-    rows, d2 = fn(*arrays, k)
+    for q_n in (4096, NV_CAP):
+        queries, q_mask = vox.xyz[:1, :q_n], vox.mask[:1, :q_n]
+        reset_launch_counts()
+        (idx11, hit11), arrays = _captured(
+            "windowed_cell_topk_exact",
+            lambda: dp.batched_grid_radius_knn(queries, q_mask, targets,
+                                               t_mask, r11, k, cell))
+        torch.cuda.synchronize()
+        launches11 = launch_counts()["K11"]
+        _require(launch_counts() == {**{kk: 0 for kk in KERNELS}, "K11": 1},
+                 f"the large-T search launches K11 once and nothing else, "
+                 f"got {launch_counts()}")
+        arrays = arrays[:6]
+        rows, d2 = fn(*arrays, k)
+        torch.cuda.synchronize()
+        prows, pd2 = plain(*arrays, k)
+        torch.cuda.synchronize()
+        _require(torch.equal(rows, prows),
+                 f"K11 Q={q_n} rows equal the plain version's")
+        _require(_bit_equal(d2, pd2),
+                 f"K11 Q={q_n} d2 equals the plain version's")
+        _require(int(hit11.sum()) > q_n // 2,
+                 "the large-T search finds neighbours")
+        n_bytes, flops, cand = _topk_work(arrays, k)
+        shape = dict(queries=q_n, ms=_ms(lambda: fn(*arrays, k), 10),
+                     plain_ms=_ms(lambda: plain(*arrays, k), 1),
+                     bytes=n_bytes, flops=flops, launches=launches11)
+        shape["bound_ms"], shape["bound_by"] = _bound(n_bytes, flops)
+        print(f"K11 S=1 Q={q_n} T={arrays[0].shape[1]} kn={k}: rows and d2 "
+              f"equal; {cand} candidates, {int(hit11.sum())} neighbours; "
+              f"kernel {shape['ms']:.4f} ms, plain {shape['plain_ms']:.1f} "
+              f"ms, bound {shape['bound_ms']:.4f} ms by {shape['bound_by']}")
+        if q_n == 4096:
+            rec["K11"] = dict(max_abs_err=0.0, **shape)
+            rec["K11"].pop("queries")
+            tie_arrays = arrays
+        else:
+            rec["K11"]["second_shape"] = shape
+    # ties that enter a window chunk after another chunk has filled the
+    # slots (gcl_tpu's order: the last tie entered first), through the
+    # wrapper on the Q = 4096 search's arrays
+    first = int(torch.nonzero(tie_arrays[3][0] != 0x7FFFFFFF)[0, 0])
+    tie_arrays, pos = cross_chunk_ties(tie_arrays, first)
+    rows, d2 = fn(*tie_arrays, k)
     torch.cuda.synchronize()
-    prows, pd2 = plain(*arrays, k)
-    torch.cuda.synchronize()
-    _require(torch.equal(rows, prows), "K11 rows equal the plain version's")
-    _require(_bit_equal(d2, pd2), "K11 d2 equals the plain version's")
-    _require(int(hit11.sum()) > queries.shape[1] // 2,
-             "the large-T search finds neighbours")
-    n_bytes, flops, cand = _topk_work(arrays, k)
-    rec["K11"] = dict(max_abs_err=0.0, ms=_ms(lambda: fn(*arrays, k), 10),
-                      plain_ms=_ms(lambda: plain(*arrays, k), 1),
-                      bytes=n_bytes, flops=flops, launches=rec11_launches)
-    print(f"K11 S=1 Q={arrays[3].shape[1]} T={arrays[0].shape[1]} kn={k}: "
-          f"rows and d2 equal; {cand} candidates, {int(hit11.sum())} "
-          f"neighbours; kernel {rec['K11']['ms']:.3f} ms, plain "
-          f"{rec['K11']['plain_ms']:.1f} ms")
+    prows, pd2 = plain(*tie_arrays, k)
+    _require(torch.equal(rows, prows) and _bit_equal(d2, pd2),
+             "K11 on the cross-chunk ties equals its plain version")
+    _require(torch.equal(rows[0, first],
+                         tie_arrays[1][0, pos + 2100:pos + 2105].flip(0)),
+             "K11's cross-chunk ties come out in gcl_tpu's order")
+    rec["K11"]["cross_chunk_ties"] = "rows and d2 equal to the plain version"
+    print(f"K11 cross-chunk ties (query {first}, targets from sorted "
+          f"position {pos}): rows {rows[0, first].tolist()} equal the plain "
+          f"version's, the last tie entered first")
     for name in ("K1", "K11"):
         r = rec[name]
         r["bound_ms"], r["bound_by"] = _bound(r["bytes"], r["flops"])
@@ -1797,12 +1842,16 @@ def main() -> None:
         **{f"serving_{k}": v for k, v in k2_win.items()})
     windowed = ("staged_keys_per_valid_row", "staged_keys_per_valid_query",
                 "staged_keys_per_flagged_row_gated",
-                "staged_keys_per_flagged_row_dense")
-    for i in (2, 4, 5, 6, 10):  # K2, K4, K5 (each form), K1, K10
+                "staged_keys_per_flagged_row_dense",
+                "staged_keys_per_valid_row_gated",
+                "staged_keys_per_valid_row_dense")
+    for i in (2, 4, 5, 6, 8, 10):  # K2, K4, K5, K9 (each form), K1, K10
         for row, r in ((kernels[i], rec16.get(table[i][0], rec[table[i][0]])),
                        (kernels[i].get("float32"), rec[table[i][0]])):
             if row is not None:
                 row.update({key: r[key] for key in windowed if key in r})
+    kernels[7].update(second_shape=rec["K11"]["second_shape"],
+                      cross_chunk_ties=rec["K11"]["cross_chunk_ties"])
     kernels[1].update(two_pass=rec16["K7"].pop("two_pass"))
     kernels[1]["float32"].update(two_pass=rec["K7"].pop("two_pass"))
     kernels[9].update(convs=rec16["K8"].pop("convs"))

@@ -7,7 +7,7 @@
 //   out[i, :] = sum_k a[row(k, i), :] @ B_k          (zero where none)
 //
 // with row(k, i) resolved by a template parameter: a binary search of
-// qkey[k, i] in the sorted keys (find_key over skeys / srow), or a read of
+// qkey[k, i] in the sorted keys (find_keys over skeys / srow), or a read of
 // an index table. B_k is W[k] ([depth, width], the forward) or, for dX
 // through the reverse map, W[K-1-k]^T read by index arithmetic from W
 // ([K][width][depth]): nothing is flipped or copied on the host.
@@ -70,7 +70,6 @@
 #include <type_traits>
 
 #include "elem.cuh"
-#include "key_search.cuh"
 
 namespace gg {
 

@@ -149,7 +149,7 @@ __device__ __forceinline__ void count_staged_keys(unsigned int mine) {
 // dx's keys stay sorted.
 template <int kTile, int kMaxSide>
 struct CubeWindows {
-  long long red[kTile / 32][kMaxSide][2][2];  // per row warp
+  long long red[kTile / 32][kMaxSide][2][2];  // per 32 rows
   long long bnd[kMaxSide][2][2];              // over the tile
   int ends[kMaxSide][2][2];
   int s0[kMaxSide][2], ln[kMaxSide][2], off[kMaxSide + 1];
@@ -174,32 +174,32 @@ __device__ __forceinline__ int cube_windows(
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int rad = side / 2;
-  if (tid < kTile) {
-    const int lr = tid;
+  // (32 rows, dx group) items, one warp each, spread over the block's warps
+  for (int item = warp; item < kTile / 32 * side; item += kThreads / 32) {
+    const int rw = item % (kTile / 32), g = item / (kTile / 32);
+    const int lr = rw * 32 + lane;
     const bool row = lr < rows && (sel == nullptr || sel[lr]) &&
                      aux_s[lr][2] >= -rad &&
                      aux_s[lr][2] < (1 << kKeyBY) + rad &&
                      aux_s[lr][3] >= -rad &&
                      aux_s[lr][3] < (1 << kKeyBZ) + rad;
     const long long reach = (long long)rad * (1 << kKeyBZ) + rad;
-    for (int g = 0; g < side; ++g) {
-      const int dx = g - rad;
-      const bool live = row && aux_s[lr][1] + dx >= 0 &&
-                        aux_s[lr][1] + dx < (1 << kKeyBX);
-      const long long lo = (long long)aux_s[lr][0] +
-                           (long long)dx * (1 << (kKeyBY + kKeyBZ)) - reach;
-      const long long hi = lo + 2 * reach;
-      const bool neg = live && lo < 0, pos = live && hi >= 0;
-      const long long nlo = warp_reduce<false>(neg ? lo : LLONG_MAX);
-      const long long nhi = warp_reduce<true>(neg ? min(hi, -1LL) : LLONG_MIN);
-      const long long plo = warp_reduce<false>(pos ? max(lo, 0LL) : LLONG_MAX);
-      const long long phi = warp_reduce<true>(pos ? hi : LLONG_MIN);
-      if (lane == 0) {
-        cw.red[warp][g][0][0] = nlo;
-        cw.red[warp][g][0][1] = nhi;
-        cw.red[warp][g][1][0] = plo;
-        cw.red[warp][g][1][1] = phi;
-      }
+    const int dx = g - rad;
+    const bool live = row && aux_s[lr][1] + dx >= 0 &&
+                      aux_s[lr][1] + dx < (1 << kKeyBX);
+    const long long lo = (long long)aux_s[lr][0] +
+                         (long long)dx * (1 << (kKeyBY + kKeyBZ)) - reach;
+    const long long hi = lo + 2 * reach;
+    const bool neg = live && lo < 0, pos = live && hi >= 0;
+    const long long nlo = warp_reduce<false>(neg ? lo : LLONG_MAX);
+    const long long nhi = warp_reduce<true>(neg ? min(hi, -1LL) : LLONG_MIN);
+    const long long plo = warp_reduce<false>(pos ? max(lo, 0LL) : LLONG_MAX);
+    const long long phi = warp_reduce<true>(pos ? hi : LLONG_MIN);
+    if (lane == 0) {
+      cw.red[rw][g][0][0] = nlo;
+      cw.red[rw][g][0][1] = nhi;
+      cw.red[rw][g][1][0] = plo;
+      cw.red[rw][g][1][1] = phi;
     }
   }
   __syncthreads();

@@ -5,7 +5,7 @@
 // Replaces gcl_tpu/core/pallas_radius.py:windowed_cell_topk with its two
 // kernel bodies: _topk_kernel_packed (TPU kernel K1, candidates ordered by
 // the int32 (quantized d2 << ROWB) | row) and _topk_kernel (K11, candidates
-// ordered by the exact float d2, ties by sorted position).
+// ordered by the exact float d2, equal distances in the TPU kernel's order).
 //
 // Per search s the targets arrive sorted by packed cell key
 // (x << 20 | y << 10 | z, sentinel 0x7FFFFFFF on invalid rows, whose
@@ -50,10 +50,12 @@
 // does not change the result. One launch covers all searches; there is no
 // host sync.
 //
-// K11 (the exact order, T > 2^19) keeps its first design: one thread per
-// (search, query), four lower-bound searches over the whole level, each
-// from where the last one ended, and a walk of each run; its tie rule
-// depends on that visiting order (see topk_exact_kernel).
+// K11 (the exact order, T > 2^19): its order among equal distances
+// depends on the TPU kernel's windows and their chunks, which it computes
+// (see topk_exact_kernel). Bound by the latency of its searches over the
+// whole level (T > 2^19 keys in L2) and of its walks: one warp a query
+// spreads both over 32 lanes, the searches 32-way and five at once, the
+// walk 32 targets a step.
 //
 // d2 is ((dx*dx + dy*dy) + dz*dz) in round-to-nearest multiplies and adds
 // with no fused multiply-add, so the quantized order is the plain version's
@@ -67,25 +69,9 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // K11's block
 constexpr int kSentinel = 0x7FFFFFFF;
 constexpr int kMaxKn = 8;
 constexpr float kBig = 1e30f;
-
-// First position p in keys[lo, n) with keys[p] >= q (n when there is none).
-__device__ __forceinline__ int lower_bound_from(const int* __restrict__ keys,
-                                                int lo, int n, int q) {
-  int hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(keys + mid) < q) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
 
 __device__ __forceinline__ float sq_dist(const float* __restrict__ t, float qx,
                                          float qy, float qz) {
@@ -284,33 +270,108 @@ topk_packed_kernel(const int* __restrict__ tkey, const int* __restrict__ trow,
   }
 }
 
-// KN best by (exact d2, sorted position), ascending. The four runs are
-// visited in ascending position and a candidate moves ahead of strictly
-// larger distances only, so among equal distances the lower sorted position
-// comes first. (The TPU kernel merges window chunks by replace-max and may
-// emit equal distances from different chunks in another order; that order
-// is not reproduced.)
+// K11's warps: the lower bounds of N keys in keys[0, n) at once (n where
+// a key has none), by 32-way searches in lockstep: each round every lane
+// probes one position of each search, so the N loads of a round are
+// independent and their latencies overlap; 2^20 keys take 4 rounds. Every
+// lane of the warp calls it and gets every result.
+template <int N>
+__device__ __forceinline__ void warp_lower_bounds(const int* __restrict__ keys,
+                                                  int n, const int (&v)[N],
+                                                  int (&lo)[N]) {
+  const int lane = threadIdx.x & 31;
+  int hi[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    lo[i] = 0;
+    hi[i] = n;
+  }
+  bool more = n > 0;
+  while (more) {
+    bool below[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int step = (hi[i] - lo[i] + 31) >> 5;
+      const long long p = (long long)lo[i] + (long long)(lane + 1) * step - 1;
+      below[i] = p < hi[i] && __ldg(keys + p) < v[i];
+    }
+    more = false;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int step = (hi[i] - lo[i] + 31) >> 5;
+      const int c = __popc(__ballot_sync(0xffffffffu, below[i]));
+      const int b = lo[i];
+      lo[i] = b + c * step;
+      hi[i] = static_cast<int>(min((long long)hi[i],
+                                   (long long)b + (long long)(c + 1) * step - 1));
+      more |= lo[i] < hi[i];
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned long long shfl_min(unsigned long long v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const unsigned long long w = __shfl_xor_sync(0xffffffffu, v, o);
+    v = w < v ? w : v;
+  }
+  return v;
+}
+
+// K11: gcl_tpu's _topk_kernel order, which depends on the window it
+// visits: the window of a tile of kExactTile queries starts at the lower
+// bound of the tile's least valid base, rounded down to 128, and is visited
+// in chunks of kWin rows; each chunk's KN best by (d2, position) go, best
+// first, into the first of KN slots that holds the largest distance, where
+// strictly less; the slots come out by distance, ties by slot
+// (kernels/radius_topk.py:replace_max_order).
+//
+// One warp a query. Its lanes find the four runs' starts and the tile's
+// window start with 32-way searches in lockstep, five loads a round, then
+// walk each run 32 consecutive targets at a time (coalesced), the runs in
+// ascending position and so the chunks in order. Each lane keeps its own
+// best KN of the current chunk by (d2, position); where the chunk changes,
+// the warp takes the chunk's KN best from the lanes' lists by a shuffle
+// minimum over (d2 bits << 32 | position), best first, and puts each into
+// the slots, which every lane holds alike.
+constexpr int kExactWarps = 8;   // queries (warps) a block
+constexpr int kExactTile = 128;  // gcl_tpu's queries a tile: EXACT_TILE
+constexpr int kWin = 2048;       // gcl_tpu's rows a chunk: EXACT_WIN
+
 template <int KN>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kExactWarps * 32)
 topk_exact_kernel(const int* __restrict__ tkey, const int* __restrict__ trow,
                   const float* __restrict__ txyz,
                   const int* __restrict__ pbase,
                   const float* __restrict__ qxyz,
                   const float* __restrict__ r2s, int* __restrict__ rows,
                   float* __restrict__ d2s, int t_n, int q_n) {
-  const int q = blockIdx.x * kThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int q = blockIdx.x * kExactWarps + (threadIdx.x >> 5);
   const int s = blockIdx.y;
-  if (q >= q_n) return;
+  if (q >= q_n) return;  // the whole warp
   const size_t sq = (size_t)s * q_n + q;
-  float best_d[KN];
-  int best_r[KN];
+  const int* pb = pbase + (size_t)s * q_n;
+  const int base = __ldg(pb + q);
+  // the least base of the query's tile (the sentinel is INT_MAX: a valid
+  // base is below it)
+  int kmin = kSentinel;
+  const int t0 = q / kExactTile * kExactTile;
+  for (int i = t0 + lane; i < min(t0 + kExactTile, q_n); i += 32) {
+    kmin = min(kmin, __ldg(pb + i));
+  }
 #pragma unroll
-  for (int j = 0; j < KN; ++j) {
-    best_d[j] = kBig;
-    best_r[j] = -1;
+  for (int o = 16; o > 0; o >>= 1) {
+    kmin = min(kmin, __shfl_xor_sync(0xffffffffu, kmin, o));
   }
 
-  const int base = __ldg(pbase + sq);
+  float sd[KN];  // the slots, alike in every lane
+  int sr[KN];
+#pragma unroll
+  for (int j = 0; j < KN; ++j) {
+    sd[j] = kBig;
+    sr[j] = -1;
+  }
   if (base != kSentinel) {
     const int* keys = tkey + (size_t)s * t_n;
     const int* trows = trow + (size_t)s * t_n;
@@ -318,36 +379,144 @@ topk_exact_kernel(const int* __restrict__ tkey, const int* __restrict__ trow,
     const float qx = __ldg(qxyz + sq * 3), qy = __ldg(qxyz + sq * 3 + 1),
                 qz = __ldg(qxyz + sq * 3 + 2);
     const float r2 = __ldg(r2s + s);
-    int p = 0;
-#pragma unroll 1
-    for (int run = 0; run < 4; ++run) {
-      const int key0 = base + ((run >> 1) << 20) + ((run & 1) << 10);
-      p = lower_bound_from(keys, p, t_n, key0);
-      while (p < t_n && __ldg(keys + p) <= key0 + 1) {
-        const float d2 = sq_dist(txs + (size_t)p * 3, qx, qy, qz);
-        if (d2 <= r2 && d2 < best_d[KN - 1]) {
-          best_d[KN - 1] = d2;
-          best_r[KN - 1] = __ldg(trows + p);
+    const int v[5] = {kmin, base + run_offset(0), base + run_offset(1),
+                      base + run_offset(2), base + run_offset(3)};
+    int lb[5];
+    warp_lower_bounds<5>(keys, t_n, v, lb);
+    const int t_pad = (t_n + kWin - 1) / kWin * kWin + kWin;
+    const int wstart = min(lb[0] & ~127, t_pad - kWin);
+
+    // this lane's best of the current chunk, ascending by (d2, position)
+    float ld[KN];
+    int lp[KN], lr[KN];
 #pragma unroll
-          for (int j = KN - 1; j > 0; --j) {
-            if (best_d[j] < best_d[j - 1]) {
-              const float td = best_d[j];
-              best_d[j] = best_d[j - 1];
-              best_d[j - 1] = td;
-              const int tr = best_r[j];
-              best_r[j] = best_r[j - 1];
-              best_r[j - 1] = tr;
+    for (int j = 0; j < KN; ++j) {
+      ld[j] = kBig;
+      lp[j] = INT_MAX;
+      lr[j] = -1;
+    }
+    int cur = -1;  // the current chunk
+    // the chunk's KN best, from the lanes' lists, into the slots
+    auto flush = [&]() {
+#pragma unroll 1
+      for (int e = 0; e < KN; ++e) {
+        const unsigned long long mine =
+            ld[0] < kBig ? ((unsigned long long)__float_as_uint(ld[0]) << 32) |
+                               (unsigned int)lp[0]
+                         : ~0ull;
+        const unsigned long long m = shfl_min(mine);
+        if (m == ~0ull) break;
+        const int owner = __ffs(__ballot_sync(0xffffffffu, mine == m)) - 1;
+        const float d = __uint_as_float((unsigned int)(m >> 32));
+        const int row = __shfl_sync(0xffffffffu, lr[0], owner);
+        if (lane == owner) {
+#pragma unroll
+          for (int j = 0; j + 1 < KN; ++j) {
+            ld[j] = ld[j + 1];
+            lp[j] = lp[j + 1];
+            lr[j] = lr[j + 1];
+          }
+          ld[KN - 1] = kBig;
+          lp[KN - 1] = INT_MAX;
+          lr[KN - 1] = -1;
+        }
+        // into the first slot that holds the largest distance
+        int jm = 0;
+#pragma unroll
+        for (int j = 1; j < KN; ++j) {
+          if (sd[j] > sd[jm]) jm = j;
+        }
+#pragma unroll
+        for (int j = 0; j < KN; ++j) {
+          if (j == jm && d < sd[j]) {
+            sd[j] = d;
+            sr[j] = row;
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < KN; ++j) {
+        ld[j] = kBig;
+        lp[j] = INT_MAX;
+        lr[j] = -1;
+      }
+    };
+
+#pragma unroll 1
+    for (int r = 0; r < kRuns; ++r) {
+      const int last = v[r + 1] + 1;  // the run's keys: v[r + 1], + 1
+#pragma unroll 1
+      for (int p0 = lb[r + 1];; p0 += 32) {
+        const int p = p0 + lane;
+        const bool in_run = p < t_n && __ldg(keys + p) <= last;
+        bool cand = false;
+        float d2 = kBig;
+        int row = -1;
+        if (in_run) {
+          d2 = sq_dist(txs + (size_t)p * 3, qx, qy, qz);
+          row = __ldg(trows + p);
+          cand = d2 <= r2;
+        }
+        const int chunk = (p - wstart) / kWin;
+        // the batch spans at most two chunks
+        while (__any_sync(0xffffffffu, cand)) {
+          int c = cand ? chunk : INT_MAX;
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1) {
+            c = min(c, __shfl_xor_sync(0xffffffffu, c, o));
+          }
+          if (c != cur) {
+            if (cur >= 0) flush();
+            cur = c;
+          }
+          if (cand && chunk == cur) {
+            cand = false;
+            // later positions go behind equal distances
+            if (d2 < ld[KN - 1]) {
+              ld[KN - 1] = d2;
+              lp[KN - 1] = p;
+              lr[KN - 1] = row;
+#pragma unroll
+              for (int j = KN - 1; j > 0; --j) {
+                if (ld[j] < ld[j - 1]) {
+                  const float td = ld[j];
+                  ld[j] = ld[j - 1];
+                  ld[j - 1] = td;
+                  const int tp = lp[j];
+                  lp[j] = lp[j - 1];
+                  lp[j - 1] = tp;
+                  const int tr = lr[j];
+                  lr[j] = lr[j - 1];
+                  lr[j - 1] = tr;
+                }
+              }
             }
           }
         }
-        ++p;
+        if (!__all_sync(0xffffffffu, in_run)) break;  // the run ended
       }
     }
+    if (cur >= 0) flush();
   }
+  // lane j < KN writes the output of rank j: the slots by distance, ties
+  // by slot
+  if (lane < KN) {
+    float md = kBig;
+    int mr = -1;
 #pragma unroll
-  for (int j = 0; j < KN; ++j) {
-    rows[sq * KN + j] = best_r[j];
-    d2s[sq * KN + j] = best_d[j];
+    for (int j = 0; j < KN; ++j) {
+      int rank = 0;
+#pragma unroll
+      for (int k = 0; k < KN; ++k) {
+        rank += sd[k] < sd[j] || (sd[k] == sd[j] && k < j);
+      }
+      if (rank == lane) {
+        md = sd[j];
+        mr = sr[j];
+      }
+    }
+    rows[sq * KN + lane] = md < kBig ? mr : -1;
+    d2s[sq * KN + lane] = md;
   }
 }
 
@@ -363,14 +532,14 @@ cudaError_t launch(const int* tkey, const int* trow, const float* txyz,
                             inv_scale, rows, d2, s_n, t_n, q_n, kn, rowb,
                             qcap, stream);
     }
-    const dim3 grid((q_n + kThreads - 1) / kThreads, s_n);
     if (rowb > 0) {
       const dim3 tiles((q_n + kTile - 1) / kTile, s_n);
       topk_packed_kernel<KN><<<tiles, kTile, 0, stream>>>(
           tkey, trow, txyz, pbase, qxyz, r2, scale, inv_scale, rows, d2, t_n,
           q_n, rowb, qcap);
     } else {
-      topk_exact_kernel<KN><<<grid, kThreads, 0, stream>>>(
+      const dim3 grid((q_n + kExactWarps - 1) / kExactWarps, s_n);
+      topk_exact_kernel<KN><<<grid, kExactWarps * 32, 0, stream>>>(
           tkey, trow, txyz, pbase, qxyz, r2, rows, d2, t_n, q_n);
     }
     return cudaGetLastError();

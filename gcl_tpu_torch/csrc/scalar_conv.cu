@@ -24,7 +24,7 @@
 // over the level's sorted keys, then k^3 x Cout FMAs per row; x, g and out
 // are 4-132 bytes a row.
 //
-// What the design does about it (K4, K5): K2's resolver. A block of 512
+// What the design does about it (K4, K5, and K9 likewise): K2's resolver. A block of 512
 // threads owns a tile of 128 key-sorted rows and works out, per dx, the
 // run of the level's keys that its flagged rows' neighbours can have (the
 // cube windows of csrc/key_window.cuh, which K2 shares; a row left
@@ -48,13 +48,14 @@
 // it adds that to global memory with one atomicAdd per element, so dW
 // agrees with the plain version to float32 rounding.
 //
-// K9 resolves its neighbours by a binary search of the whole level
-// (neighbor_pos), 125 a row, then reads one g row of Cout floats per match:
-// a warp takes a row at a time, its lanes spread over the channels so that
-// each matched g row is one coalesced read, and the lanes' partial sums
-// meet in a shuffle reduction. It is bound by those reads (g once is N *
-// Cout * 4 bytes; each row of g is read once per row it neighbours, from
-// L2).
+// K9 takes the same windows, of every row of its tile (the rows of g that
+// a row's dX gathers need no flag of their own), resolves in them as K4
+// does, and sums g[i] . W[K-1-k] over a row's present neighbours: a warp
+// lists a row's present pairs, and its lanes take several pairs at a time,
+// 8 channels a lane, each g row read from global memory (a tile's
+// neighbourhood stays in L1 and L2) in 16-byte loads. What the card spends
+// its time on: the windows' searches, the resolution and, per row, the
+// listing and gathering of its pairs.
 //
 // The bf16 forms (the *_bf16 entry points, a bf16 model's eps term) read x
 // and g in bf16 and store out and dX in bf16, rounded once; W stays
@@ -62,10 +63,11 @@
 // float32 whatever the features' type), and every product and sum is
 // float32; dW is float32.
 
+#include <stdint.h>
+
 #include <cuda_runtime.h>
 
 #include "elem.cuh"
-#include "key_search.cuh"
 #include "key_window.cuh"
 #include "launch_cache.cuh"
 
@@ -76,8 +78,6 @@ constexpr int kTile = 128;  // K4 / K5's rows a tile: occupancy_conv.TILE
 // memory at Cout 32 lets in)
 constexpr int kTileThreads = 512;
 constexpr int kMaxSide = 5;        // occupancy_conv.MAX_SIDE
-constexpr int kRows = 32;          // K9's rows a block
-constexpr int kThreads = 256;      // K9's threads a block
 constexpr int kMaxVol = kMaxSide * kMaxSide * kMaxSide;
 
 // What K4 and K5 keep in shared memory for the tile they work on.
@@ -334,12 +334,76 @@ scalar_conv_dw_kernel(const T* __restrict__ x,
   }
 }
 
-// K9. nb[lr][k] = match(K-1-k, row0 + lr) or -1; a gathered row i whose
-// row_sel[i] <= 0 counts as absent (K4 left out[i] zero, so g[i] reaches no
-// x): the exact adjoint of K4 for any row flag. T: the element type of g
-// and dx; w and the sums are float32.
+// sum over c in [c0, min(c0 + 8, cout)) of g[i, c] * wm[k, c]; vec: 8
+// channels there, g's rows 16-byte aligned (cout % 8 == 0), read as one
+// 16-byte load in bf16, two in float32 (wm's rows then are 16-byte aligned
+// too)
+__device__ __forceinline__ float dot8_vec(const float* gi, const float* wk) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(gi));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(gi) + 1);
+  const float4 u = *reinterpret_cast<const float4*>(wk);
+  const float4 v = *reinterpret_cast<const float4*>(wk + 4);
+  float d = a.x * u.x;
+  d = fmaf(a.y, u.y, d);
+  d = fmaf(a.z, u.z, d);
+  d = fmaf(a.w, u.w, d);
+  d = fmaf(b.x, v.x, d);
+  d = fmaf(b.y, v.y, d);
+  d = fmaf(b.z, v.z, d);
+  return fmaf(b.w, v.w, d);
+}
+__device__ __forceinline__ float dot8_vec(const bf16* gi, const float* wk) {
+  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(gi));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  const float4 u = *reinterpret_cast<const float4*>(wk);
+  const float4 v = *reinterpret_cast<const float4*>(wk + 4);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  const float2 c = __bfloat1622float2(h[2]), e = __bfloat1622float2(h[3]);
+  float d = a.x * u.x;
+  d = fmaf(a.y, u.y, d);
+  d = fmaf(b.x, u.z, d);
+  d = fmaf(b.y, u.w, d);
+  d = fmaf(c.x, v.x, d);
+  d = fmaf(c.y, v.y, d);
+  d = fmaf(e.x, v.z, d);
+  return fmaf(e.y, v.w, d);
+}
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ float dot8(const T* __restrict__ g, int i,
+                                      const float* wm, unsigned int k, int c0,
+                                      int cout, bool vec) {
+  const T* gi = g + (size_t)i * cout + c0;
+  const float* wk = wm + (size_t)k * cout + c0;
+  if (vec) return dot8_vec(gi, wk);
+  float d = 0.f;
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    if (c0 + t < cout) d = fmaf(ldg_f32(gi + t), wk[t], d);
+  }
+  return d;
+}
+
+// K9. dX[j] = sum over the present neighbours i of row j, at offset index
+// k of j's cube, of g[i, :] . W[K-1-k, 0, :]: as K4, on K4's resolver, with
+// the windows of every row of the tile (the neighbours of any row can be
+// gathered; occupancy_windows without a flag is the same table) and W in
+// shared memory, read at the mirrored offset. A gathered row i whose
+// row_sel[i] <= 0 counts as absent (K4 left out[i] zero, so g[i] reaches
+// no x): the exact adjoint of K4 for any row flag. Beside each staged key
+// the block stages its row (-1 where the flag leaves it out).
+//
+// A warp takes eight of the tile's rows in turn; it lists a row's present
+// pairs, then its lanes take them several at a time, each a slice of 8
+// channels of one pair (g[i] read from global memory in 16-byte loads,
+// W[K-1-k] from shared memory), so that the loads of several pairs are in
+// flight together; the lanes' sums meet in one shuffle reduction a row and
+// chunk, into the row's sum in shared memory. T: the element type of g and
+// dx; w and the sums are float32.
+
+constexpr int kPairUnroll = 4;  // pairs a lane has in flight
+
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads, 3)
 scalar_conv_dx_kernel(const T* __restrict__ g,
                       const float* __restrict__ w,
                       const int* __restrict__ aux,
@@ -347,55 +411,110 @@ scalar_conv_dx_kernel(const T* __restrict__ g,
                       const int* __restrict__ srow,
                       const float* __restrict__ row_sel,
                       T* __restrict__ dx, int n, int side, int cout,
-                      int n_keys) {
-  extern __shared__ __align__(16) float ws[];  // [kvol, cout]
-  __shared__ int nb[kRows][kMaxVol];
+                      int n_keys, int chunk) {
+  // [kvol, cout] W, 2 x [chunk] keys, 2 x [chunk] rows, then the warps'
+  // [kMaxVol] lists of a row's present pairs
+  extern __shared__ __align__(16) float ws[];
+  __shared__ Tile t;
+  __shared__ float sums[kTile];  // dX of the tile's rows so far
 
   const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
   const int kvol = side * side * side;
   const int s2 = side * side;
-  const int rad = side / 2;
-  const int row0 = blockIdx.x * kRows;
-  for (int e = tid; e < kvol * cout; e += kThreads) ws[e] = __ldg(w + e);
-  for (int e = tid; e < kRows * kvol; e += kThreads) {
-    const int lr = e / kvol;
-    const int k = e % kvol;
-    const int j = row0 + lr;
-    int i = -1;
-    if (j < n) {
-      const int kr = kvol - 1 - k;  // the mirrored offset
-      const int p = neighbor_pos(aux + (size_t)j * 8, kr / s2 - rad,
-                                 (kr / side) % side - rad, kr % side - rad,
-                                 skeys, n_keys);
-      if (p >= 0) {
-        i = __ldg(srow + p);
-        if (row_sel != nullptr && !(__ldg(row_sel + i) > 0.f)) i = -1;
-      }
-    }
-    nb[lr][k] = i;
+  const int row0 = blockIdx.x * kTile;
+  int* keys = reinterpret_cast<int*>(ws + kvol * cout);
+  int* rows = keys + 2 * chunk;
+  unsigned int(*list)[kMaxVol] =
+      reinterpret_cast<unsigned int(*)[kMaxVol]>(rows + 2 * chunk);
+  // W arrives with the first chunk's keys (the same cp.async group)
+  for (int e = tid; e < kvol * cout; e += kTileThreads) {
+    kw::cp_async4(ws + e, w + e);
   }
-  __syncthreads();
+  if (tid < kTile) sums[tid] = 0.f;
+  tile_flags(t, nullptr, row0, n);
+  begin_tile(t, aux, skeys, row0, n, side, n_keys);
 
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  for (int lr = warp; lr < kRows; lr += kThreads / 32) {
-    const int j = row0 + lr;
-    if (j >= n) break;
-    float acc = 0.f;
-    for (int k = 0; k < kvol; ++k) {
-      const int i = nb[lr][k];  // the same for the whole warp
-      if (i < 0) continue;
-      const T* gi = g + (size_t)i * cout;
-      const float* wk = ws + k * cout;
-      for (int c = lane; c < cout; c += 32) {
-        acc = fmaf(ldg_f32(gi + c), wk[c], acc);
-      }
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      acc += __shfl_down_sync(0xffffffffu, acc, off);
-    }
-    if (lane == 0) dx[j] = from_f32<T>(acc);
-  }
+  // slices of 8 channels, lpp lanes a pair (a power of two), pps pairs a
+  // step
+  const int slices = (cout + 7) / 8;
+  int lpp = 1;
+  while (lpp < slices && lpp < 32) lpp <<= 1;
+  const int pps = 32 / lpp;
+  const bool vec = cout % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  kw::for_each_window_chunk<kTile, kMaxSide, kTileThreads>(
+      t.cw, side, skeys, keys, chunk,
+      [&](int p, int slot) { kw::cp_async4(rows + slot, srow + p); },
+      [&](int c, const int* buf, int base, int c0, int c1) {
+        // the flag of each staged row (-1: left out)
+        if (row_sel != nullptr) {
+          for (int e = tid; e < c1 - c0; e += kTileThreads) {
+            if (!(__ldg(row_sel + rows[base + e]) > 0.f)) rows[base + e] = -1;
+          }
+        }
+        resolve_chunk(t, c, buf, c0, c1, side);
+        __syncthreads();
+        const unsigned int* hits = t.hits[c & 1];
+        // a warp's rows in turn: the lanes j < side^2 list the row's
+        // present pairs (buffer position << 7 | offset index) in offset
+        // order, then each group of lpp lanes takes a pair, its lanes
+        // a slice of 8 channels each, so that pps pairs' loads a step
+        // are in flight at once
+        for (int lr = warp; lr < kTile; lr += kTileThreads / 32) {
+          const unsigned int m = hits[lr];
+          if (!m) continue;
+          const unsigned int r =
+              lane < s2 && ((m >> lane) & 1u) ? t.run[lr][lane] : 0u;
+          const int cnt = __popc(r & 31u);
+          int off = cnt;
+#pragma unroll
+          for (int o = 1; o < 32; o <<= 1) {
+            const int v = __shfl_up_sync(0xffffffffu, off, o);
+            if (lane >= o) off += v;
+          }
+          const int total = __shfl_sync(0xffffffffu, off, 31);
+          off -= cnt;
+          unsigned int bits = r & 31u;
+          unsigned int pos = r >> 5;
+          while (bits) {
+            const int dz = __ffs(bits) - 1;
+            bits &= bits - 1;
+            list[warp][off++] =
+                (pos++ << 7) | (kvol - 1 - (lane * side + dz));
+          }
+          __syncwarp();
+          float acc = 0.f;
+          for (int b = lane / lpp; b < total; b += kPairUnroll * pps) {
+            unsigned int e[kPairUnroll];
+            int i[kPairUnroll];
+#pragma unroll
+            for (int u = 0; u < kPairUnroll; ++u) {
+              const bool in = b + u * pps < total;
+              e[u] = in ? list[warp][b + u * pps] : 0u;
+              i[u] = in ? rows[base + (e[u] >> 7)] : -1;
+            }
+            for (int sl = lane % lpp; sl < slices; sl += lpp) {
+#pragma unroll
+              for (int u = 0; u < kPairUnroll; ++u) {
+                if (i[u] >= 0) {
+                  acc += dot8(g, i[u], ws, e[u] & 127u, sl * 8, cout, vec);
+                }
+              }
+            }
+          }
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1) {
+            acc += __shfl_xor_sync(0xffffffffu, acc, o);
+          }
+          if (lane == 0) sums[lr] += acc;
+          __syncwarp();
+        }
+      });
+
+  kw::cp_async_wait<0>();  // W's copies, where no chunk waited for them
+  __syncthreads();
+  if (tid < kTile && row0 + tid < n) dx[row0 + tid] = from_f32<T>(sums[tid]);
 }
 
 // K4 / K5's dynamic shared memory: [kvol, cout] and [kTile, cout] floats,
@@ -459,22 +578,35 @@ int launch_dw(const T* x, const T* g, const int* aux, const int* skeys,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K9's keys staged at a time, and its dynamic shared memory: [kvol, cout]
+// W, 2 x chunk keys and rows, and the warps' pair lists
+constexpr int kDxChunk = 1024;
+
+size_t dx_smem(int side, int cout, int chunk) {
+  return sizeof(float) * ((size_t)side * side * side * cout +
+                          4 * (size_t)chunk) +
+         sizeof(unsigned int) * (kTileThreads / 32) * kMaxVol;
+}
+
 template <typename T>
 int launch_dx(const T* g, const float* w, const int* aux, const int* skeys,
               const int* srow, const float* row_sel, T* dx, int n, int side,
               int cout, int n_keys, void* stream) {
   static lc::LaunchCache cache;
-  const size_t smem = sizeof(float) * side * side * side * cout;
+  if (!tile_args_ok(side, kDxChunk)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = dx_smem(side, cout, kDxChunk);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
     err = cache.allow(scalar_conv_dx_kernel<T>, dev, smem);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + kRows - 1) / kRows);
-  scalar_conv_dx_kernel<T><<<grid, kThreads, smem,
+  const dim3 grid((n + kTile - 1) / kTile);
+  scalar_conv_dx_kernel<T><<<grid, kTileThreads, smem,
                              static_cast<cudaStream_t>(stream)>>>(
-      g, w, aux, skeys, srow, row_sel, dx, n, side, cout, n_keys);
+      g, w, aux, skeys, srow, row_sel, dx, n, side, cout, n_keys, kDxChunk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -546,9 +678,9 @@ extern "C" int scalar_conv_dx_bf16(const bf16* g, const float* w,
                    n_keys, stream);
 }
 
-// Counts the keys that K4 and K5's launches stage into *counter (unsigned
-// long long on the device) from now on; nullptr stops counting. For
-// checks only. Returns a cudaError_t as int.
+// Counts the keys that K4, K5 and K9's launches stage into *counter
+// (unsigned long long on the device) from now on; nullptr stops counting.
+// For checks only. Returns a cudaError_t as int.
 extern "C" int scalar_conv_count_keys(void* counter) {
   return kw::set_staged_key_counter(counter);
 }

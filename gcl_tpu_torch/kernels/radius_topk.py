@@ -11,7 +11,9 @@ bodies are the two orders of one selection:
   ``(quantized d2 << ROWB) | row``; the distance that comes out is the
   dequantized one;
 * K11 (_topk_kernel), for larger T: candidates ordered by the exact float
-  d2, ties by sorted position.
+  d2, ties in gcl_tpu's order (``replace_max_order``): each window chunk's
+  best by (d2, sorted position), merged into kn slots by replace-first-max
+  and emitted by slot among equal distances.
 
 Each keeps its own launch counter (``windowed_cell_topk_packed.launches``
 and ``windowed_cell_topk_exact.launches``).
@@ -41,6 +43,10 @@ RUNS = (0, 1 << 10, 1 << 20, (1 << 20) + (1 << 10))
 MAX_KN = 8
 TILE = 256    # queries of a tile of K1's kernel: kTile of its source
 CHUNK = 2048  # targets K1's kernel stages at a time: kChunk of its source
+# gcl_tpu's tile of queries and chunk of window rows (pallas_radius.TILE and
+# WIN), on which K11's order among equal distances depends
+EXACT_TILE = 128
+EXACT_WIN = 2048
 _BIG = 1e30
 _I64_MAX = torch.iinfo(torch.int64).max
 _I64_MIN = torch.iinfo(torch.int64).min
@@ -104,23 +110,117 @@ def topk_windows(tkey_s: torch.Tensor, pbase: torch.Tensor,
                         length]).to(torch.int32)
 
 
+def exact_window_starts(tkey_s: torch.Tensor,
+                        pbase: torch.Tensor) -> torch.Tensor:
+    """int64[S, Q]: per query, where gcl_tpu's window for its tile of
+    EXACT_TILE queries starts (pallas_radius.windowed_cell_topk): the first
+    sorted position whose key is at least the tile's least non-sentinel
+    base, rounded down to 128 and clipped to [0, t_pad - EXACT_WIN], t_pad =
+    ceil(T / EXACT_WIN) * EXACT_WIN + EXACT_WIN. A candidate at sorted
+    position p lies in the window's chunk (p - start) // EXACT_WIN. A tile
+    without a valid base has no candidate; its start is that of key 0."""
+    s_n, t_n = tkey_s.shape
+    q_n = pbase.shape[1]
+    valid = pbase != SENTINEL
+    kmin = tiled(torch.where(valid, pbase.long(), _I64_MAX), EXACT_TILE,
+                 _I64_MAX).amin(-1)                          # [S, n_tiles]
+    kmin = torch.where(kmin == _I64_MAX, 0, kmin)
+    first = torch.searchsorted(tkey_s.long().contiguous(), kmin.contiguous())
+    t_pad = -(-t_n // EXACT_WIN) * EXACT_WIN + EXACT_WIN
+    start = (first & ~127).clamp(0, t_pad - EXACT_WIN)
+    return start.repeat_interleave(EXACT_TILE, dim=1)[:, :q_n]
+
+
+def replace_max_order(d2: torch.Tensor, pos: torch.Tensor,
+                      chunk: torch.Tensor, kn: int):
+    """gcl_tpu's _topk_kernel order (pallas_radius.py:136-180) of each row's
+    candidates: d2 f32[R, L] (1e30 where there is none), their sorted
+    positions pos and window chunks chunk int64[R, L]. Chunk by chunk in
+    ascending order, the chunk's kn best by (d2, position) go, best first,
+    each into the first of kn slots that holds the largest distance, where
+    strictly less; the slots come out by distance, ties by slot. So equal
+    distances that enter after an earlier chunk has filled the slots land
+    from the last slot backwards. Returns (idx int64[R, kn]: the column of
+    each output, -1 where none; d2 f32[R, kn], 1e30 where none)."""
+    r_n, l_n = d2.shape
+    live = d2 < _BIG
+    # (chunk, d2, position) order by stable sorts, least significant first;
+    # the columns with no candidate last
+    order = torch.argsort(pos, dim=1, stable=True)
+    for key in (d2, torch.where(live, chunk, _I64_MAX)):
+        order = torch.gather(order, 1, torch.argsort(
+            torch.gather(key, 1, order), dim=1, stable=True))
+    c = torch.gather(torch.where(live, chunk, _I64_MAX), 1, order)
+    col = torch.arange(l_n, device=d2.device).expand(r_n, l_n)
+    new = torch.ones_like(live)
+    new[:, 1:] = c[:, 1:] != c[:, :-1]
+    rank = col - torch.cummax(torch.where(new, col, 0), 1)[0]
+    keep = torch.gather(live, 1, order) & (rank < kn)
+    # the kept candidates, in order, to the front
+    order = torch.gather(order, 1, torch.argsort(
+        (~keep).to(torch.int8), dim=1, stable=True))
+    n_kept = keep.sum(1)
+    n_keep = int(n_kept.max()) if r_n else 0
+    slot_d = torch.full((r_n, kn), _BIG, dtype=d2.dtype, device=d2.device)
+    slot_i = torch.full((r_n, kn), -1, dtype=torch.int64, device=d2.device)
+    rows = torch.arange(r_n, device=d2.device)
+    for t in range(n_keep):
+        e = order[:, t]
+        m = torch.where(n_kept > t, d2[rows, e], _BIG)
+        j = torch.argmax(slot_d, 1)             # the first slot at the max
+        better = m < slot_d[rows, j]
+        slot_d[rows, j] = torch.where(better, m, slot_d[rows, j])
+        slot_i[rows, j] = torch.where(better, e, slot_i[rows, j])
+    out = torch.argsort(slot_d, dim=1, stable=True)
+    out_d = torch.gather(slot_d, 1, out)
+    return torch.where(out_d < _BIG, torch.gather(slot_i, 1, out), -1), out_d
+
+
+def cross_chunk_ties(arrays, q: int):
+    """The case on which K11's order among equal distances is checked: a
+    copy of K11's arrays (tkey_s, trow_s, txyz_s, pbase, qxyz, r2; S = 1,
+    T > 2^19, query q of valid base) where query q's probe cell holds, from
+    the first sorted position pos of its base key on, 2110 targets at (dx,
+    0, 0) from it: five distinct distances (dx 0.40 .. 0.48), 2095 targets
+    at dx 0.52, then ten at dx 0.1, all within r2 = 0.3, so that the ten
+    ties lie a window chunk (EXACT_WIN rows) after the five. Keys stay
+    sorted: the positions it takes held keys >= the base. Returns (arrays,
+    pos)."""
+    tkey, trow, txyz, pbase, qxyz, r2 = (a.clone() for a in arrays)
+    base = int(pbase[0, q])
+    pos = int((tkey[0] < base).sum())
+    if pos + 2110 > tkey.shape[1]:
+        raise ValueError("no room for the tie case's 2110 targets")
+    dx = torch.full((2110,), 0.52, device=tkey.device)
+    dx[:5] = torch.tensor([0.40, 0.42, 0.44, 0.46, 0.48])
+    dx[2100:] = 0.1
+    tkey[0, pos:pos + 2110] = base
+    txyz[0, pos:pos + 2110] = qxyz[0, q]
+    txyz[0, pos:pos + 2110, 0] += dx
+    r2.fill_(0.3)
+    return (tkey, trow, txyz, pbase, qxyz, r2), pos
+
+
 def windowed_cell_topk_plain(tkey_s, trow_s, txyz_s, pbase, qxyz, r2, kn: int,
                              tile_elems: int = 1 << 24):
     """Plain version: dense [chunk of Q, T] tiles per search -- the
     candidate test on key differences, the same d2 and the same packing,
-    then a smallest-kn on the distinct int32 values (K1) or a stable
-    smallest-kn on d2 (K11). ``tile_elems`` bounds a tile's size."""
+    then a smallest-kn on the distinct int32 values (K1) or gcl_tpu's
+    order of the candidates (K11, ``replace_max_order`` over the chunks of
+    ``exact_window_starts``' windows). ``tile_elems`` bounds a tile's
+    size."""
     s_n, t_n = tkey_s.shape
     q_n = pbase.shape[1]
     dev = tkey_s.device
     rowb = row_bits(t_n)
     if rowb:
         scale, inv_scale, qcap = _quantizer(r2, rowb)
+    else:
+        wstart = exact_window_starts(tkey_s, pbase)
     kk = min(kn, t_n)
     chunk = max(1, min(q_n, tile_elems // max(t_n, 1)))
     rows = torch.full((s_n, q_n, kn), -1, dtype=torch.int32, device=dev)
     d2o = torch.full((s_n, q_n, kn), _BIG, dtype=torch.float32, device=dev)
-    pos = torch.arange(t_n, device=dev)
     for s in range(s_n):
         for lo in range(0, q_n, chunk):
             hi = min(lo + chunk, q_n)
@@ -143,16 +243,22 @@ def windowed_cell_topk_plain(tkey_s, trow_s, txyz_s, pbase, qxyz, r2, kn: int,
                 d2o[s, lo:hi, :kk] = torch.where(
                     hit, (m >> rowb).to(torch.float32) * inv_scale[s], _BIG)
             else:
-                # distinct int64 keys: d2's bits (non-negative floats order
-                # as their bits) << 32 | sorted position
-                dm = torch.where(ok, d2, _BIG).contiguous()
-                key = (dm.view(torch.int32).long() << 32) | pos
-                best = torch.topk(key, kk, dim=1, largest=False,
-                                  sorted=True)[0] & 0xFFFFFFFF
-                m = torch.gather(dm, 1, best)
-                rows[s, lo:hi, :kk] = torch.where(m < _BIG,
-                                                  trow_s[s][best], -1)
-                d2o[s, lo:hi, :kk] = m
+                qi, p = torch.nonzero(ok, as_tuple=True)
+                n_q = torch.bincount(qi, minlength=hi - lo)
+                width = max(1, int(n_q.max()))
+                col = torch.arange(len(qi), device=dev) - (
+                    torch.repeat_interleave(torch.cumsum(n_q, 0) - n_q, n_q))
+                cd2 = torch.full((hi - lo, width), _BIG, device=dev)
+                cpos = torch.zeros((hi - lo, width), dtype=torch.int64,
+                                   device=dev)
+                cd2[qi, col] = d2[qi, p]
+                cpos[qi, col] = p
+                idx, m = replace_max_order(
+                    cd2, cpos, (cpos - wstart[s, lo:hi, None]) // EXACT_WIN,
+                    kn)
+                got = torch.gather(cpos, 1, idx.clamp_min(0))
+                rows[s, lo:hi] = torch.where(idx >= 0, trow_s[s][got], -1)
+                d2o[s, lo:hi] = m
     return rows, d2o
 
 
@@ -277,8 +383,8 @@ def windowed_cell_topk(tkey_s: torch.Tensor, trow_s: torch.Tensor,
 
     Returns (rows int32[S, Q, kn], -1 where none; d2 f32[S, Q, kn], 1e30
     where none), ascending: by ``(quantized d2 << ROWB) | row`` with the
-    dequantized d2 while T <= 2^19 (K1), by (exact d2, sorted position)
-    beyond (K11).
+    dequantized d2 while T <= 2^19 (K1), by the exact d2 beyond (K11), equal
+    distances in gcl_tpu's order (``replace_max_order``).
     """
     fn = (windowed_cell_topk_packed if row_bits(tkey_s.shape[-1])
           else windowed_cell_topk_exact)

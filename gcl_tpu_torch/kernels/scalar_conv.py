@@ -20,7 +20,9 @@ kernels' ``*_bf16`` entry points.
 K4 and K5 resolve the neighbours of a tile of flagged rows inside the
 windows of the level's sorted keys that K2 stages
 (``occupancy_conv.occupancy_windows`` with their ``row_sel`` is the same
-table in plain torch); ``counted_scalar_keys`` counts the keys they stage.
+table in plain torch); K9 resolves those of every row of its tile (its
+flag gates the rows of g it gathers, not its windows: the table without
+a flag); ``counted_scalar_keys`` counts the keys the three stage.
 """
 from __future__ import annotations
 
@@ -232,11 +234,12 @@ scalar_conv_dx.launches = 0
 
 
 def counted_scalar_keys(device):
-    """While the block runs, K4 and K5's launches on ``device`` count the
-    keys they stage into shared memory (each block its windows; the
+    """While the block runs, K4, K5 and K9's launches on ``device`` count
+    the keys they stage into shared memory (each block its windows; the
     kernels add up the copies their threads issue). Yields an int64 tensor
     [1] on the card that holds the sum once the block has ended:
-    ``occupancy_windows(aux, skeys, side, row_sel)``'s sum of lengths a
-    launch when the kernels stage what the table says."""
+    ``occupancy_windows(aux, skeys, side, row_sel)``'s sum of lengths a K4
+    or K5 launch, ``occupancy_windows(aux, skeys, side)``'s a K9 launch,
+    when the kernels stage what the tables say."""
     return counted(device, ("scalar_conv_count_keys",), 1,
-                   "K4 and K5's staged-key counter")
+                   "K4, K5 and K9's staged-key counter")

@@ -308,6 +308,32 @@ def test_windowed_topk_exact_kernel_matches_plain(dev):
     assert int(ties.sum()) > 100 and int((rows >= 0).sum()) > 1000
 
 
+def test_windowed_topk_exact_cross_chunk_ties(dev):
+    """K11 (T just over 2^19) on ties that enter a window chunk after
+    another chunk has filled the slots: rows and d2 equal to the plain
+    version's bit for bit, in gcl_tpu's order (the last tie entered
+    first), as tests/test_torch_radius_topk.py holds the plain version to
+    gcl_tpu's kernel in interpret mode."""
+    from gcl_tpu_torch.kernels.radius_topk import (cross_chunk_ties,
+                                                   exact_window_starts)
+    q, qm, t, tm = _search_inputs(dev, 11, 1, 300, (1 << 19) + 7)
+    arrays = _topk_arrays(q, qm, t, tm, torch.tensor([0.5], device=dev),
+                          1.0)
+    first = int(torch.nonzero(arrays[3][0] != 0x7FFFFFFF)[0, 0])
+    arrays, pos = cross_chunk_ties(arrays, first)
+    start = int(exact_window_starts(arrays[0], arrays[3])[0, first])
+    assert (pos + 4 - start) // 2048 < (pos + 2100 - start) // 2048
+    before = windowed_cell_topk_exact.launches
+    rows, d2 = windowed_cell_topk(*arrays, 5)
+    torch.cuda.synchronize()
+    assert windowed_cell_topk_exact.launches == before + 1
+    prow, pd2 = windowed_cell_topk_plain(*arrays, 5)
+    assert torch.equal(rows, prow)
+    assert torch.equal(d2.view(torch.int32), pd2.view(torch.int32))
+    assert torch.equal(rows[0, first],
+                       arrays[1][0, pos + 2100:pos + 2105].flip(0))
+
+
 def test_groups_on_the_grid_on_card_match_cpu(dev):
     """batch_colocation_groups(cell=...) with K1 on the card against the
     plain version on the CPU: every field equal."""
@@ -1283,6 +1309,39 @@ def test_scalar_conv_kernels_with_no_row_flagged(dev, dtype):
     assert torch.equal(out, torch.zeros_like(out))
     assert torch.equal(dw, torch.zeros_like(dw))
     assert bool(scalar_conv_fwd(x, w, *geo, None).any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("side", [3, 5])
+@pytest.mark.parametrize("case", OCC_WINDOW_CASES)
+def test_scalar_conv_dx_kernel_in_windows(dev, case, side, dtype):
+    """K9 on the window cases (clouds >= 16 and tiles that mix clouds 15
+    and 16, the grid's faces), with no row flag and with a flag that
+    varies inside tiles and leaves whole tiles out: within 1e-4 of the max
+    (float32) or at the bf16 gate, the adjoint of K4 (float32), and the
+    keys it stages, as the kernel counts its copies, equal to the sum of
+    the unflagged plain torch table (the windows of every row)."""
+    aux, skeys, srow, sel = scalar_window_inputs(case, side, dev)
+    x, w, g = _scalar_inputs(dev, aux.shape[0], side, 24, dtype, side + 7)
+    geo = (aux, skeys, srow)
+    in_table = int(occupancy_windows(aux, skeys, side)[1].sum())
+    for flag in (None, sel):
+        before = scalar_conv_dx.launches
+        with counted_scalar_keys(dev) as counter:
+            dx = scalar_conv_dx(g, w, *geo, flag)
+        assert int(counter.item()) == in_table > 0
+        assert scalar_conv_dx.launches == before + 1
+        ref = scalar_conv_dx_plain(g, w, *geo, flag)
+        assert dx.dtype == dtype and bool(ref.any())
+        if dtype == torch.float32:
+            _close_to_max(dx, ref, 1e-4)
+            out = scalar_conv_fwd(x, w, *geo, flag)
+            lhs, rhs = float((out * g).sum()), float((x * dx).sum())
+            assert abs(lhs - rhs) <= 1e-4 * float((out.abs() * g.abs())
+                                                  .sum())
+        else:
+            assert_bf16_close(dx, ref, f"K9 {case}", _sum_bound(
+                scalar_conv_dx_plain, (g, w, *geo, flag)))
 
 
 def _synthetic_sbits(n, side, seed, density=0.3):

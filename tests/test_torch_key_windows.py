@@ -1,6 +1,7 @@
 """Soundness of the key windows that K10 (the join), K2 (the occupancy
-conv), K4 / K5 (the scalar conv, bounded by their flagged rows) and K1
-(the grid group search) search in: every key that the plain version
+conv), K4 / K5 (the scalar conv, bounded by their flagged rows), K9 (its
+dX, on the windows of every row) and K1 (the grid group search) search
+in: every key that the plain version
 resolves lies inside its tile's window from the window table, at scale
 and on the adversarial cases (ROADMAP Queue 3: test every window or bound
 at scale).
@@ -188,6 +189,38 @@ def test_flagged_windows_hold_every_flagged_neighbour(case, side):
     assert bool((win[1] <= full[1]).all())
     assert torch.equal(occupancy_windows(aux, skeys, side,
                                          torch.ones(n)), full)
+
+
+@pytest.mark.parametrize("side", [3, 5])
+@pytest.mark.parametrize("case", OCC_WINDOW_CASES)
+def test_dx_windows_hold_every_flagged_gathered_neighbour(case, side):
+    """K9's windows are the unflagged table, those of every row of its
+    tile: its row flag gates the rows of g that a row's dX gathers, not
+    the rows it writes. Every present neighbour i of a row j whose flag
+    row_sel[i] is set lies inside the window of j's tile at its dx and
+    sign; the flagged table of K4 / K5 would miss some (a tile with no
+    flagged row of its own still gathers from flagged neighbours)."""
+    aux, skeys, srow, sel = scalar_window_inputs(case, side)
+    nk, tile = skeys.shape[0], OCC_TILE
+    win = occupancy_windows(aux, skeys, side)
+    flagged = occupancy_windows(aux, skeys, side, sel)
+    pos = neighbor_rows(aux, skeys, torch.arange(nk, dtype=torch.int32),
+                        side).long()
+    rows = torch.where(pos >= 0, srow.long()[pos.clamp_min(0)], -1)
+    j, k = torch.nonzero((rows >= 0) & (sel[rows.clamp_min(0)] > 0),
+                         as_tuple=True)
+    assert len(j) > 0
+    p = pos[j, k]
+    half = (skeys[p] >= 0).long()
+    g, t = k // (side * side), j // tile
+    inside = [(p >= w[0][g, t, half]) & (p < w[0][g, t, half]
+                                         + w[1][g, t, half])
+              for w in (win, flagged)]
+    assert bool(inside[0].all())
+    if case != "faces":   # (its flagged tiles hold every gathered pair)
+        assert not bool(inside[1].all())
+    live = _tile_any(aux[:, 1] > -(1 << 19), tile)
+    assert bool((win[1][:, ~live] == 0).all())
 
 
 @pytest.mark.parametrize("case", OCC_WINDOW_CASES)

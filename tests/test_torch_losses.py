@@ -89,15 +89,19 @@ def test_negative_loss_with_pinned_subsets(hard):
         jgcl.SpatialNegFilter(jnp.asarray(xyz), jnp.asarray(sid),
                               jnp.asarray(radius)),
         None, key, jgcl.GCLLossConfig(use_hard_negative=hard))
-    r = torch.from_numpy(np.asarray(jax.random.randint(key, (s,), 0, s)))
+    # gcl_tpu's loss is finished before the port's starts (JAX dispatches
+    # asynchronously), and the port's uniforms are a copy of JAX's, not a
+    # read-only view of a buffer that JAX owns
+    ref = float(ref)
+    r = torch.from_numpy(np.array(jax.random.randint(key, (s,), 0, s)))
     got = tgcl.negative_loss_from_sel(
         torch.from_numpy(f), torch.from_numpy(sel1), torch.from_numpy(v1),
         torch.from_numpy(sel2), torch.from_numpy(v2),
         tgcl.SpatialNegFilter(torch.from_numpy(xyz), torch.from_numpy(sid),
                               torch.from_numpy(radius)),
         None, tgcl.GCLLossConfig(use_hard_negative=hard), r)
-    assert float(ref) > 0.01
-    np.testing.assert_allclose(float(got), float(ref), rtol=0, atol=1e-5)
+    assert ref > 0.01
+    np.testing.assert_allclose(float(got), ref, rtol=0, atol=1e-5)
 
 
 def test_other_negative_filters_are_not_ported():

@@ -83,9 +83,22 @@ def _check(arrays, r2, kn, exact=False):
     return rows, d2
 
 
+def _exact_start(keys, pbase, q):
+    """numpy: where gcl_tpu's window for the tile of 128 queries that holds
+    query q starts: the lower bound of the tile's least valid base, rounded
+    down to 128 (pallas_radius.windowed_cell_topk)."""
+    t0 = q // 128 * 128
+    b = pbase[t0:t0 + 128]
+    first = int(np.searchsorted(keys, b[b != 0x7FFFFFFF].min()))
+    t_pad = -(-len(keys) // 2048) * 2048 + 2048
+    return min(first & ~127, t_pad - 2048)
+
+
 def _oracle(arrays, r2, kn, exact):
     """numpy: per query the candidates by the key test, within r2, the kn
-    best by the packed value (or by (d2, sorted position))."""
+    best by the packed value (K1), or (K11) in gcl_tpu's order: the
+    candidates in the 2048-row chunks of their tile's window, in
+    radius_topk.replace_max_order's rule."""
     tkey_s, trow_s, txyz_s, pbase, qxyz = arrays
     s_n, t_n = tkey_s.shape
     rowb = radius_topk.row_bits(t_n)
@@ -102,9 +115,15 @@ def _oracle(arrays, r2, kn, exact):
                 d2 = (sq[:, 0] + sq[:, 1]) + sq[:, 2]
             keep = d2 <= r2[s]
             cand, d2 = cand[keep], d2[keep]
-            if exact:
-                order = np.lexsort((cand, d2))[:kn]
-                out = d2[order]
+            if exact and len(cand):
+                chunk = (cand - _exact_start(tkey_s[s], pbase[s], q)) // 2048
+                idx, out = radius_topk.replace_max_order(
+                    torch.from_numpy(d2[None]), torch.from_numpy(cand[None]),
+                    torch.from_numpy(chunk[None]), kn)
+                order = to_np(idx[0])
+                order, out = order[order >= 0], to_np(out[0])[order >= 0]
+            elif exact:
+                order = out = cand
             else:
                 qmax = np.float32((1 << (31 - rowb)) - 1)
                 scale = qmax / np.maximum(np.float32(r2[s]),
@@ -250,6 +269,37 @@ def test_exact_ties_go_to_the_lower_sorted_position():
     r2 = np.array([0.3], np.float32)
     rows, d2 = _check(arrays, r2, 5, exact=True)
     np.testing.assert_array_equal(rows[0, first], trow_s[0, pos:pos + 5])
+
+
+def test_exact_ties_across_window_chunks_take_the_tpu_order():
+    """Equal distances that enter after an earlier window chunk has filled
+    the kn slots: gcl_tpu puts each into the first slot holding the
+    largest distance and emits equal distances by slot, so they come out
+    from the last one entered to the first. Five distinct distances fill
+    the slots in the tile's first 2048-row chunk; ten ties at a smaller
+    distance follow past its end."""
+    arrays = _exact_case(1, t_valid=300, q_n=20)
+    tkey_s, trow_s, txyz_s, pbase, qxyz = arrays
+    first = int(np.nonzero(pbase[0] != 0x7FFFFFFF)[0][0])
+    centre = np.floor(qxyz[0, first]) + 0.5
+    qxyz[0, first] = centre
+    base = int(pbase[0, first])
+    pos = int(np.searchsorted(tkey_s[0], base))
+    dx = np.full(2110, 0.52, np.float32)
+    dx[:5] = [0.40, 0.42, 0.44, 0.46, 0.48]
+    dx[2100:] = 0.1
+    tkey_s[0, pos:pos + 2110] = base
+    txyz_s[0, pos:pos + 2110] = centre
+    txyz_s[0, pos:pos + 2110, 0] += dx
+    assert (np.diff(tkey_s[0]) >= 0).all()
+    start = _exact_start(tkey_s[0], pbase[0], first)
+    chunk = (pos + np.array([0, 4, 2100, 2109]) - start) // 2048
+    assert chunk[0] == chunk[1] < chunk[2] == chunk[3]
+    r2 = np.array([0.3], np.float32)
+    rows, d2 = _check(arrays, r2, 5, exact=True)
+    np.testing.assert_array_equal(rows[0, first],
+                                  trow_s[0, pos + 2104:pos + 2099:-1])
+    assert (d2[0, first] == d2[0, first, 0]).all()   # ties, all five
 
 
 def test_wrapper_checks_its_arguments():
