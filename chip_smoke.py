@@ -1,5 +1,6 @@
-"""Smoke run of gcl_tpu_torch's serving path and train steps (the implicit
-and the explicit conv-map route, in float32 and in bf16) on one CUDA card.
+"""Smoke run of gcl_tpu_torch's serving path, its FCGF evaluation path and
+its train steps (the implicit and the explicit conv-map route, in float32
+and in bf16) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -20,6 +21,22 @@ Phases, in order; any failure raises and the exit code is non-zero:
    launches per pair, kernel-path features within 1e-3 of the plain
    path's on the same card, a cloud registered against itself within
    RTE < 2 m and RRE < 5 deg, and pairs/s of both paths;
+4b. the FCGF evaluation pair: ResUNetFatBNEXP at full width (strides 1,
+   3, 9, 27; k = 5 strided and transposed convs; seeded weights) on two
+   65,536-point scans, the second a known rigid transform of the first:
+   K6 on each of the six k = 5 convs at its real widths within 1e-4 of
+   its plain version's max, timed, its bound, and the rows it multiplies
+   (counted by the kernel, equal to compacted_rows) against the matched
+   rows, reported and not gated (sparse offsets at stride 3); K2 at this
+   conv1, timed; exactly 1 K2 and 20 K6 launches per extract call, every
+   launch inside it against its plain version, features within 1e-3 of
+   the plain path's; find_nn on 5000 points and RANSAC with 131,072
+   hypotheses registering a cloud against itself within RTE < 2 m and
+   RRE < 5 deg (the moved pair reported); pairs/s of the kernel and the
+   plain path and the stage times (voxelize, graph, U-Net, find_nn,
+   RANSAC); then eval_kitti.main end to end on a synthetic mini-KITTI in
+   a temporary directory, with the port's checkpoint of this model, for 3
+   pairs: finite RR, RTE and RRE (random weights: RR is no gate);
 5. train kernels: builds the graph of the train step's batch (4 x 7
    clouds, 516,096 stride-1 rows) and runs every kernel of the step
    against its plain version there, each within 1e-4 of the plain
@@ -113,7 +130,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    at 4 x 7 on the explicit route, checked the same way;
 11. prints {"kernels": [...]} (twelve kernels; a conv kernel's row holds
    its bf16 form's numbers, the main path's, and its float32 form's under
-   "float32"; K11's holds its 18,432-query shape under "second_shape"),
+   "float32"; K11's holds its 18,432-query shape under "second_shape";
+   K2's and K6's float32 parts hold phase 4b's numbers as exp_*),
    the card line and, last, the {"ok": true, "device": {...}} line.
 """
 import contextlib
@@ -126,6 +144,7 @@ import numpy as np
 N_POINTS = 65536
 NV_CAP = 18432
 N_KEY = 5000
+N_HYP = 131072     # RANSAC hypotheses of the FCGF evaluation
 SEED = 0
 REPS = 5
 BATCH = 4          # the train step's batch: 4 samples x 7 clouds
@@ -1557,6 +1576,280 @@ def train_step_checks(dev, gpu: str, batch_size: int, route: str,
     return launches
 
 
+def _rigid(deg: float, shift) -> np.ndarray:
+    """A rotation about z by ``deg`` and a shift, 4 x 4 float32."""
+    c, s = np.cos(np.radians(deg)), np.sin(np.radians(deg))
+    t = np.eye(4, dtype=np.float32)
+    t[:2, :2] = [[c, -s], [s, c]]
+    t[:3, 3] = shift
+    return t
+
+
+def _fcgf_register(extract, pts, pmask, rng, gen, n_hyp, marks=None):
+    """One FCGF evaluation pair as eval_kitti registers it: features of
+    both clouds (one extract call), N_KEY points of each drawn by ``rng``,
+    find_nn, then RANSAC with ``n_hyp`` hypotheses from ``gen``. With
+    ``marks`` (a list), appends a host time after a synchronize at the end
+    of each stage: voxelize, graph, U-Net, find_nn, RANSAC."""
+    import torch
+    from gcl_tpu_torch.core.kernel_maps import build_graph
+    from gcl_tpu_torch.data.device_pipeline import voxelize_per_cloud
+    from gcl_tpu_torch.eval_kitti import random_sample
+    from gcl_tpu_torch.reg.matching import find_nn
+    from gcl_tpu_torch.reg.ransac import ransac_pose
+
+    def mark():
+        if marks is not None:
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+    mark()
+    with torch.inference_mode():
+        vox = voxelize_per_cloud(pts, pmask, extract.voxel_size,
+                                 extract.nv_cap)
+        mark()
+        flat = vox.flatten()
+        graph = build_graph(flat.coords, flat.mask, extract.conv_specs,
+                            extract.level_caps, n_clouds=2)
+        mark()
+        f = extract.model(graph, flat.feats).reshape(2, extract.nv_cap, -1)
+        mark()
+        side = []
+        for c in (0, 1):
+            m = vox.mask[c]
+            x, fc = random_sample(vox.xyz[c][m].cpu().numpy(),
+                                  f[c][m].cpu().numpy(), N_KEY, rng)
+            side.append((torch.from_numpy(x).to(pts.device),
+                         torch.from_numpy(fc).to(pts.device)))
+        nn, _ = find_nn(side[0][1], side[1][1])
+        mark()
+        t_est, _, _ = ransac_pose(side[0][0], side[1][0][nn], 0.3,
+                                  generator=gen, num_hypotheses=n_hyp,
+                                  sample_size=4, edge_length_ratio=0.9)
+        t_est = t_est.cpu().numpy()
+        mark()
+    return t_est, f
+
+
+def fcgf_eval_checks(dev, gpu: str) -> dict:
+    """Phase 4b, the FCGF evaluation pair: ResUNetFatBNEXP at full width
+    (seeded weights) on two N_POINTS-point scans, the second a known rigid
+    transform of the first, then feature-NN RANSAC, then eval_kitti.main on
+    a synthetic mini-KITTI. Returns the exp_* fields of the K2 and K6
+    rows."""
+    import os
+    import tempfile
+
+    import torch
+    from gcl_tpu_torch import eval_kitti, infer
+    from gcl_tpu_torch.config import default_config
+    from gcl_tpu_torch.core.coords import lookup
+    from gcl_tpu_torch.core.kernel_maps import build_graph
+    from gcl_tpu_torch.data import pairs
+    from gcl_tpu_torch.data.device_pipeline import voxelize_per_cloud
+    from gcl_tpu_torch.data.synthetic import (generate_synthetic_kitti,
+                                              synth_lidar, write_split_files)
+    from gcl_tpu_torch.kernels import (KERNELS, c1z_unpack_bits,
+                                       compacted_rows, launch_counts,
+                                       occupancy_conv_fwd,
+                                       occupancy_conv_fwd_plain,
+                                       reset_launch_counts,
+                                       sparse_conv_implicit_fwd,
+                                       sparse_conv_implicit_fwd_plain)
+    from gcl_tpu_torch.models.common import SparseConv
+    from gcl_tpu_torch.models.resunet import ResUNetFatBNEXP
+    from gcl_tpu_torch.train.checkpoint import save_checkpoint
+
+    model = infer.serving_model(SEED, dev, ResUNetFatBNEXP)
+    extract = infer.serving_extractor(model, NV_CAP)
+    rng = np.random.RandomState(SEED + 12)
+    scan = synth_lidar(rng, N_POINTS)
+    t_gt = _rigid(10.0, [2.0, -1.0, 0.1])
+    moved = scan @ t_gt[:3, :3].T + t_gt[:3, 3]
+    pts = torch.from_numpy(np.stack([scan, moved])).to(dev)
+    pmask = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
+    vox = voxelize_per_cloud(pts, pmask, extract.voxel_size, NV_CAP)
+    flat = vox.flatten()
+    graph = build_graph(flat.coords, flat.mask, extract.conv_specs,
+                        extract.level_caps, 2)
+    torch.cuda.synchronize()
+    print("EXP levels: " + ", ".join(
+        f"s{s} {lv.coords.shape[0]} rows / {lv.skeys.shape[0]} valid"
+        for s, lv in sorted(graph.levels.items())))
+
+    # K6 on the six k = 5 convs at their real widths: within REL_TOL of
+    # the plain version's max, timed, its bound, and the rows it
+    # multiplies (counted by the kernel, equal to compacted_rows' count)
+    # against the matched rows. No 1.4x gate here: a stride-3 conv's
+    # offsets match a 64-row tile sparsely (a transposed 27 -> 9 conv only
+    # where (out + 9 off) % 27 == 0 on every axis), and the compacted list
+    # of each (tile, offset) is rounded up to 16 rows
+    g = torch.Generator(device="cpu").manual_seed(SEED + 12)
+    k5 = []
+    for m in model.modules():
+        if not (isinstance(m, SparseConv) and m.spec.kernel_size == 5
+                and m.spec.in_stride != m.spec.out_stride):
+            continue
+        key, s_in = m.spec.key, m.spec.in_stride
+        lv = graph.levels[s_in]
+        x = (torch.randn(lv.coords.shape[0], m.in_ch, generator=g).to(dev)
+             * lv.mask[:, None])
+        w = (torch.randn(125, m.in_ch, m.out_ch, generator=g).to(dev)
+             / (125 * m.in_ch) ** .5)
+        args = (x, w, graph.maps[key].qkey, lv.skeys, lv.srow)
+        out = sparse_conv_implicit_fwd(*args)
+        torch.cuda.synchronize()
+        ref = sparse_conv_implicit_fwd_plain(*args)
+        err = _rel_err(out, ref, f"K6 EXP {key}")
+        ms = _ms(lambda: sparse_conv_implicit_fwd(*args), REPS)
+        pms = _ms(lambda: sparse_conv_implicit_fwd_plain(*args), 2)
+        matched, executed = compacted_rows(
+            lookup(lv.skeys, lv.srow, args[2]) >= 0)
+        _counted_rows(dev, lambda: sparse_conv_implicit_fwd(*args),
+                      executed, f"K6 EXP {key}")
+        flops = 2 * matched * m.in_ch * m.out_ch
+        bound = _bound(_nbytes(*args, out), flops, "split_tf32")
+        k5.append(dict(conv=m.spec.name, key=key, cin=m.in_ch,
+                       cout=m.out_ch, rel_err=err,
+                       max_abs_err=float((out - ref).abs().max()), ms=ms,
+                       plain_ms=pms, bound_ms=bound[0], bound_by=bound[1],
+                       matched_rows=matched, executed_rows=executed,
+                       executed_over_matched=executed / max(matched, 1)))
+        print(f"K6 EXP {m.spec.name} {key} {m.in_ch}->{m.out_ch}: rel_err "
+              f"{err:.3g} kernel {ms:.3f} ms plain {pms:.3f} ms bound "
+              f"{bound[0]:.4f} ms ({bound[1]}); rows matched {matched} "
+              f"executed {executed} ({executed / max(matched, 1):.2f}x)")
+    _require(len(k5) == 6, f"six k = 5 strided / transposed convs, got "
+                           f"{len(k5)}")
+
+    c1 = graph.maps["s1->s1/k5d1"]
+    w1 = torch.randn(125, 1, 32, generator=g).to(dev)
+    k2_args = (c1.c1z, graph.levels[1].skeys, w1)
+    out, sbits = occupancy_conv_fwd(*k2_args)
+    torch.cuda.synchronize()
+    ref, ref_bits = occupancy_conv_fwd_plain(*k2_args)
+    _require(torch.equal(sbits, ref_bits), "K2 EXP sbits equal")
+    k2_err = float((out - ref).abs().max())
+    _require(k2_err <= 1e-5, f"K2 EXP within 1e-5, got {k2_err}")
+    k2_ms = _ms(lambda: occupancy_conv_fwd(*k2_args), REPS)
+    k2_plain_ms = _ms(lambda: occupancy_conv_fwd_plain(*k2_args), 2)
+    k2_bound = _bound(_k2_bytes(*k2_args, out, sbits),
+                      32 * int(c1z_unpack_bits(sbits, 125).sum()))
+    print(f"K2 EXP conv1: max_abs_err {k2_err:.3g} kernel {k2_ms:.4f} ms "
+          f"plain {k2_plain_ms:.3f} ms bound {k2_bound[0]:.4f} ms "
+          f"({k2_bound[1]})")
+
+    # the extract call: exactly 1 K2 and 20 K6 launches, every launch held
+    # to its plain version inside it, features within 1e-3 of the plain
+    # path's
+    reset_launch_counts()
+    _, feats = extract(pts, pmask)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print(f"EXP launches per extract call: {launches}")
+    _require(launches == {**{k: 0 for k in KERNELS}, "K2": 1, "K6": 20},
+             f"1 K2 and 20 K6 launches per extract call, got {launches}")
+    errs = {}
+    with checked_path(errs):
+        extract(pts, pmask)
+    with plain_path():
+        _, feats_plain = extract(pts, pmask)
+    feat_err = float((feats - feats_plain).abs().max())
+    print(f"EXP features kernel vs plain path: max_abs_err {feat_err:.3g}; "
+          f"every launch against its plain version: {errs}")
+    _require(feat_err < 1e-3, f"EXP features within 1e-3, got {feat_err}")
+
+    # registration: the self pair within RTE < 2 m, RRE < 5 deg; the
+    # transformed pair reported (random weights: no gate)
+    gen = torch.Generator().manual_seed(SEED)
+    self_pts = torch.stack([pts[0], pts[0]])
+    t_self, _ = _fcgf_register(extract, self_pts, pmask,
+                               np.random.RandomState(0), gen, N_HYP)
+    rte, rre = _rte_rre(t_self, np.eye(4))
+    print(f"EXP self pair, find_nn + RANSAC 131,072: RTE {rte:.4g} m "
+          f"RRE {rre:.4g} deg")
+    _require(rte < 2.0 and rre < 5.0,
+             f"EXP self pair within RTE < 2 m, RRE < 5 deg: {rte}, {rre}")
+    t_pair, _ = _fcgf_register(extract, pts, pmask,
+                               np.random.RandomState(0), gen, N_HYP)
+    rte_p, rre_p = _rte_rre(t_pair, t_gt)
+    print(f"EXP pair moved 10 deg / 2.2 m: RTE {rte_p:.4g} m RRE "
+          f"{rre_p:.4g} deg (random weights: reported, not gated)")
+
+    # pairs/s, kernel and plain alternating, a synchronize after each;
+    # stage times on the kernel path
+    times = {"kernel": [], "plain": []}
+    stages = []
+    for _ in range(2):
+        for name in ("kernel", "plain"):
+            ctx = plain_path() if name == "plain" else contextlib.nullcontext()
+            with ctx:
+                marks = []
+                _fcgf_register(extract, pts, pmask,
+                               np.random.RandomState(0), gen, N_HYP, marks)
+                times[name].append(marks[-1] - marks[0])
+                if name == "kernel":
+                    stages.append(np.diff(marks) * 1e3)
+    stage_ms = dict(zip(("voxelize", "graph", "unet", "find_nn", "ransac"),
+                        np.mean(stages, axis=0).tolist()))
+    pps = {k: 1.0 / float(np.mean(v)) for k, v in times.items()}
+    print(f"FCGF evaluation pair: kernel {pps['kernel']:.3f} pairs/s, plain "
+          f"{pps['plain']:.3f} pairs/s (2 pairs each, alternating) on {gpu}; "
+          f"stage ms (kernel path): {json.dumps(stage_ms)}")
+
+    # the entry point end to end: a synthetic mini-KITTI, a run directory
+    # with the port's checkpoint of this model, 3 pairs through RANSAC
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "kitti")
+        generate_synthetic_kitti(root, n_drives=1, n_frames=30, step=2.0)
+        write_split_files(os.path.join(root, "config"), 1)
+        pairs.PairComplementKittiDataset.DATA_FILES = {
+            p: os.path.join(root, "config", f"{p}_kitti.txt")
+            for p in ("train", "val", "test")}
+        save_dir = os.path.join(tmp, "run")
+        run_cfg = dict(model="ResUNetFatBNEXP", model_n_out=32,
+                       conv1_kernel_size=5, voxel_size=0.3,
+                       voxel_capacity=8192, point_capacity=16384,
+                       complement_pair_dist=2.0, num_complement_one_side=1,
+                       pair_min_dist=3, pair_max_dist=10)
+        os.makedirs(save_dir)
+        with open(os.path.join(save_dir, "config.json"), "w") as f:
+            json.dump(run_cfg, f)
+        save_checkpoint(os.path.join(save_dir, "best_val_checkpoint.pth"),
+                        epoch=1, state_dict=model.state_dict(),
+                        optimizer=None, config=run_cfg, best_val=0.0,
+                        best_val_epoch=1, best_val_metric="feat_match_ratio")
+        config = default_config()
+        config.update(run_cfg)
+        config.update(save_dir=save_dir, kitti_root=root, test_phase="test",
+                      test_num_thread=0, use_RANSAC=True,
+                      ransac_hypotheses=N_HYP, rte_thresh=2.0,
+                      rre_thresh=5.0)
+        t0 = time.perf_counter()
+        res = eval_kitti.main(config, device="cuda", max_pairs=3)
+        print(f"eval_kitti.main, 3 synthetic pairs: "
+              f"{time.perf_counter() - t0:.2f} s")
+    _require(len(res["transforms"]) == 3, "eval_kitti ran 3 pairs")
+    _require(all(np.isfinite(res[k]) for k in ("rr", "rte", "rre")),
+             f"eval_kitti: finite RR, RTE, RRE, got {res}")
+
+    k6 = dict(exp_launches=launches["K6"], exp_k5_convs=k5,
+              exp_max_abs_err=max(r["max_abs_err"] for r in k5),
+              exp_ms=sum(r["ms"] for r in k5),
+              exp_plain_ms=sum(r["plain_ms"] for r in k5),
+              exp_bound_ms=sum(r["bound_ms"] for r in k5),
+              exp_executed_over_matched=(
+                  sum(r["executed_rows"] * r["cin"] * r["cout"] for r in k5)
+                  / sum(r["matched_rows"] * r["cin"] * r["cout"]
+                        for r in k5)),
+              exp_pairs_per_s=pps, exp_stage_ms=stage_ms,
+              exp_eval_kitti={k: res[k] for k in ("rr", "rte", "rre")})
+    k2 = dict(exp_launches=launches["K2"], exp_max_abs_err=k2_err,
+              exp_ms=k2_ms, exp_plain_ms=k2_plain_ms,
+              exp_bound_ms=k2_bound[0], exp_bound_by=k2_bound[1])
+    return {"K6": k6, "K2": k2}
+
+
 def main() -> None:
     import torch
 
@@ -1735,6 +2028,11 @@ def main() -> None:
         print(f"{name} path: {1.0 / dt:.3f} pairs/s, {dt * 1e3:.2f} ms "
               f"per pair ({REPS} pairs after a warm-up) on {gpu}")
 
+    # 4b. the FCGF evaluation pair: ResUNetFatBNEXP, feature-NN RANSAC,
+    # eval_kitti end to end
+    exp = fcgf_eval_checks(dev, gpu)
+    torch.cuda.empty_cache()
+
     # 5. and 6. the train step's kernels, its group search, the step
     f32, bf16 = torch.float32, torch.bfloat16
     rec = train_kernel_checks(dev)
@@ -1835,6 +2133,8 @@ def main() -> None:
         serving_launches=launches["K6"], serving_max_abs_err=k6_err,
         serving_ms=k6_ms, serving_plain_ms=k6_plain_ms,
         serving_bound_ms=k6_bound[0])
+    kernels[0]["float32"].update(exp["K6"])
+    kernels[2]["float32"].update(exp["K2"])
     kernels[2]["float32"].update(
         serving_launches=launches["K2"], serving_max_abs_err=k2_err,
         serving_ms=k2_ms, serving_plain_ms=k2_plain_ms,

@@ -98,20 +98,22 @@ def kitti_matcher(n_key: int) -> Matcher:
                    nms_radius=0.6, max_points=n_key, k1=30, k2=20)
 
 
-def serving_model(seed: int, device) -> ResUNetFatBN:
-    """ResUNetFatBN at full width (CH 32/64/128/256, TR 128/128/128/256,
-    conv1 k=5, 32-d L2-normalized output) with seeded random weights."""
-    model = ResUNetFatBN(1, 32, bn_momentum=0.05, normalize_feature=True,
-                         conv1_kernel_size=5, D=3)
+def serving_model(seed: int, device,
+                  model_cls=ResUNetFatBN) -> torch.nn.Module:
+    """``model_cls`` (ResUNetFatBN, or ResUNetFatBNEXP, FCGF's) at full
+    width (CH 32/64/128/256, TR 128/128/128/256, conv1 k=5, 32-d
+    L2-normalized output) with seeded random weights."""
+    model = model_cls(1, 32, bn_momentum=0.05, normalize_feature=True,
+                      conv1_kernel_size=5, D=3)
     model.load_state_dict(random_state_dict(model, seed))
     return model.to(device).eval()
 
 
 def serving_extractor(model: torch.nn.Module, nv_cap: int,
                       voxel_size: float = 0.3):
-    """bench_infer.py's extractor: level caps default_level_caps(nv_cap,
-    strides, 0.7) per cloud."""
-    specs = ResUNetFatBN.conv_specs(5)
+    """bench_infer.py's extractor: the conv plan of the model's class,
+    level caps default_level_caps(nv_cap, strides, 0.7) per cloud."""
+    specs = type(model).conv_specs(model.conv1.spec.kernel_size)
     strides = sorted({s for sp in specs
                       for s in (sp.in_stride, sp.out_stride)})
     return make_feature_extractor(model, specs, voxel_size, nv_cap,

@@ -1,5 +1,6 @@
-"""Sparse residual U-Net (port of gcl_tpu/models/resunet.py: ResUNet2 and
-ResUNetFatBN, GCL's default backbone).
+"""Sparse residual U-Net (port of gcl_tpu/models/resunet.py: ResUNet2,
+ResUNetFatBN, GCL's default backbone, and ResUNetFatBNEXP, the FCGF
+baseline's).
 
 conv1 (k=conv1_kernel_size, occupancy) -> block1 -> 3x (strided conv +
 residual block) encoder -> 3x (transpose conv + skip concat + residual
@@ -150,3 +151,15 @@ class ResUNetFatBN(ResUNet2):
     NORM_TYPE = "BN"
     CHANNELS = [None, 32, 64, 128, 256]
     TR_CHANNELS = [None, 128, 128, 128, 256]
+
+
+class ResUNetFatBNEXP(ResUNet2):
+    """The FCGF baseline's backbone: stride-3 encoder levels (1, 3, 9, 27)
+    with k = 5 strided and transposed convs."""
+
+    NORM_TYPE = "BN"
+    CHANNELS = [None, 32, 64, 128, 256]
+    TR_CHANNELS = [None, 128, 128, 128, 256]
+    STRIDES = [1, 3, 3, 3]
+    KERNEL_SIZES = [None, 5, 5, 5]
+    DILATIONS = [1, 1, 1, 1]

@@ -1,6 +1,6 @@
 """The GCL train step (port of gcl_tpu/train/steps.py: StepConfig,
 make_gcl_grad_fn, make_optimizer, make_gcl_train_step, AccumStepper,
-make_dist_err_step).
+make_dist_err_step, make_val_step).
 
 One step spans the whole per-iteration pipeline on the device: voxelize ->
 colocation groups -> stride levels and conv maps -> sparse U-Net forward
@@ -13,7 +13,8 @@ dampening 0: grad + wd * p -> momentum buffer -> p -= lr * buf; lr is fed
 in per step. Weight decay covers every parameter, BN scale and bias
 included, as gcl_tpu's optax chain does.
 
-The pair (FCGF) step and its validation step are not ported.
+make_val_step is the pair (FCGF) validation step; the pair train step is
+not ported.
 """
 from __future__ import annotations
 
@@ -27,9 +28,12 @@ from ..core.kernel_maps import METHODS, ConvSpec, build_graph
 from ..data.device_pipeline import (VoxelizedClouds, batch_colocation_groups,
                                     voxelize_per_cloud)
 from ..kernels.build import summing
+from ..losses.common import sample_without_replacement
 from ..losses.gcl import (GCLLossConfig, LossDraws, SpatialNegFilter,
                           finest_contrastive_loss, location_circle_loss,
                           location_contrastive_loss, member_group_index)
+from ..reg.matching import find_nn
+from ..reg.robust import est_quad_linear_robust
 from .diagnostics import group_distance_errors
 
 _GROUP_LOSSES = {"finest": finest_contrastive_loss,
@@ -339,3 +343,67 @@ def make_dist_err_step(model: torch.nn.Module,
         return group_distance_errors(f, groups, central)
 
     return diag_step
+
+
+def make_val_step(model: torch.nn.Module, conv_specs: Sequence[ConvSpec],
+                  step_cfg: StepConfig, subsample: int = 5000,
+                  hit_ratio_thresh: float = 0.1) -> Callable:
+    """The pair validation step: eval-mode features of both sides, then per
+    sample ``subsample`` voxels of each side (sample_without_replacement),
+    feature-NN correspondences, the robust linearised pose, and its
+    metrics against the GT transform.
+
+    val_step(points0 [B, P, 3], pmask0, points1, pmask1, trans [B, 4, 4],
+    generator=None, draws=None) -> {"t_est" [B, 4, 4], "hit_ratio", "rte",
+    "rre" (degrees), "loss" (the clamped corr_dist)}, each [B]. The
+    subsamples' uniforms come from ``generator`` unless ``draws`` hands
+    them in, a (u0, u1) pair per sample. Leaves the model in eval mode.
+    """
+    @torch.no_grad()
+    def val_step(points0, pmask0, points1, pmask1, trans, generator=None,
+                 draws=None):
+        model.eval()
+
+        def side(points, pmask):
+            vox = voxelize_per_cloud(points, pmask, step_cfg.voxel_size,
+                                     step_cfg.nv_cap)
+            flat = vox.flatten()
+            graph = build_graph(flat.coords, flat.mask, conv_specs,
+                                step_cfg.level_caps,
+                                n_clouds=points.shape[0],
+                                method=step_cfg.graph_method)
+            f = model(graph, flat.feats.to(step_cfg.compute_dtype))
+            return vox, f.float().reshape(vox.mask.shape + (-1,))
+
+        vox0, f0 = side(points0, pmask0)
+        vox1, f1 = side(points1, pmask1)
+        out = {k: [] for k in ("t_est", "hit_ratio", "rte", "rre", "loss")}
+        for i in range(points0.shape[0]):
+            u0, u1 = draws[i] if draws is not None else (None, None)
+            s0, v0 = sample_without_replacement(generator, vox0.mask[i],
+                                                subsample, u0)
+            s1, v1 = sample_without_replacement(generator, vox1.mask[i],
+                                                subsample, u1)
+            nn, _ = find_nn(f0[i][s0], f1[i][s1], v1,
+                            chunk=step_cfg.knn_chunk)
+            xc0 = vox0.xyz[i][s0]
+            xc1 = vox1.xyz[i][s1[nn]]
+            t_est = est_quad_linear_robust(xc0, xc1, mask=v0)
+            t_gt = trans[i]
+            n_sel = v0.sum().clamp_min(1)
+            aligned = xc0 @ t_gt[:3, :3].T + t_gt[:3, 3]
+            d = torch.sqrt(((aligned - xc1) ** 2).sum(1) + 1e-6)
+            cosv = (torch.trace(t_est[:3, :3].T @ t_gt[:3, :3]) - 1) / 2
+            est0 = xc0 @ t_est[:3, :3].T + t_est[:3, 3]
+            dist = torch.sqrt(((est0 - aligned) ** 2).sum(1)).clamp(max=1.0)
+            out["t_est"].append(t_est)
+            out["hit_ratio"].append(((d < hit_ratio_thresh) & v0).sum()
+                                    / n_sel)
+            out["rte"].append(torch.sqrt(
+                ((t_est[:3, 3] - t_gt[:3, 3]) ** 2).sum()))
+            out["rre"].append(torch.rad2deg(torch.arccos(
+                cosv.clamp(-1 + 1e-7, 1 - 1e-7))))
+            out["loss"].append((dist * v0).sum() / n_sel)
+        return {k: torch.stack(v) for k, v in out.items()}
+
+    return val_step

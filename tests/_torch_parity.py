@@ -6,9 +6,21 @@ packages; results come back to numpy for comparison. JAX stays on the CPU
 resolves to sort-join explicit maps plus the scan sparse_conv there.
 """
 import numpy as np
+import pytest
 import torch
 
 VOXEL = 0.3
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch's CPU ops on one thread for a module's tests: their tensors are
+    small, and the test workers already run one per core, where a pool of
+    threads a worker waits on descheduled threads at every parallel op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def clouds(seed: int, n_clouds: int = 2, n_points: int = 700):
@@ -32,6 +44,21 @@ def clouds(seed: int, n_clouds: int = 2, n_points: int = 700):
 def fatbn_specs():
     from gcl_tpu_torch.models.resunet import ResUNetFatBN
     return ResUNetFatBN.conv_specs(5)
+
+
+# ResUNetFatBNEXP's strides and kernel sizes at test widths
+NARROW_EXP = dict(CHANNELS=[None, 8, 8, 16, 16],
+                  TR_CHANNELS=[None, 16, 16, 16, 16])
+
+
+def narrow_exp_classes():
+    """The narrow EXP variant in both packages (defined here, for tests
+    only): (gcl_tpu class, gcl_tpu_torch class)."""
+    from gcl_tpu.models.resunet import ResUNetFatBNEXP as JEXP
+    from gcl_tpu_torch.models.resunet import ResUNetFatBNEXP
+
+    return (type("NarrowEXP", (JEXP,), dict(NARROW_EXP)),
+            type("NarrowEXP", (ResUNetFatBNEXP,), dict(NARROW_EXP)))
 
 
 def strides_of(specs):

@@ -136,6 +136,30 @@ def test_graph_fatbn_exact():
     assert g.maps["s2->s1/k3d1"].c1z is None
 
 
+@pytest.mark.parametrize("seed,n_clouds", [(5, 2), (6, 3)])
+def test_graph_exp_exact(seed, n_clouds):
+    """ResUNetFatBNEXP's levels at strides 3, 9 and 27 (coordinates floored
+    to multiples of the stride below zero too) and its k = 5 strided and
+    transposed maps, whose queries land on the coarser lattice only where
+    (out + 9 off) % 27 == 0 on every axis."""
+    from gcl_tpu_torch.models.resunet import ResUNetFatBNEXP
+    specs = ResUNetFatBNEXP.conv_specs(5)
+    assert strides_of(specs) == [1, 3, 9, 27]
+    nv = 448
+    coords, mask = _voxelized(seed, n_clouds, nv, n_points=1500)
+    caps = jkm.default_level_caps(nv, strides_of(specs), 0.6)
+    assert tkm.default_level_caps(nv, strides_of(specs), 0.6) == caps
+    g, _ = _check_graph(coords, mask, specs, caps, n_clouds)
+    assert (to_np(g.levels[27].coords)[to_np(g.levels[27].mask), 1:]
+            < 0).any()
+    for sp in specs:
+        if sp.kernel_size == 5 and sp.in_stride != sp.out_stride:
+            rows = to_np(tc.lookup(g.levels[sp.in_stride].skeys,
+                                   g.levels[sp.in_stride].srow,
+                                   g.maps[sp.key].qkey))
+            assert (rows >= 0).any(), sp.key
+
+
 def test_graph_17_plus_clouds_exact():
     """18 clouds: cloud ids >= 16 give negative packed keys, so the
     signed sort and search must agree with gcl_tpu's maps (same-level,

@@ -781,6 +781,86 @@ def test_gather_gemm_counts_the_rows_it_multiplies(dev, pattern, cin, cout):
 
 
 
+# --- ResUNetFatBNEXP's geometry: levels at strides 1, 3, 9, 27 and k = 5
+# strided and transposed convs (125 offsets, sparse matches a tile) ---
+
+def _exp_graph(dev, seed=3, n_clouds=2):
+    from gcl_tpu_torch.models.resunet import ResUNetFatBNEXP
+    pts, pmask = clouds(seed, n_clouds, 2500)
+    pts = pts * np.float32(3.0)  # spread out: many stride-27 voxels
+    vox = voxelize_per_cloud(torch.from_numpy(pts).to(dev),
+                             torch.from_numpy(pmask).to(dev), VOXEL, 1600)
+    flat = vox.flatten()
+    return build_graph(flat.coords, flat.mask, ResUNetFatBNEXP.conv_specs(5),
+                       {3: 900, 9: 400, 27: 160}, n_clouds)
+
+
+@pytest.mark.parametrize("key,cin,cout", [
+    ("s1->s3/k5d1", 32, 64), ("s27->s9/k5d1", 256, 256),
+    ("s9->s3/k5d1", 384, 128), ("s3->s1/k5d1", 192, 128),
+    ("s3->s9/k5d1", 64, 128), ("s9->s27/k5d1", 128, 256)])
+def test_exp_k5_convs_match_plain(dev, key, cin, cout):
+    """K6 on EXP's six k = 5 geometries at their real widths, within 1e-4
+    of the max of its plain version, and the rows it multiplies equal to
+    compacted_rows' count of the map (the matched rows of a 64-row tile
+    and offset, rounded up to 16)."""
+    from gcl_tpu_torch.core.coords import lookup
+    g = _exp_graph(dev)
+    in_s = int(key.split("->")[0][1:])
+    lv = g.levels[in_s]
+    gen = torch.Generator().manual_seed(cin + cout)
+    x = (torch.randn(lv.coords.shape[0], cin, generator=gen).to(dev)
+         * lv.mask[:, None])
+    w = torch.randn(125, cin, cout, generator=gen).to(dev) / (125 * cin) ** .5
+    args = (x, w, g.maps[key].qkey, lv.skeys, lv.srow)
+    before = sparse_conv_implicit_fwd.launches
+    out = sparse_conv_implicit_fwd(*args)
+    torch.cuda.synchronize()
+    assert sparse_conv_implicit_fwd.launches == before + 1
+    _close_to_max(out, sparse_conv_implicit_fwd_plain(*args), 1e-4)
+    hit = lookup(lv.skeys, lv.srow, args[2]) >= 0
+    matched, executed = compacted_rows(hit)
+    assert matched > 0
+    with counted_gather_rows(dev) as counter:
+        sparse_conv_implicit_fwd(*args)
+    torch.cuda.synchronize()
+    assert int(counter.item()) == executed
+
+
+def test_exp_conv1_occupancy_kernel_matches_plain(dev):
+    """K2 at EXP's conv1 (k = 5, 1 -> 32) on EXP's stride-1 level."""
+    g = _exp_graph(dev, seed=4)
+    w = torch.randn(125, 1, 32, generator=torch.Generator().manual_seed(5))
+    args = (g.maps["s1->s1/k5d1"].c1z, g.levels[1].skeys, w.to(dev))
+    out, sbits = occupancy_conv_fwd(*args)
+    ref, ref_bits = occupancy_conv_fwd_plain(*args)
+    assert torch.equal(sbits, ref_bits) and sbits.any()
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+
+
+def test_exp_features_on_card_match_cpu(dev):
+    """A full-width ResUNetFatBNEXP in eval mode on the card (K2 and K6)
+    against the same model on the CPU (plain versions): features within
+    1e-3, exactly 1 K2 and 20 K6 launches."""
+    from gcl_tpu_torch.infer import serving_extractor, serving_model
+    from gcl_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from gcl_tpu_torch.models.resunet import ResUNetFatBNEXP
+    pts, pmask = clouds(6, 2, 2500)
+    pts = torch.from_numpy(pts * np.float32(3.0))
+    pmask = torch.from_numpy(pmask)
+    out = {}
+    for d in ("cpu", dev):
+        extract = serving_extractor(serving_model(0, d, ResUNetFatBNEXP),
+                                    1600)
+        reset_launch_counts()
+        _, out[str(d)] = extract(pts.to(d), pmask.to(d))
+        if d != "cpu":
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            assert counts["K2"] == 1 and counts["K6"] == 20, counts
+    err = (out["cuda"].cpu() - out["cpu"]).abs().max()
+    assert float(err) < 1e-3
+
 # --- the split-K dW core (K8 over forward maps and index tables, K7's dW
 # over reverse maps) on synthetic maps: 0, 7, 8, 9 and 33 matched rows per
 # offset (around the 8-row rounding and the 32-pair stage), a dense map,

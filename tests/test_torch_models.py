@@ -21,7 +21,8 @@ from gcl_tpu_torch.models.weights import (flax_to_state_dict,
                                           state_dict_to_flax)
 
 from _torch_parity import (VOXEL, clouds, fatbn_specs, jax_graph,
-                           jax_specs, strides_of, to_np)
+                           jax_specs, narrow_exp_classes, strides_of,
+                           to_np)
 
 NV = 384
 
@@ -120,3 +121,35 @@ def test_train_mode_bn_matches_flax(setup):
                                    atol=1e-4)
     assert not np.allclose(new_stats["norm1"]["mean"],
                            stats["norm1"]["mean"])
+
+
+def test_exp_eval_forward_matches_flax():
+    """A narrow ResUNetFatBNEXP (strides 1/3/9/27, k = 5 strided and
+    transposed convs) in eval mode, weights carried across by
+    flax_to_state_dict: features within 1e-4 (unit-norm outputs)."""
+    jcls, tcls = narrow_exp_classes()
+    specs = tcls.conv_specs(5)
+    nv = 448
+    caps = default_level_caps(nv, strides_of(specs), 0.6)
+    pts, pmask = clouds(7, 2, 1500)
+    vox = voxelize_per_cloud(torch.from_numpy(pts), torch.from_numpy(pmask),
+                             VOXEL, nv)
+    flat = vox.flatten()
+    g = build_graph(flat.coords, flat.mask, specs, caps, 2)
+    gj = jax_graph(to_np(flat.coords), to_np(flat.mask), specs, caps, 2)
+    model = tcls(1, 32, bn_momentum=0.05, normalize_feature=True,
+                 conv1_kernel_size=5, D=3)
+    params, stats = state_dict_to_flax(random_state_dict(model, seed=4))
+    model.load_state_dict(flax_to_state_dict(params, stats))
+    model.eval()
+    feats = to_np(flat.feats)
+    with torch.no_grad():
+        out = to_np(model(g, torch.from_numpy(feats)))
+    jmodel = jcls(1, 32, bn_momentum=0.05, normalize_feature=True,
+                  conv1_kernel_size=5, D=3)
+    ref = np.asarray(jax.jit(lambda p, s, gr, f: jmodel.apply(
+        {"params": p, "batch_stats": s}, gr, f, train=False))(
+        params, stats, gj, jnp.asarray(feats)))
+    assert out.shape == ref.shape == (2 * nv, 32)
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-4)
