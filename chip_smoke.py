@@ -1,6 +1,7 @@
-"""Smoke run of gcl_tpu_torch's serving path, its FCGF evaluation path and
-its train steps (the implicit and the explicit conv-map route, in float32
-and in bf16) on one CUDA card.
+"""Smoke run of gcl_tpu_torch's serving path, its FCGF evaluation path, its
+GCL train steps (the implicit and the explicit conv-map route, in float32
+and in bf16), its FCGF train step and its training entry point on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -128,11 +129,36 @@ Phases, in order; any failure raises and the exit code is non-zero:
    run, from a plain float32 step), 3 timed steps, peak memory; then
    phase 7's K12 and K8 in bf16 at 8 x 7 and the bf16 steps at 8 x 7 and
    at 4 x 7 on the explicit route, checked the same way;
-11. prints {"kernels": [...]} (twelve kernels; a conv kernel's row holds
-   its bf16 form's numbers, the main path's, and its float32 form's under
-   "float32"; K11's holds its 18,432-query shape under "second_shape";
-   K2's and K6's float32 parts hold phase 4b's numbers as exp_*),
-   the card line and, last, the {"ok": true, "device": {...}} line.
+11. the FCGF train step (scripts/train_fcgf_kitti.sh's settings:
+   ResUNetFatBNEXP at full width, 4 pairs of 65,536-point scans, each
+   second scan a known rigid transform of the first, voxel_capacity
+   24,576, hardest-contrastive loss, exact input jitter, float32):
+   (a) K7's dX and dW on each of EXP's six k = 5 strided and transposed
+   convs and its 14 k = 3 convs at their real widths against their plain
+   versions within 1e-4 of the max, K7's dX executed / matched rows as the
+   kernel counts them (gated at 1.4x over the k = 3 convs only), its dW's
+   staged rows gated at every conv, K3, K4 and K5 at its conv1 with the
+   step's row flag, each timed with its bound; (b) one step on the kernel
+   path and one on the plain path from the same weights and draws (loss
+   within 1e-4, gradients within 0.1 of each tensor's max), a step with
+   every launch held to its plain version, exactly K2 2, K4 2, K6 40, K3
+   2, K5 2, K7 40 launches, 3 timed steps (pairs/s; finite losses,
+   positives found, a parameter of every module changed), a timed
+   plain-path step, the peak memory and a torch.profiler window of two
+   steps (device ms by fcgf/ stage, the device's idle share); (c) one
+   bf16 step with the same launches, every launch against its plain bf16
+   version, the loss terms
+   within twice the plain path's bf16-vs-float32 drift; (d) the entry
+   point, python -m gcl_tpu_torch.train's main, on a synthetic mini-KITTI:
+   an FCGF epoch with validation, a resume, a GCL epoch of two
+   iterations;
+12. prints {"fcgf_step": {...}}, then {"kernels": [...]} (twelve kernels;
+   a conv kernel's row holds its bf16 form's numbers, the main path's, and
+   its float32 form's under "float32"; K11's holds its 18,432-query shape
+   under "second_shape"; K2's and K6's float32 parts hold phase 4b's
+   numbers as exp_*; K3's, K4's, K5's and K7's rows phase 11's as
+   fcgf_*), the card line and, last, the {"ok": true, "device": {...}}
+   line. Each phase prints its wall seconds as it ends.
 """
 import contextlib
 import json
@@ -1850,6 +1876,442 @@ def fcgf_eval_checks(dev, gpu: str) -> dict:
     return {"K6": k6, "K2": k2}
 
 
+# the FCGF train step: scripts/train_fcgf_kitti.sh's settings at full width
+FCGF_BATCH = 4       # pairs a step
+FCGF_NV = 24576      # voxel_capacity, gcl_tpu/config.py's default
+FCGF_LAUNCHES = {"K2": 2, "K4": 2, "K6": 40, "K3": 2, "K5": 2, "K7": 40}
+
+
+def _fcgf_config(**overrides):
+    """The run config of scripts/train_fcgf_kitti.sh (its flags over the
+    defaults of gcl_tpu_torch/config.py), with ``overrides``."""
+    from gcl_tpu_torch.config import default_config
+
+    cfg = default_config(
+        dataset="PairComplementKittiDataset",
+        train_dataset="PairComplementKittiDataset",
+        trainer="HardestContrastiveLossTrainer", model="ResUNetFatBNEXP",
+        model_n_out=32, conv1_kernel_size=5, lr=0.1,
+        batch_size=FCGF_BATCH, voxel_size=0.3, use_random_scale=True,
+        use_random_rotation=True, weight_decay=1e-4, hit_ratio_thresh=0.3,
+        complement_pair_dist=10, num_complement_one_side=3,
+        use_old_pose=True, pair_min_dist=5, pair_max_dist=20)
+    cfg.update(overrides)
+    return cfg
+
+
+def _fcgf_batch(dev):
+    """FCGF_BATCH synthetic pairs: bench_infer.py's 65,536-point scans,
+    each second scan a known rigid transform (trans: cloud 0 -> cloud 1) of
+    the first. (points0, pmask0, points1, pmask1, trans, radius)."""
+    import torch
+    from gcl_tpu_torch.data.synthetic import synth_lidar
+
+    rng = np.random.RandomState(SEED + 13)
+    p0, p1, trans = [], [], []
+    for i in range(FCGF_BATCH):
+        scan = synth_lidar(rng, N_POINTS)
+        t = _rigid(5.0 + 10.0 * i, [1.0 + i, -0.5 * i, 0.1])
+        p0.append(scan)
+        p1.append(scan @ t[:3, :3].T + t[:3, 3])
+        trans.append(t)
+    pmask = np.ones((FCGF_BATCH, N_POINTS), bool)
+    return tuple(torch.from_numpy(np.asarray(a, dtype)).to(dev) for a, dtype
+                 in ((np.stack(p0), np.float32), (pmask, bool),
+                     (np.stack(p1), np.float32), (pmask, bool),
+                     (np.stack(trans), np.float32),
+                     (np.full(FCGF_BATCH, 0.3 * 1.5), np.float32)))
+
+
+def _fcgf_draws(dev, n_rows: int):
+    """The random numbers of one FCGF step (both sides' jitter gates and
+    noise, the loss's selections), drawn once for every path."""
+    import torch
+    from gcl_tpu_torch.losses.pairs import PairLossDraws
+    from gcl_tpu_torch.train.steps import PairDraws, StepDraws
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    sides = [StepDraws(rand(FCGF_BATCH), (rand(), torch.randn(
+        (n_rows, 1), generator=gen, device=dev))) for _ in range(2)]
+    return PairDraws(*sides, PairLossDraws(
+        pos=rand(1024 * FCGF_BATCH), hn0=rand(256 * FCGF_BATCH),
+        hn1=rand(256 * FCGF_BATCH)))
+
+
+def fcgf_kernel_checks(dev, gpu: str) -> dict:
+    """Phase 11a: the kernels of the FCGF step at its geometry (side 0 of
+    the batch): K7 on EXP's six k = 5 strided and transposed convs and its
+    14 k = 3 convs at their real widths, K3, K4 and K5 at its conv1 with
+    the step's row flag. Returns {K: fcgf_* fields} per step (both
+    sides)."""
+    import torch
+    from gcl_tpu_torch.core.coords import lookup
+    from gcl_tpu_torch.core.kernel_maps import build_graph
+    from gcl_tpu_torch.data.device_pipeline import voxelize_per_cloud
+    from gcl_tpu_torch.kernels import (KERNELS, c1z_unpack_bits,
+                                       compacted_rows)
+    from gcl_tpu_torch.models.common import SparseConv
+    from gcl_tpu_torch.models.resunet import ResUNetFatBNEXP
+    from gcl_tpu_torch.train.trainer import step_config
+
+    cfg = step_config(_fcgf_config(), FCGF_BATCH * FCGF_NV)
+    specs = ResUNetFatBNEXP.conv_specs(5)
+    points, pmask = _fcgf_batch(dev)[:2]
+    vox = voxelize_per_cloud(points, pmask, cfg.voxel_size, FCGF_NV)
+    flat = vox.flatten()
+    graph = build_graph(flat.coords, flat.mask, specs, cfg.level_caps,
+                        FCGF_BATCH)
+    torch.cuda.synchronize()
+    print("FCGF levels (side 0): " + ", ".join(
+        f"s{s} {lv.coords.shape[0]} rows / {lv.skeys.shape[0]} valid"
+        for s, lv in sorted(graph.levels.items())))
+
+    rec = _records("K3", "K4", "K5", "K7")
+    run = _runner(rec)
+    model = ResUNetFatBNEXP(1, 32, conv1_kernel_size=5)
+    convs = {}
+    for m in model.modules():
+        if isinstance(m, SparseConv) and m.spec.kernel_size in (3, 5) \
+                and m.spec.key != "s1->s1/k5d1":
+            sig = (m.spec.key, m.spec.kernel_size, m.spec.name, m.in_ch,
+                   m.out_ch)
+            convs[sig] = convs.get(sig, 0) + 1
+    _require(sum(convs.values()) == 20, f"20 EXP convs on K6 / K7, {convs}")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 13)
+    per_conv, work = [], {3: [0, 0], 5: [0, 0]}
+    for (key, ks, name, cin, cout), mult in sorted(convs.items()):
+        s_in, s_out = (int(t[1:]) for t in key.split("/")[0].split("->"))
+        lv_in, lv_out = graph.levels[s_in], graph.levels[s_out]
+        kvol = ks ** 3
+        x = (torch.randn(lv_in.coords.shape[0], cin, generator=gen).to(dev)
+             * lv_in.mask[:, None])
+        g = (torch.randn(lv_out.coords.shape[0], cout, generator=gen).to(dev)
+             * lv_out.mask[:, None])
+        w = (torch.randn(kvol, cin, cout, generator=gen).to(dev)
+             / (kvol * cin) ** .5)
+        rqkey = graph.maps[key].rqkey
+        args = (x, g, w, rqkey, lv_out.skeys, lv_out.srow)
+        matched, executed = compacted_rows(
+            lookup(lv_out.skeys, lv_out.srow, rqkey) >= 0)
+        _require(matched > 0, f"K7 FCGF {key}: matched pairs")
+        executed = _counted_rows(dev, lambda: KERNELS["K7"][0](*args),
+                                 executed, f"K7 FCGF {key} dX")
+        staged, blocks = _counted_dw(dev, lambda: KERNELS["K7"][0](*args),
+                                     matched, f"K7 FCGF {key} dW")
+        mm = 2 * cin * cout
+        # both sides of the step launch it: 2 * mult launches
+        _, err, ms, pms = run("K7", args, 2 * mult, flops=2 * mm * matched,
+                              n_bytes=_nbytes(*args) + _nbytes(x, w))
+        work[ks][0] += 2 * mult * mm * matched
+        work[ks][1] += 2 * mult * mm * executed
+        bound = _bound(_nbytes(*args) + _nbytes(x, w), 2 * mm * matched,
+                       "split_tf32")
+        per_conv.append(dict(
+            conv=name, key=key, count=mult, cin=cin, cout=cout,
+            rel_err=err, ms=ms, plain_ms=pms, bound_ms=bound[0],
+            bound_by=bound[1], matched_rows=matched, dx_executed_rows=executed,
+            dx_executed_over_matched=executed / matched,
+            dw_staged_rows=staged, dw_blocks=blocks))
+        print(f"K7 FCGF {name} {key} {cin}->{cout} x{mult}: rel_err "
+              f"{err:.3g} kernel {ms:.3f} ms plain {pms:.3f} ms bound "
+              f"{bound[0]:.4f} ms ({bound[1]}); dX rows matched {matched} "
+              f"executed {executed} ({executed / matched:.2f}x); dW staged "
+              f"{staged} ({staged / matched:.4f}x, {blocks} blocks)")
+        del x, g, w
+    for ks, (m_ops, e_ops) in sorted(work.items()):
+        print(f"K7 FCGF dX at the k = {ks} convs per step: executed / "
+              f"matched {e_ops / m_ops:.3f} by operations")
+    _require(work[3][1] <= 1.4 * work[3][0],
+             f"K7's dX at EXP's k = 3 convs multiplies at most 1.4 x the "
+             f"matched work: {work[3]}")
+
+    # conv1 (k = 5, 1 -> 32): K3 on K2's bitmasks, K4 and K5 with the
+    # step's row flag (every valid row: each sample's gate open)
+    lv = graph.levels[1]
+    c1 = graph.maps["s1->s1/k5d1"]
+    n = lv.coords.shape[0]
+    w1 = torch.randn(125, 1, 32, generator=gen).to(dev)
+    g1 = torch.randn(n, 32, generator=gen).to(dev) * lv.mask[:, None]
+    sel = lv.mask.to(torch.float32)
+    xs = torch.randn(n, 1, generator=gen).to(dev) * 0.01 * sel[:, None]
+    _, sbits = KERNELS["K2"][0](c1.c1z, lv.skeys, w1, torch.float32)
+    bits = c1z_unpack_bits(sbits, 125)
+    present = int(bits.sum())
+    _, e3, _, _ = run("K3", (sbits, g1, 125), mult=2, flops=present * 32,
+                      n_bytes=_nbytes(sbits, g1, w1), outs=lambda o: (o,))
+    bits_t = bits.to(torch.float32)
+    rec["K3"]["library_ms"] = 2 * _ms(lambda: torch.mm(bits_t.T, g1), 3)
+    del bits_t
+    geo = (c1.c1z, lv.skeys, lv.srow)
+    sel_pairs = int((bits * sel[:, None].to(torch.int32)).sum())
+    _, e4, _, _ = run(
+        "K4", (xs, w1, *geo, sel), mult=2, flops=2 * sel_pairs * 32,
+        n_bytes=(_nbytes(w1) + n * 32 * 4
+                 + _flagged_bytes(c1.c1z, lv.skeys, sel, 5, xs)),
+        outs=lambda o: (o,))
+    _, e5, _, _ = run(
+        "K5", (xs, g1, *geo, 125, sel), mult=2, flops=2 * sel_pairs * 32,
+        n_bytes=_nbytes(w1) + _flagged_bytes(c1.c1z, lv.skeys, sel, 5, xs,
+                                             g1),
+        outs=lambda o: (o,))
+    print(f"FCGF conv1 k5 1->32 ({present} present pairs): K3 rel_err "
+          f"{e3:.3g}, K4 {e4:.3g}, K5 {e5:.3g}")
+    _bounds(rec, "FCGF step (float32, K3 / K4 / K5 / K7 only)")
+    rec["K7"]["convs"] = per_conv
+    rec["K7"]["dx_executed_over_matched"] = {
+        f"k{ks}": e_ops / m_ops for ks, (m_ops, e_ops) in work.items()}
+    return rec
+
+
+def fcgf_step_checks(dev, gpu: str) -> dict:
+    """Phases 11b and 11c: the FCGF train step at full width in float32
+    (kernel path against the plain path from the same weights and draws,
+    a step with every launch held to its plain version, the exact launch
+    counts, 3 timed steps, a timed plain-path step, peak memory) and one
+    bf16 step (the same launch counts, every launch against its plain bf16
+    version, loss terms within twice the plain path's bf16-vs-float32
+    drift), and a torch.profiler window of two steps. Returns
+    {"launches", "bf16_launches", "step_time_s", "pairs_per_s",
+    "plain_step_time_s", "peak_gib", "loss", "stage_ms",
+    "device_idle_share"}."""
+    import dataclasses
+
+    import torch
+    from gcl_tpu_torch import bench, infer
+    from gcl_tpu_torch.kernels import (KERNELS, launch_counts,
+                                       reset_launch_counts)
+    from gcl_tpu_torch.models.resunet import ResUNetFatBNEXP
+    from gcl_tpu_torch.models.weights import gradients_by_name
+    from gcl_tpu_torch.train.steps import make_pair_train_step
+    from gcl_tpu_torch.train.trainer import step_config
+
+    config = _fcgf_config()
+    cfg32 = step_config(config, FCGF_BATCH * FCGF_NV)
+    _require(abs(cfg32.search_cell - 1.08) < 1e-9
+             and cfg32.jitter_mode == "input" and cfg32.corr_k == 8,
+             f"the FCGF step's settings: {cfg32}")
+    loss_cfg = dict(config)
+    specs = ResUNetFatBNEXP.conv_specs(5)
+    batch = _fcgf_batch(dev)
+    draws = _fcgf_draws(dev, FCGF_BATCH * FCGF_NV)
+    want = {**{k: 0 for k in KERNELS}, **FCGF_LAUNCHES}
+    lr = config.lr
+
+    def new_step(dtype=torch.float32):
+        model = infer.serving_model(SEED, dev, ResUNetFatBNEXP)
+        _, step = make_pair_train_step(
+            model, specs, dataclasses.replace(cfg32, compute_dtype=dtype),
+            "hardest_contrastive", loss_cfg)
+        return model, step
+
+    runs, errs, unequal = {}, {}, {}
+    for name, dtype, ctx in (
+            ("kernel", torch.float32, contextlib.nullcontext()),
+            ("plain", torch.float32, plain_path()),
+            ("checked", torch.float32, checked_path(errs)),
+            ("bf16_checked", torch.bfloat16, checked_path(errs, unequal)),
+            ("bf16_plain", torch.bfloat16, plain_path())):
+        model, step = new_step(dtype)
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        reset_launch_counts()
+        with ctx:
+            metrics = step(lr, *batch, draws=draws)
+            torch.cuda.synchronize()
+        runs[name] = dict(model=model, step=step, before=before,
+                          metrics={k: float(v) for k, v in metrics.items()},
+                          grads={k: g.clone() for k, g in
+                                 gradients_by_name(model).items()},
+                          launches=launch_counts())
+        print(f"FCGF step, {name}: {runs[name]['metrics']}")
+    for name in ("kernel", "checked", "bf16_checked"):
+        got = runs[name]["launches"]
+        print(f"FCGF launches per step ({name}): "
+              f"{ {k: v for k, v in got.items() if v} }")
+        _require(got == want, f"FCGF launches per step {FCGF_LAUNCHES}, "
+                              f"{name}: {got}")
+    for name in ("plain", "bf16_plain"):
+        _require(not any(runs[name]["launches"].values()),
+                 "the plain path launches no kernel")
+    mk, mp = runs["kernel"]["metrics"], runs["plain"]["metrics"]
+    _require(abs(mk["loss"] - mp["loss"]) <= 1e-4,
+             f"FCGF loss of kernel and plain path within 1e-4: {mk['loss']} "
+             f"vs {mp['loss']}")
+    _require(mk["num_pos_pairs"] == mp["num_pos_pairs"] > 0,
+             f"positives found, equal on both paths: {mk} {mp}")
+    _require(sorted(k for k in errs) == sorted(FCGF_LAUNCHES),
+             f"every kernel of the FCGF step checked inside it: {errs}")
+    print(f"FCGF kernel vs plain inside the step, worst rel_err per kernel "
+          f"(float32 and bf16 launches): "
+          f"{ {k: float(f'{v:.3g}') for k, v in sorted(errs.items())} }; "
+          f"bf16 outputs not bit-equal, largest share: "
+          f"{ {k: float(f'{v:.3g}') for k, v in sorted(unequal.items())} }")
+    worst = ("", 0.0)
+    for pname, ga in runs["kernel"]["grads"].items():
+        gb = runs["plain"]["grads"][pname]
+        err = float((ga - gb).abs().max()) / float(gb.abs().max())
+        worst = max(worst, (pname, err), key=lambda t: t[1])
+    print(f"FCGF gradients, kernel path vs plain path: worst {worst[1]:.3g} "
+          f"of the tensor's max ({worst[0]})")
+    _require(worst[1] <= 0.1, f"FCGF gradient of {worst[0]} within 0.1 of "
+                              f"its max, got {worst[1]}")
+    terms = ("loss", "pos_loss", "neg_loss")
+    m16, p16 = runs["bf16_checked"]["metrics"], runs["bf16_plain"]["metrics"]
+    drift = max(abs(p16[t] - mp[t]) for t in terms)
+    gap = max(abs(m16[t] - p16[t]) for t in terms)
+    print(f"FCGF bf16 loss terms, kernel vs plain path: {gap:.3g} at most; "
+          f"twice the plain path's bf16-vs-float32 drift {drift:.3g}: "
+          f"{2 * drift:.3g}")
+    _require(gap <= 2 * drift, f"FCGF bf16 loss terms within {2 * drift}, "
+                               f"got {gap}")
+
+    model, step = runs["kernel"]["model"], runs["kernel"]["step"]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        metrics = step(lr, *batch, generator=gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        _require(all(np.isfinite(float(v)) for v in metrics.values()),
+                 f"FCGF: finite metrics, got {metrics}")
+        _require(float(metrics["num_pos_pairs"]) > 0, "FCGF: positives")
+    peak = torch.cuda.max_memory_allocated()
+    after = model.state_dict()
+    for mname, module in model.named_modules():
+        own = [f"{mname}.{p}" for p, _ in module.named_parameters(
+            recurse=False)]
+        _require(not own or any(
+            not torch.equal(after[k], runs["kernel"]["before"][k])
+            for k in own), f"FCGF: a parameter of {mname} changed")
+    with plain_path():
+        t0 = time.perf_counter()
+        runs["plain"]["step"](lr, *batch, generator=gen)
+        torch.cuda.synchronize()
+        plain_dt = time.perf_counter() - t0
+    # where the step's time goes: its fcgf/ ranges and device ops
+    prof = bench.profile_step(step, batch, gen, 2, "fcgf")
+    print(f"FCGF train step profile (2 steps, float32): {json.dumps(prof)}")
+    dt = sorted(times)[1]
+    print(f"FCGF train step ({FCGF_BATCH} pairs, float32), kernel path: "
+          f"step_time_s {dt:.4f} (min {min(times):.4f}, max "
+          f"{max(times):.4f}; 3 steps after a warm-up), "
+          f"{FCGF_BATCH / dt:.3f} pairs/s, loss {float(metrics['loss']):.6f}, "
+          f"positives {int(metrics['num_pos_pairs'])}, valid voxels "
+          f"{int(metrics['num_valid_voxels'])}; plain path step_time_s "
+          f"{plain_dt:.4f} ({FCGF_BATCH / plain_dt:.3f} pairs/s); peak "
+          f"device memory {peak / 2**30:.2f} GiB, on {gpu}")
+    return dict(launches=runs["kernel"]["launches"],
+                bf16_launches=runs["bf16_checked"]["launches"],
+                step_time_s=dt, pairs_per_s=FCGF_BATCH / dt,
+                plain_step_time_s=plain_dt, peak_gib=peak / 2 ** 30,
+                loss=float(metrics["loss"]),
+                stage_ms={k: v.get("device_ms") for k, v in
+                          prof["stage_ms"].items()},
+                device_idle_share=prof["device_idle_share"])
+
+
+def fcgf_entry_checks() -> None:
+    """Phase 11d: python -m gcl_tpu_torch.train's main on the card on a
+    synthetic mini-KITTI in a temporary directory at a small
+    voxel_capacity: HardestContrastiveLossTrainer (ResUNetFatBNEXP) for an
+    epoch with validation, then a resume for one more epoch; then
+    FinestContrastiveLossTrainer (ResUNetFatBN) for an epoch of two
+    iterations. Finite losses and the run files; RR is no gate."""
+    import os
+    import tempfile
+
+    from gcl_tpu_torch.data import colocation, pairs
+    from gcl_tpu_torch.data.synthetic import (generate_synthetic_kitti,
+                                              write_split_files)
+    from gcl_tpu_torch.train import __main__ as entry
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "kitti")
+        generate_synthetic_kitti(root, n_drives=1, n_frames=50, step=3.0)
+        write_split_files(os.path.join(root, "config"), 1)
+        files = {p: os.path.join(root, "config", f"{p}_kitti.txt")
+                 for p in ("train", "val", "test")}
+        pairs.PairComplementKittiDataset.DATA_FILES = files
+        colocation.ColocationKittiDataset.DATA_FILES = files
+        small = ["--kitti_root", root, "--voxel_size", "0.3",
+                 "--point_capacity", "16384", "--voxel_capacity", "4096",
+                 "--nghb_point_capacity", "16384", "--use_old_pose", "false",
+                 "--train_num_thread", "0", "--val_num_thread", "0",
+                 "--stat_freq", "1", "--max_epoch", "1"]
+        run = os.path.join(tmp, "fcgf")
+        fcgf = ["--trainer", "HardestContrastiveLossTrainer", "--model",
+                "ResUNetFatBNEXP", "--conv1_kernel_size", "5",
+                "--train_dataset", "PairComplementKittiDataset",
+                "--out_dir", run, "--batch_size", "2", "--pair_min_dist",
+                "3", "--pair_max_dist", "10", "--complement_pair_dist", "3",
+                "--num_complement_one_side", "2", "--val_max_iter", "2"]
+        for argv, what in ((small + fcgf, "FCGF epoch"),
+                           (["--resume_dir", run], "FCGF resumed epoch")):
+            t0 = time.perf_counter()
+            config, device = entry.parse_config(argv)
+            trainer = entry.main(config, device)
+            with open(os.path.join(run, "scalars.jsonl")) as f:
+                losses = [json.loads(line)["value"] for line in f
+                          if '"train/loss"' in line]
+            print(f"python -m gcl_tpu_torch.train, {what}: "
+                  f"{time.perf_counter() - t0:.2f} s, train/loss so far "
+                  f"{losses}, best {config.best_val_metric} "
+                  f"{trainer.best_val}")
+            _require(len(losses) > 0 and np.isfinite(losses).all(),
+                     f"{what}: finite train losses, got {losses}")
+            for f in ("checkpoint.pth", "config.json",
+                      "best_val_checkpoint.pth"):
+                _require(os.path.exists(os.path.join(run, f)),
+                         f"{what} wrote {f}")
+        _require(trainer.start_epoch == 1, "resumed at the saved epoch")
+        gcl = os.path.join(tmp, "gcl")
+        t0 = time.perf_counter()
+        config, device = entry.parse_config(small + [
+            "--trainer", "FinestContrastiveLossTrainer", "--model",
+            "ResUNetFatBN", "--train_dataset", "ColocationKittiDataset",
+            "--out_dir", gcl, "--batch_size", "1", "--num_neighborhood",
+            "2", "--min_dist", "3", "--max_dist", "18", "--test_valid",
+            "false"])
+        real = entry.make_data_loader
+
+        def two_samples(*a, **kw):
+            loader = real(*a, **kw)
+            loader.dataset.files = loader.dataset.files[:2]
+            return loader
+
+        entry.make_data_loader = two_samples
+        try:
+            entry.main(config, device)
+        finally:
+            entry.make_data_loader = real
+        with open(os.path.join(gcl, "scalars.jsonl")) as f:
+            losses = [json.loads(line)["value"] for line in f
+                      if '"train/loss"' in line]
+        print(f"python -m gcl_tpu_torch.train, GCL epoch of 2 iterations: "
+              f"{time.perf_counter() - t0:.2f} s, train/loss {losses}")
+        _require(len(losses) == 2 and np.isfinite(losses).all()
+                 and os.path.exists(os.path.join(gcl, "checkpoint.pth")),
+                 f"GCL epoch: two finite losses and a checkpoint, {losses}")
+
+
+class _PhaseClock:
+    """Prints each phase's wall seconds, and the run's so far."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        print(f"phase {name}: {now - self.last:.1f} s wall (run so far "
+              f"{now - self.start:.1f} s)", flush=True)
+        self.last = now
+
+
 def main() -> None:
     import torch
 
@@ -1881,6 +2343,8 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     dev = torch.device("cuda")
+    clock = _PhaseClock()
+    clock("1 device")
 
     # 2. build
     t0 = time.perf_counter()
@@ -1892,6 +2356,7 @@ def main() -> None:
             print(f"  ptxas: {line.split(chr(39))[1]}")  # are about
         elif "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    clock("2 build")
 
     # 3. K6 and K2 against their plain versions at the serving shapes
     rng = np.random.RandomState(SEED)
@@ -1965,6 +2430,7 @@ def main() -> None:
           f"{k6_bound[1]} (split TF32; CUDA-core FP32 "
           f"{_bound(k6_bytes, k6_flops)[0]:.3f} ms; {k6_bytes / 1e6:.1f} MB, "
           f"{k6_flops / 1e9:.2f} GFLOP), K2 {k2_bound[0]:.4f} ms by {k2_bound[1]}")
+    clock("3 serving kernels")
 
     # 4. the serving slice
     matcher = infer.kitti_matcher(N_KEY)
@@ -2027,33 +2493,40 @@ def main() -> None:
         dt = tot / REPS
         print(f"{name} path: {1.0 / dt:.3f} pairs/s, {dt * 1e3:.2f} ms "
               f"per pair ({REPS} pairs after a warm-up) on {gpu}")
+    clock("4 serving slice")
 
     # 4b. the FCGF evaluation pair: ResUNetFatBNEXP, feature-NN RANSAC,
     # eval_kitti end to end
     exp = fcgf_eval_checks(dev, gpu)
     torch.cuda.empty_cache()
+    clock("4b FCGF evaluation pair")
 
     # 5. and 6. the train step's kernels, its group search, the step
     f32, bf16 = torch.float32, torch.bfloat16
     rec = train_kernel_checks(dev)
     rec.update(group_kernel_checks(dev))
+    clock("5 train kernels")
     step_launches = train_step_checks(dev, gpu, BATCH, "implicit", dtype=f32)
     torch.cuda.empty_cache()
+    clock("6 train step")
     # 7. and 8. the explicit route: its kernels at 8 x 7, the step there,
     # and the 4 x 7 step beside the implicit route's
     rec.update(explicit_kernel_checks(dev))
     torch.cuda.empty_cache()
+    clock("7 explicit kernels")
     explicit_launches = train_step_checks(dev, gpu, BATCH_EXPLICIT,
                                           "explicit", dtype=f32)
     torch.cuda.empty_cache()
     train_step_checks(dev, gpu, BATCH, "explicit", compare=False, dtype=f32)
     torch.cuda.empty_cache()
+    clock("8 explicit train steps")
     # 9.-11. the bf16 forms: the kernels at the 4 x 7 step's shapes, the
     # bf16 step there (the main path: root bench.py's compute type) on the
     # implicit route, the explicit route's kernels at 8 x 7, the bf16 step
     # there, and the bf16 4 x 7 step on the explicit route
     rec16 = train_kernel_checks(dev, bf16)
     torch.cuda.empty_cache()
+    clock("9 bf16 kernels")
     step16 = train_step_checks(dev, gpu, BATCH, "implicit", dtype=bf16)
     torch.cuda.empty_cache()
     rec16.update(explicit_kernel_checks(dev, bf16))
@@ -2062,6 +2535,19 @@ def main() -> None:
                                    dtype=bf16)
     torch.cuda.empty_cache()
     train_step_checks(dev, gpu, BATCH, "explicit", dtype=bf16)
+    torch.cuda.empty_cache()
+    clock("10 bf16 train steps")
+    # 11. the FCGF train step: its kernels, the step in float32 and bf16,
+    # the entry point
+    fcgf_rec = fcgf_kernel_checks(dev, gpu)
+    torch.cuda.empty_cache()
+    clock("11a FCGF kernels")
+    fcgf = fcgf_step_checks(dev, gpu)
+    torch.cuda.empty_cache()
+    clock("11b-c FCGF train steps")
+    fcgf_entry_checks()
+    torch.cuda.empty_cache()
+    clock("11d the training entry point")
 
     conv, radius = "pallas_conv.py", "pallas_radius.py"
     table = [
@@ -2156,6 +2642,20 @@ def main() -> None:
     kernels[1]["float32"].update(two_pass=rec["K7"].pop("two_pass"))
     kernels[9].update(convs=rec16["K8"].pop("convs"))
     kernels[9]["float32"].update(convs=rec["K8"].pop("convs"))
+    # the FCGF step's float32 numbers (phase 11): per step, both sides
+    for i in (1, 3, 4, 5):  # K7, K3, K4, K5
+        k = table[i][0]
+        r = fcgf_rec[k]
+        kernels[i].update(
+            fcgf_launches=fcgf["launches"][k],
+            fcgf_bf16_launches=fcgf["bf16_launches"][k],
+            **{f"fcgf_{key}": r[key] for key in numbers},
+            fcgf_library_ms=r.get("library_ms"),
+            **({"fcgf_convs": r["convs"],
+                "fcgf_dx_executed_over_matched":
+                    r["dx_executed_over_matched"]} if k == "K7" else {}))
+    print(json.dumps({"fcgf_step": {
+        k: v for k, v in fcgf.items() if "launches" not in k}}))
     print(json.dumps({"kernels": kernels}))
     print(f"{gpu}")
     print(json.dumps({"ok": True, "device": {

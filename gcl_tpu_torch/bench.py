@@ -116,11 +116,13 @@ def bench_batch(seed: int, batch_size: int, n_points: int, device):
                  for a in (points, pmask, transforms, radius))
 
 
-def profile_step(step, batch, gen, iters: int = 2) -> dict:
+def profile_step(step, batch, gen, iters: int = 2,
+                 prefix: str = "gcl") -> dict:
     """Where a step's time goes on the card: one torch.profiler window
     over ``iters`` steps. Stage times are the host-side spans of the
-    step's record_function ranges (voxelize, groups, graph, unet, loss,
-    backward, sgd) and the device time of the kernels launched inside
+    step's record_function ranges named ``{prefix}/...`` (the GCL step's
+    voxelize, groups, graph, unet, loss, backward, sgd; the FCGF step's
+    ``fcgf/`` ranges) and the device time of the kernels launched inside
     them; the device's busy time is the sum over device-side events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -137,14 +139,14 @@ def profile_step(step, batch, gen, iters: int = 2) -> dict:
     # own device-side annotations, which span the same time again
     kernels = sorted(((e.self_device_time_total, e.key, e.count)
                       for e in events if e.device_type == DeviceType.CUDA
-                      and not e.key.startswith("gcl/")), reverse=True)
+                      and not e.key.startswith(prefix + "/")), reverse=True)
     busy_ms = sum(us for us, _, _ in kernels) / 1e3
     # each range shows twice: on the host (its span there) and as an
     # annotation on the device's timeline (the span of its kernels)
     stages = {}
     for e in events:
-        if e.key.startswith("gcl/"):
-            stage = stages.setdefault(e.key[4:], {})
+        if e.key.startswith(prefix + "/"):
+            stage = stages.setdefault(e.key[len(prefix) + 1:], {})
             if e.device_type == DeviceType.CUDA:
                 stage["device_ms"] = e.device_time_total / 1e3 / iters
             else:

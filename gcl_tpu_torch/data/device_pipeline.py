@@ -228,6 +228,17 @@ def grid_radius_knn(queries: torch.Tensor, q_mask: torch.Tensor,
     return idx.to(torch.int32), hit
 
 
+def _knn_single(queries, q_mask, targets, t_mask, radius, k, chunk, cell,
+                cell_cap):
+    """One search: queries [Q, 3] against targets [T, 3], on the grid
+    (grid_radius_knn, the first ``cell_cap`` targets of a cell) with
+    ``cell`` set, else brute force."""
+    if cell is not None:
+        return grid_radius_knn(queries, q_mask, targets, t_mask, radius, k,
+                               cell, cell_cap)
+    return radius_knn(queries, q_mask, targets, t_mask, radius, k, chunk)
+
+
 def _knn(queries, q_mask, targets, t_mask, radius, k, chunk, cell, cell_cap):
     """One sample's searches: queries [Q, 3] against targets [C, T, 3]."""
     if cell is None:
@@ -425,3 +436,27 @@ def batch_colocation_groups(vox_b: VoxelizedClouds,
         valid=torch.cat([g.valid for g in per]),
         anchor_xyz=torch.cat([g.anchor_xyz for g in per]),
         anchor_item=sample_id.repeat_interleave(nv))
+
+
+def build_correspondences(xyz0: torch.Tensor, mask0: torch.Tensor,
+                          xyz1: torch.Tensor, mask1: torch.Tensor,
+                          trans: torch.Tensor, search_radius, k: int = 8,
+                          chunk: int = 512, cell: Optional[float] = None,
+                          cell_cap: int = 8
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ground-truth correspondences of one pair: every voxel of cloud 1
+    within ``search_radius`` of each voxel of cloud 0 moved by ``trans``
+    (cloud 0 -> cloud 1), the k nearest at most.
+
+    xyz0 f32[N0, 3], xyz1 f32[N1, 3], trans f32[4, 4]. ``cell`` selects
+    grid_radius_knn (the first ``cell_cap`` targets of a cell compete) over
+    the brute-force search. Returns (pairs int32[N0 * k, 2] of (i0, i1),
+    mask bool[N0 * k]); a pair outside the mask is meaningless.
+    """
+    src = transform_points(xyz0, trans)
+    idx, hit = _knn_single(src, mask0, xyz1, mask1, search_radius, k, chunk,
+                           cell, cell_cap)
+    n0 = xyz0.shape[0]
+    i0 = torch.arange(n0, dtype=torch.int32,
+                      device=xyz0.device).repeat_interleave(k)
+    return torch.stack([i0, idx.reshape(-1)], dim=1), hit.reshape(-1)

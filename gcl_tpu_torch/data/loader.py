@@ -15,10 +15,12 @@ from typing import Dict, List
 import numpy as np
 import torch.utils.data
 
+from .colocation import ColocationKittiDataset, ColocationNuscenesDataset
 from .pairs import PairComplementKittiDataset, PairComplementNuscenesDataset
 
-PAIR_DATASETS = {d.__name__: d for d in (PairComplementKittiDataset,
-                                         PairComplementNuscenesDataset)}
+ALL_DATASETS = {d.__name__: d for d in (
+    ColocationKittiDataset, ColocationNuscenesDataset,
+    PairComplementKittiDataset, PairComplementNuscenesDataset)}
 
 
 def collate_stack(samples: List[Dict]) -> Dict:
@@ -78,23 +80,23 @@ class DataLoader:
 
 
 def make_data_loader(config, phase, batch_size, num_threads=0, shuffle=None):
-    """gcl_tpu's loader dispatch for the pair datasets: config.dataset for
-    every phase here (gcl_tpu takes the train phase's from
-    config.train_dataset, a colocation dataset: ROADMAP Queue 1 item 3),
-    augmentation flags from the config in the train phase only, the
-    train phase shuffled with its last short batch dropped."""
+    """gcl_tpu's loader dispatch: the train phase's dataset from
+    config.train_dataset (a colocation dataset for GCL, a pair dataset for
+    FCGF), val and test from config.dataset; augmentation flags from the
+    config in the train phase only; the train phase shuffled with its last
+    short batch dropped."""
     assert phase in ("train", "val", "test")
     if shuffle is None:
         shuffle = phase != "test"
     name = (getattr(config, "train_dataset", config.dataset)
             if phase == "train" else config.dataset)
-    if name not in PAIR_DATASETS:
+    if name not in ALL_DATASETS:
         raise ValueError(
             f"dataset {name!r} is not in gcl_tpu_torch, which has "
-            f"{sorted(PAIR_DATASETS)} (the colocation and legacy datasets "
-            f"are ROADMAP Queue 1 items 3 and 6)")
+            f"{sorted(ALL_DATASETS)} (the legacy FCGF datasets are ROADMAP "
+            f"Queue 1 item 6)")
     train = phase == "train"
-    dataset = PAIR_DATASETS[name](
+    dataset = ALL_DATASETS[name](
         phase, transform=None,
         random_rotation=train and config.use_random_rotation,
         random_scale=train and config.use_random_scale,

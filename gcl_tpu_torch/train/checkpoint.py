@@ -13,6 +13,8 @@ way "state_dict" comes back as the port's model state_dict: flax's nested
 """
 from __future__ import annotations
 
+import json
+import os
 import struct
 import zipfile
 from typing import Any, Dict
@@ -42,6 +44,16 @@ def save_checkpoint(path: str, *, epoch: int,
         "best_val_metric": best_val_metric,
     }
     torch.save(state, path)
+
+
+def dump_config_json(out_dir: str, config: Dict):
+    """The run's config.json: the config's plain entries (numbers, strings,
+    booleans, None, lists), as gcl_tpu writes it."""
+    os.makedirs(out_dir, exist_ok=True)
+    clean = {k: v for k, v in dict(config).items()
+             if isinstance(v, (int, float, str, bool, type(None), list))}
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(clean, f, indent=4, sort_keys=False)
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:

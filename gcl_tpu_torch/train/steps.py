@@ -1,20 +1,23 @@
-"""The GCL train step (port of gcl_tpu/train/steps.py: StepConfig,
-make_gcl_grad_fn, make_optimizer, make_gcl_train_step, AccumStepper,
-make_dist_err_step, make_val_step).
+"""The train steps (port of gcl_tpu/train/steps.py: StepConfig,
+make_optimizer, make_gcl_grad_fn, make_gcl_train_step, make_pair_grad_fn,
+make_pair_train_step, AccumStepper, make_dist_err_step, make_val_step).
 
-One step spans the whole per-iteration pipeline on the device: voxelize ->
-colocation groups -> stride levels and conv maps -> sparse U-Net forward
-and backward -> group loss -> SGD update. The model (parameters and BN
-running stats) and the optimizer (momentum buffers) hold the state, as is
-PyTorch's habit; gcl_tpu threads a TrainState through instead.
+One step spans the whole per-iteration pipeline on the device. The GCL
+step: voxelize -> colocation groups -> stride levels and conv maps ->
+sparse U-Net forward and backward -> group loss -> SGD update. The FCGF
+pair step: each side voxelized and run through the U-Net on its own (side
+0, then side 1, so BN running stats move twice) -> ground-truth
+correspondences -> pair loss -> one backward -> SGD update. The model
+(parameters and BN running stats) and the optimizer (momentum buffers)
+hold the state, as is PyTorch's habit; gcl_tpu threads a TrainState
+through instead.
 
 Optimizer semantics = torch.optim.SGD(lr, momentum, weight_decay) with
 dampening 0: grad + wd * p -> momentum buffer -> p -= lr * buf; lr is fed
 in per step. Weight decay covers every parameter, BN scale and bias
 included, as gcl_tpu's optax chain does.
 
-make_val_step is the pair (FCGF) validation step; the pair train step is
-not ported.
+make_val_step is the pair (FCGF) validation step.
 """
 from __future__ import annotations
 
@@ -26,12 +29,16 @@ from torch.profiler import record_function
 
 from ..core.kernel_maps import METHODS, ConvSpec, build_graph
 from ..data.device_pipeline import (VoxelizedClouds, batch_colocation_groups,
+                                    build_correspondences,
                                     voxelize_per_cloud)
 from ..kernels.build import summing
 from ..losses.common import sample_without_replacement
 from ..losses.gcl import (GCLLossConfig, LossDraws, SpatialNegFilter,
                           finest_contrastive_loss, location_circle_loss,
                           location_contrastive_loss, member_group_index)
+from ..losses.pairs import (PairLossDraws, contrastive_loss,
+                            hardest_contrastive_loss, hardest_triplet_loss,
+                            triplet_loss)
 from ..reg.matching import find_nn
 from ..reg.robust import est_quad_linear_robust
 from .diagnostics import group_distance_errors
@@ -49,12 +56,18 @@ class StepConfig:
     nv_cap: int
     level_caps: Dict[int, int]
     group_k: int = 5
+    corr_k: int = 8  # ground-truth correspondences per source voxel (FCGF)
+    pos_pair_cap: int = 1 << 20  # gcl_tpu's field; no step reads it
     knn_chunk: int = 1024
     # Hash-grid cell of the group search (at least twice the largest search
     # radius; a larger radius is clamped to cell / 2): the S = B * C searches
     # of a batch run as one windowed_cell_topk call (K1). None ->
     # brute-force O(QT) search, knn_chunk queries at a time.
     search_cell: Optional[float] = None
+    # The FCGF step's correspondence search on the grid (grid_radius_knn)
+    # sees the first cell_cap targets of a cell; the group search's kernel
+    # sees every target and ignores it.
+    cell_cap: int = 8
     member_r_cap: int = 32  # width of the reverse membership index
     # Negative-loss intra-group filter: 'spatial' (the geometric 2r test in
     # the aligned frame, no index to build) or 'membership' (exact
@@ -92,6 +105,18 @@ class StepDraws(NamedTuple):
     loss: Optional[LossDraws] = None
 
 
+class PairDraws(NamedTuple):
+    """The random numbers of one FCGF pair step, already drawn (tests hand
+    the same numbers to gcl_tpu): side0 / side1 each a StepDraws holding
+    that side's per-sample jitter gates (sample_gate_u f32[B]) and conv1's
+    noise (jitter: gate_u scalar, normal f32[N, 1]); loss the pair loss's
+    PairLossDraws. Unused fields may be None."""
+
+    side0: Optional[StepDraws] = None
+    side1: Optional[StepDraws] = None
+    loss: Optional[PairLossDraws] = None
+
+
 def make_optimizer(params, cfg: StepConfig) -> torch.optim.SGD:
     # lr is set per step; 1.0 is a placeholder that no update ever uses
     return torch.optim.SGD(params, lr=1.0, momentum=cfg.momentum,
@@ -111,7 +136,7 @@ def _sample_gates(generator, p: float, n_samples: int,
     return gates[row_to_sample.long().clamp(0, n_samples - 1)]
 
 
-def _check_config(step_cfg: StepConfig, loss_kind: str) -> None:
+def _check_step(step_cfg: StepConfig) -> None:
     if step_cfg.compute_dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(
             f"compute_dtype {step_cfg.compute_dtype}: the port computes in "
@@ -125,6 +150,10 @@ def _check_config(step_cfg: StepConfig, loss_kind: str) -> None:
     if step_cfg.graph_method not in METHODS:
         raise ValueError(f"graph_method {step_cfg.graph_method!r}: one of "
                          f"{METHODS}")
+
+
+def _check_config(step_cfg: StepConfig, loss_kind: str) -> None:
+    _check_step(step_cfg)
     if loss_kind not in _GROUP_LOSSES:
         raise ValueError(f"loss {loss_kind!r}: one of "
                          f"{sorted(_GROUP_LOSSES)}")
@@ -249,18 +278,169 @@ def make_gcl_train_step(model: torch.nn.Module,
     grad_fn = make_gcl_grad_fn(model, conv_specs, step_cfg, loss_cfg,
                                loss_kind, max_pos_cluster, max_hn_samples,
                                pos_weight, finest_weight, neg_weight, jitter)
+    return opt, make_train_step_from_grad(opt, grad_fn)
 
-    def step_fn(lr: float, points, pmask, transforms, radius,
-                generator=None, draws: Optional[StepDraws] = None):
-        metrics = grad_fn(points, pmask, transforms, radius, generator,
-                          draws)
+
+def make_train_step_from_grad(opt: torch.optim.Optimizer,
+                              grad_fn: Callable,
+                              stage: str = "gcl") -> Callable:
+    """grad_fn(*batch, generator, draws) -> metrics, which leaves the
+    gradients in ``.grad``, as a one-SGD-step-per-batch step function:
+    step_fn(lr, *batch, generator=None, draws=None) -> metrics. The update
+    is the profiler range ``{stage}/sgd``."""
+
+    def step_fn(lr: float, *batch, generator=None, draws=None):
+        metrics = grad_fn(*batch, generator, draws)
         for group in opt.param_groups:
             group["lr"] = lr
-        with record_function("gcl/sgd"):
+        with record_function(f"{stage}/sgd"):
             opt.step()
         return metrics
 
-    return opt, step_fn
+    return step_fn
+
+
+_PAIR_KINDS = ("hardest_contrastive", "contrastive", "triplet",
+               "hardest_triplet")
+
+
+def make_pair_grad_fn(model: torch.nn.Module,
+                      conv_specs: Sequence[ConvSpec], step_cfg: StepConfig,
+                      trainer_kind: str, cfg: Dict) -> Callable:
+    """grad_fn(points0 [B, P, 3], pmask0, points1, pmask1, trans [B, 4, 4],
+    radius [B], generator=None, draws=None) -> metrics, for the pair-loss
+    trainers: ``trainer_kind`` 'hardest_contrastive', 'contrastive',
+    'triplet' or 'hardest_triplet'; ``cfg`` the run config's loss settings
+    (batch_size, num_pos_per_batch, num_hn_samples_per_batch,
+    triplet_num_pos / _hn / _rand, pos_thresh, neg_thresh, neg_weight,
+    jitter_feats).
+
+    The two sides run through the model in train mode one after the other,
+    each with its own per-sample jitter gates and conv1 noise; trans maps
+    cloud 0 onto cloud 1. Leaves d loss / d p in every parameter's
+    ``.grad``. Random numbers come from ``generator`` unless ``draws``
+    (PairDraws) hands them in.
+    """
+    _check_step(step_cfg)
+    if trainer_kind not in _PAIR_KINDS:
+        raise ValueError(f"trainer kind {trainer_kind!r}: one of "
+                         f"{_PAIR_KINDS}")
+    jitter = bool(cfg.get("jitter_feats", True))
+    b_cfg = cfg["batch_size"]
+    num_pos = cfg["num_pos_per_batch"] * b_cfg
+    num_hn = cfg["num_hn_samples_per_batch"] * b_cfg
+    t_pos = cfg["triplet_num_pos"] * b_cfg
+    t_hn = cfg["triplet_num_hn"] * b_cfg
+    t_rand = cfg["triplet_num_rand"] * b_cfg
+    pos_thresh, neg_thresh = cfg["pos_thresh"], cfg["neg_thresh"]
+    neg_weight = cfg["neg_weight"]
+
+    def side_forward(points, pmask, generator, draws: StepDraws):
+        b = points.shape[0]
+        with torch.no_grad():
+            with record_function("fcgf/voxelize"):
+                vox = voxelize_per_cloud(points, pmask, step_cfg.voxel_size,
+                                         step_cfg.nv_cap)
+                flat = vox.flatten()
+            with record_function("fcgf/graph"):
+                graph = build_graph(flat.coords, flat.mask, conv_specs,
+                                    step_cfg.level_caps, n_clouds=b,
+                                    method=step_cfg.graph_method)
+            conv1_jitter = None
+            if jitter:
+                # one p-gate per sample and side; conv1 owns the noise:
+                # 'input' is the exact feature jitter of its input, 'c1z'
+                # the distribution-matched noise on its output
+                jit_rows = _sample_gates(generator, step_cfg.jitter_p, b,
+                                         flat.coords[:, 0],
+                                         draws.sample_gate_u)
+                conv1_jitter = (step_cfg.jitter_sigma, 1.0, jit_rows,
+                                step_cfg.jitter_mode != "c1z")
+        with record_function("fcgf/unet"):
+            f = model(graph, flat.feats.to(step_cfg.compute_dtype),
+                      conv1_jitter=conv1_jitter, generator=generator,
+                      jitter_draws=draws.jitter)
+        return vox, flat, summing(f)
+
+    @torch.no_grad()
+    def batch_correspondences(vox0, vox1, trans, radius):
+        """Each sample's ground-truth pairs, rows offset to the flat
+        [B * Nv] arrays of both sides."""
+        b, nv = vox0.mask.shape
+        pairs, mask = [], []
+        for i in range(b):
+            p, m = build_correspondences(
+                vox0.xyz[i], vox0.mask[i], vox1.xyz[i], vox1.mask[i],
+                trans[i], radius[i], k=step_cfg.corr_k,
+                chunk=step_cfg.knn_chunk, cell=step_cfg.search_cell,
+                cell_cap=step_cfg.cell_cap)
+            pairs.append(p + i * nv)
+            mask.append(m)
+        return torch.cat(pairs), torch.cat(mask)
+
+    def grad_fn(points0, pmask0, points1, pmask1, trans, radius,
+                generator=None, draws: Optional[PairDraws] = None):
+        draws = draws or PairDraws()
+        model.train()
+        vox0, flat0, f0 = side_forward(points0, pmask0, generator,
+                                       draws.side0 or StepDraws())
+        vox1, flat1, f1 = side_forward(points1, pmask1, generator,
+                                       draws.side1 or StepDraws())
+        with record_function("fcgf/correspondences"):
+            radius = torch.broadcast_to(torch.as_tensor(
+                radius, dtype=torch.float32, device=points0.device),
+                (points0.shape[0],))
+            pairs, pm = batch_correspondences(vox0, vox1, trans, radius)
+        args = (f0, f1, flat0.mask, flat1.mask, pairs, pm, generator)
+        with record_function("fcgf/loss"):
+            if trainer_kind == "hardest_contrastive":
+                out = hardest_contrastive_loss(
+                    *args, num_pos=num_pos, num_hn_samples=num_hn,
+                    pos_thresh=pos_thresh, neg_thresh=neg_thresh,
+                    draws=draws.loss)
+            elif trainer_kind == "contrastive":
+                out = contrastive_loss(*args, neg_thresh=neg_thresh,
+                                       num_neg=2 * num_pos, draws=draws.loss)
+            elif trainer_kind == "triplet":
+                out = triplet_loss(*args, num_pos=t_pos,
+                                   num_rand_triplet=t_rand,
+                                   neg_thresh=neg_thresh, draws=draws.loss)
+            else:
+                out = hardest_triplet_loss(
+                    *args, num_pos=t_pos, num_hn_samples=t_hn,
+                    num_rand_triplet=t_rand, neg_thresh=neg_thresh,
+                    draws=draws.loss)
+            if trainer_kind in ("hardest_contrastive", "contrastive"):
+                total = out.pos_loss + neg_weight * out.neg_loss
+                pos, neg = out.pos_loss, out.neg_loss
+            else:
+                total, pos, neg = out.loss, out.pos_dist, out.neg_dist
+        model.zero_grad(set_to_none=True)
+        with record_function("fcgf/backward"):
+            total.backward()
+        return {"loss": total.detach(), "pos_loss": pos.detach(),
+                "neg_loss": neg.detach(),
+                "num_pos_pairs": pm.sum().to(torch.float32),
+                "num_valid_voxels": (flat0.mask.sum()
+                                     + flat1.mask.sum()).to(torch.float32)}
+
+    return grad_fn
+
+
+def make_pair_train_step(model: torch.nn.Module,
+                         conv_specs: Sequence[ConvSpec],
+                         step_cfg: StepConfig, trainer_kind: str, cfg: Dict
+                         ) -> Tuple[torch.optim.SGD, Callable]:
+    """The FCGF pair train step: (optimizer, step_fn).
+
+    step_fn(lr, points0, pmask0, points1, pmask1, trans, radius,
+    generator=None, draws=None) -> metrics takes one SGD step on ``model``
+    in place.
+    """
+    opt = make_optimizer(model.parameters(), step_cfg)
+    grad_fn = make_pair_grad_fn(model, conv_specs, step_cfg, trainer_kind,
+                                cfg)
+    return opt, make_train_step_from_grad(opt, grad_fn, "fcgf")
 
 
 class AccumStepper:
@@ -276,8 +456,8 @@ class AccumStepper:
     """
 
     def __init__(self, opt: torch.optim.Optimizer, grad_fn: Callable,
-                 iter_size: int):
-        self.opt, self.grad_fn = opt, grad_fn
+                 iter_size: int, stage: str = "gcl"):
+        self.opt, self.grad_fn, self.stage = opt, grad_fn, stage
         self.iter_size = int(iter_size)
         self._params = [p for g in opt.param_groups for p in g["params"]]
         self.reset()
@@ -312,7 +492,7 @@ class AccumStepper:
                 p.grad = a.to(p.dtype)
             for group in self.opt.param_groups:
                 group["lr"] = lr
-            with record_function("gcl/sgd"):
+            with record_function(f"{self.stage}/sgd"):
                 self.opt.step()
             self.reset()
         return metrics

@@ -182,6 +182,68 @@ def replay_loss_draws(key, n_groups: int, n_voxels: int,
                      u(k2, max_hn_samples, n_voxels))
 
 
+
+def replay_pair_loss_draws(kind: str, key, n_pairs: int, n0: int, n1: int,
+                           num_pos: int = 0, num_hn: int = 0,
+                           num_rand: int = 0, num_neg: int = 0):
+    """The numbers gcl_tpu's pair loss ``kind`` ('hardest_contrastive',
+    'contrastive', 'triplet', 'hardest_triplet') draws from ``key`` (its
+    key splits, losses/pairs.py: one uniform call per
+    sample_without_replacement, one randint per sample_uniform_index), as
+    the port's PairLossDraws."""
+    import jax
+    from gcl_tpu_torch.losses.pairs import PairLossDraws
+
+    def u(k, m, n):
+        return torch.from_numpy(np.array(
+            jax.random.uniform(k, (min(m, n),))))
+
+    if kind == "contrastive":
+        k0, k1 = jax.random.split(key)
+        return PairLossDraws(**{
+            f"r{i}": torch.from_numpy(np.array(
+                jax.random.randint(k, (num_neg,), 0, n))).long()
+            for i, (k, n) in enumerate(((k0, n0), (k1, n1)))})
+    if kind == "hardest_contrastive":
+        k_pos, k0, k1 = jax.random.split(key, 3)
+        return PairLossDraws(pos=u(k_pos, num_pos, n_pairs),
+                             hn0=u(k0, num_hn, n0), hn1=u(k1, num_hn, n1))
+    if kind == "triplet":
+        k_pos, k_rt, k_neg = jax.random.split(key, 3)
+        return PairLossDraws(pos=u(k_pos, num_pos, n_pairs),
+                             rand=u(k_rt, num_rand, n_pairs),
+                             neg=u(k_neg, num_rand, n1))
+    k_pos, k0, k1, k_rt, k_neg = jax.random.split(key, 5)
+    return PairLossDraws(pos=u(k_pos, num_pos, n_pairs),
+                         hn0=u(k0, num_hn, n0), hn1=u(k1, num_hn, n1),
+                         rand=u(k_rt, num_rand, n_pairs),
+                         neg=u(k_neg, num_rand, n1))
+
+
+def replay_pair_step_draws(k, n_samples: int, n_rows: int, n_pairs: int,
+                           kind: str = "hardest_contrastive", **counts):
+    """The PairDraws of gcl_tpu's pair grad_fn of trainer ``kind`` called
+    with key k (train/steps.py): side s takes fold_in(k, s), split into
+    (key, k_gate); its gates uniform(k_gate, [B]), its noise the normals
+    of the second half of split(key) (the first half's uniform is the
+    always-open p = 1 gate); the loss draws from k itself (``counts`` as
+    replay_pair_loss_draws takes them)."""
+    import jax
+    from gcl_tpu_torch.train.steps import PairDraws, StepDraws
+
+    sides = []
+    for s in (0, 1):
+        key, k_gate = jax.random.split(jax.random.fold_in(k, s))
+        k1, k2 = jax.random.split(key)
+        sides.append(StepDraws(
+            torch.from_numpy(np.array(jax.random.uniform(k_gate,
+                                                         (n_samples,)))),
+            (torch.from_numpy(np.array(jax.random.uniform(k1))),
+             torch.from_numpy(np.array(jax.random.normal(k2,
+                                                         (n_rows, 1)))))))
+    return PairDraws(*sides, replay_pair_loss_draws(kind, k, n_pairs, n_rows,
+                                                    n_rows, **counts))
+
 # --- key-window cases (K10's and K2's window tables) ---------------------
 
 def _face_coords():

@@ -861,6 +861,122 @@ def test_exp_features_on_card_match_cpu(dev):
     err = (out["cuda"].cpu() - out["cpu"]).abs().max()
     assert float(err) < 1e-3
 
+EXP_K5 = [("s1->s3/k5d1", 32, 64), ("s27->s9/k5d1", 256, 256),
+          ("s9->s3/k5d1", 384, 128), ("s3->s1/k5d1", 192, 128),
+          ("s3->s9/k5d1", 64, 128), ("s9->s27/k5d1", 128, 256)]
+
+
+@pytest.mark.parametrize("key,cin,cout", EXP_K5)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_exp_k5_backward_matches_plain(dev, key, cin, cout, dtype):
+    """K7 (dX and dW in one pass over the reverse map) on EXP's six k = 5
+    strided and transposed geometries at their real widths (Cin up to
+    384), as the FCGF train step runs them: float32 dX and dW within 1e-4
+    of the plain version's max; bf16 dX at the bf16 gate and its float32
+    dW within 1e-4. dX also against K6 through the reverse map; the rows
+    the dX gather-GEMM multiplies equal compacted_rows' count of the
+    reverse map, and the split-K dW stages between the matched pairs and
+    1.05 x them + 8 rows a block."""
+    from gcl_tpu_torch.core.coords import lookup
+    g = _exp_graph(dev)
+    s_in, s_out = (int(t[1:]) for t in key.split("/")[0].split("->"))
+    lv_in, lv_out = g.levels[s_in], g.levels[s_out]
+    gen = torch.Generator().manual_seed(cin * cout)
+    x = (torch.randn(lv_in.coords.shape[0], cin, generator=gen).to(dev)
+         * lv_in.mask[:, None]).to(dtype)
+    gr = (torch.randn(lv_out.coords.shape[0], cout, generator=gen).to(dev)
+          * lv_out.mask[:, None]).to(dtype)
+    w = torch.randn(125, cin, cout, generator=gen).to(dev) / (125 * cin) ** .5
+    rqkey = g.maps[key].rqkey
+    args = (x, gr, w, rqkey, lv_out.skeys, lv_out.srow)
+    before = sparse_conv_implicit_bwd.launches
+    dx, dw = sparse_conv_implicit_bwd(*args)
+    torch.cuda.synchronize()
+    assert sparse_conv_implicit_bwd.launches == before + 1
+    assert dx.dtype == dtype and dw.dtype == torch.float32
+    rdx, rdw = sparse_conv_implicit_bwd_plain(*args)
+    _close_to_max(dw, rdw, 1e-4)
+    two_pass = sparse_conv_implicit_fwd(
+        gr, w.flip(0).transpose(1, 2).contiguous(), rqkey, lv_out.skeys,
+        lv_out.srow)
+    if dtype == torch.float32:
+        _close_to_max(dx, rdx, 1e-4)
+        _close_to_max(dx, two_pass, 1e-4)
+    else:
+        bound = _sum_bound(sparse_conv_implicit_bwd_plain, args)
+        assert_bf16_close(dx, rdx, "K7 dX", bound)
+        assert_bf16_close(dx, two_pass, "K7 dX against K6", bound)
+    hit = lookup(lv_out.skeys, lv_out.srow, rqkey) >= 0
+    matched, executed = compacted_rows(hit)
+    assert matched > 0
+    with counted_gather_rows(dev) as counter:
+        sparse_conv_implicit_bwd(*args)
+    torch.cuda.synchronize()
+    assert int(counter.item()) == executed
+    with counted_dw_rows(dev) as counter:
+        sparse_conv_implicit_bwd(*args)
+    torch.cuda.synchronize()
+    staged, blocks = (int(v) for v in counter.tolist())
+    assert matched <= staged <= 1.05 * matched + 8 * blocks
+
+
+def test_exp_pair_step_on_card_matches_cpu(dev):
+    """One FCGF pair step (hardest contrastive, exact input jitter) of a
+    full-width ResUNetFatBNEXP on the card against the same step on the
+    CPU from the same weights and draws: exactly K2 2, K4 2, K6 40, K3 2,
+    K5 2, K7 40 launches (both sides; conv1's input takes no gradient, so
+    no K9), loss terms within 1e-4."""
+    from gcl_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from gcl_tpu_torch.losses.pairs import PairLossDraws
+    from gcl_tpu_torch.models.resunet import ResUNetFatBNEXP
+    from gcl_tpu_torch.train.steps import (PairDraws, StepConfig, StepDraws,
+                                           make_pair_grad_fn)
+    pts, pmask = clouds(8, 2, 2500)
+    pts = pts * np.float32(3.0)
+    moved = pts + np.float32([0.6, -0.9, 0.0])
+    trans = np.stack([np.eye(4, dtype=np.float32)] * 2)
+    trans[:, :3, 3] = [0.6, -0.9, 0.0]
+    nv = 1600
+    cfg = dict(batch_size=2, num_pos_per_batch=256,
+               num_hn_samples_per_batch=128, triplet_num_pos=8,
+               triplet_num_hn=8, triplet_num_rand=8, pos_thresh=0.1,
+               neg_thresh=1.4, neg_weight=1.0, jitter_feats=True)
+    gen = torch.Generator().manual_seed(0)
+    sides = [StepDraws(torch.zeros(2), (torch.zeros(()), torch.randn(
+        2 * nv, 1, generator=gen))) for _ in range(2)]
+    draws = PairDraws(*sides, PairLossDraws(
+        pos=torch.rand(512, generator=gen), hn0=torch.rand(256, generator=gen),
+        hn1=torch.rand(256, generator=gen)))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        model = ResUNetFatBNEXP(1, 32, bn_momentum=0.05,
+                                normalize_feature=True, conv1_kernel_size=5)
+        model.load_state_dict(random_state_dict(model, seed=5))
+        model.to(d)
+        step_cfg = StepConfig(voxel_size=VOXEL, nv_cap=nv,
+                              level_caps={3: 1800, 9: 800, 27: 320},
+                              search_cell=1.08)
+        grad_fn = make_pair_grad_fn(model, ResUNetFatBNEXP.conv_specs(5),
+                                    step_cfg, "hardest_contrastive", cfg)
+        reset_launch_counts()
+        m = grad_fn(*(torch.from_numpy(a).to(d) for a in (
+            pts, pmask, moved.astype(np.float32), pmask, trans)),
+            torch.full((2,), 0.45, device=d),
+            draws=PairDraws(*(StepDraws(sd.sample_gate_u.to(d),
+                                        tuple(t.to(d) for t in sd.jitter))
+                              for sd in draws[:2]),
+                            PairLossDraws(*(t.to(d) for t in draws.loss[:3]))))
+        if d != torch.device("cpu"):
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            assert {k: v for k, v in counts.items() if v} == {
+                "K2": 2, "K4": 2, "K6": 40, "K3": 2, "K5": 2, "K7": 40}, counts
+        out[d.type] = {k: float(v) for k, v in m.items()}
+    assert out["cuda"]["num_pos_pairs"] == out["cpu"]["num_pos_pairs"] > 0
+    for k in ("loss", "pos_loss", "neg_loss"):
+        assert abs(out["cuda"][k] - out["cpu"][k]) <= 1e-4, (k, out)
+
+
 # --- the split-K dW core (K8 over forward maps and index tables, K7's dW
 # over reverse maps) on synthetic maps: 0, 7, 8, 9 and 33 matched rows per
 # offset (around the 8-row rounding and the 32-pair stage), a dense map,
