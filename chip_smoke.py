@@ -1,7 +1,7 @@
 """Smoke run of gcl_tpu_torch's serving path, its FCGF evaluation path, its
 GCL train steps (the implicit and the explicit conv-map route, in float32
-and in bf16), its FCGF train step and its training entry point on one CUDA
-card.
+and in bf16), its FCGF train step, its training entry point, its
+data-parallel steps and the rest of its model zoo on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -152,7 +152,27 @@ Phases, in order; any failure raises and the exit code is non-zero:
    point, python -m gcl_tpu_torch.train's main, on a synthetic mini-KITTI:
    an FCGF epoch with validation, a resume, a GCL epoch of two
    iterations;
-12. prints {"fcgf_step": {...}}, then {"kernels": [...]} (twelve kernels;
+12. data parallelism on the one card (see dp_checks): two ranks on cuda:0
+   over gloo run root bench.py's bf16 GCL step at 4 x 7 clouds (2 x 7 a
+   rank) and the float32 FCGF step at 4 pairs (2 a rank): reduced
+   gradients and BN statistics equal to the mean of the ranks' unreduced
+   ones, the averaged loss within 1e-4 of the one-process steps on the
+   same shards and draws, every launch against its plain version, the
+   launches per rank exact, parameters bit-equal across the ranks after 3
+   steps; python -m gcl_tpu_torch.bench --data_parallel at world size 1 on
+   NCCL beside the plain bench (step times of both, in turns); an FCGF
+   trainer epoch of 2 iterations under --data_parallel true
+   --num_devices 1, and the same epoch under torchrun with
+   --distributed_init true (NCCL over env://);
+13. the model zoo: K6 and K7 at ResUNetFatBNEXP_V2's conv1_extra (1 -> 5,
+   k = 5, dilation 5) and conv1_tr_extra (5 -> 1, dilation 4) against
+   their plain versions, timed, with executed / matched rows; the FCGF
+   step of 11 with V2 and with the instance-norm ResUNetIN2E at full width
+   (kernel path against plain path, every launch checked, exact launches,
+   3 timed steps, peak memory);
+14. prints {"fcgf_step": {...}}, {"data_parallel": ..., "zoo": ...}, then
+   {"kernels": [...]} (twelve kernels, each with its launches on one rank
+   of phase 12's steps and on phase 13's steps;
    a conv kernel's row holds its bf16 form's numbers, the main path's, and
    its float32 form's under "float32"; K11's holds its 18,432-query shape
    under "second_shape"; K2's and K6's float32 parts hold phase 4b's
@@ -2299,6 +2319,527 @@ def fcgf_entry_checks() -> None:
                  f"GCL epoch: two finite losses and a checkpoint, {losses}")
 
 
+# data parallel on the one card (phase 12): two ranks over gloo share it
+DP_RANKS = 2
+DP_JOIN_S = 900.0   # a rank that hangs fails the run after this
+GCL_STEP_LAUNCHES = {"K1": 1, "K2": 1, "K3": 1, "K4": 1, "K5": 1, "K6": 20,
+                     "K7": 20}
+
+
+def _dp_case(kind: str, rank: int, world_size: int, dev):
+    """(model, per-shard grad_fn, shard, full batch, per-shard batch size,
+    StepConfig, lr) of a data-parallel case on this rank: 'gcl', root
+    bench.py's bf16 GCL step (4 x 7 clouds, 2 x 7 a rank), or 'fcgf',
+    phase 11's float32 FCGF pair step (4 pairs, 2 a rank)."""
+    from gcl_tpu_torch import bench, infer
+    from gcl_tpu_torch.losses.gcl import GCLLossConfig
+    from gcl_tpu_torch.models.resunet import ResUNetFatBNEXP
+    from gcl_tpu_torch.train.steps import make_gcl_grad_fn, make_pair_grad_fn
+    from gcl_tpu_torch.train.trainer import step_config
+
+    if kind == "gcl":
+        per = BATCH // world_size
+        model = bench.bench_model(SEED, dev)
+        specs, cfg = bench.bench_config(per, NV_CAP)
+        grad_fn = make_gcl_grad_fn(
+            model, specs, cfg, GCLLossConfig(block_finest_gradient=False),
+            "finest", max_pos_cluster=256 * per, max_hn_samples=256 * per,
+            pos_weight=1.0, finest_weight=1.0, neg_weight=1.0)
+        full = bench.bench_batch(SEED, BATCH, N_POINTS, dev)
+        lr = 0.1
+    else:
+        per = FCGF_BATCH // world_size
+        config = _fcgf_config(batch_size=per)
+        cfg = step_config(config, per * FCGF_NV)
+        model = infer.serving_model(SEED, dev, ResUNetFatBNEXP)
+        grad_fn = make_pair_grad_fn(model, ResUNetFatBNEXP.conv_specs(5), cfg,
+                                    "hardest_contrastive", dict(config))
+        full = _fcgf_batch(dev)
+        lr = config.lr
+    shard = tuple(a[rank * per:(rank + 1) * per] for a in full)
+    return model, grad_fn, shard, full, per, cfg, lr
+
+
+def _flat(tensors):
+    import torch
+
+    return torch.cat([t.detach().reshape(-1).float() for t in tensors])
+
+
+def _dp_rank_case(kind: str, rank: int, world_size: int, dev) -> dict:
+    """One data-parallel case on this rank (phase 12): the lifted grad_fn
+    once, with the shard's unreduced gradients and BN statistics captured
+    inside it, against their mean over the ranks; on rank 0 the same two
+    shards and draws in one process; a step with every launch held to its
+    plain version; 3 timed SGD steps, after which the parameters of the
+    ranks must be equal bit for bit."""
+    import torch
+    import torch.distributed as dist
+    from gcl_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from gcl_tpu_torch.parallel import fold_in, make_global_grad_fn
+    from gcl_tpu_torch.train.steps import (make_optimizer,
+                                           make_train_step_from_grad)
+
+    model, grad_fn, shard, full, per, cfg, lr = _dp_case(
+        kind, rank, world_size, dev)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    params = [p for p in model.parameters()]
+    bufs = [b for b in model.buffers() if b.is_floating_point()]
+    inner = {}
+
+    def spy(*a, **kw):
+        m = grad_fn(*a, **kw)
+        inner.update(grads=_flat(p.grad for p in params), bufs=_flat(bufs),
+                     loss=float(m["loss"]))
+        return m
+
+    lifted = make_global_grad_fn(spy, model)
+    seed = SEED + 7
+    reset_launch_counts()
+    metrics = lifted(*shard,
+                     generator=torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    out = {"launches": launches, "loss": float(metrics["loss"]),
+           "shard_loss": inner["loss"]}
+    for what, got in (("grads", _flat(p.grad for p in params)),
+                      ("bufs", _flat(bufs))):
+        parts = [torch.empty_like(inner[what]).cpu()
+                 for _ in range(world_size)]
+        dist.all_gather(parts, inner[what].cpu())
+        mean = sum(parts) / world_size
+        out[f"{what}_reduce_err"] = float(
+            (got.cpu() - mean).abs().max() / mean.abs().max())
+        out[f"{what}_rank_spread"] = float(
+            (parts[0] - parts[1]).abs().max() / mean.abs().max())
+    if rank == 0:
+        # the same two shards and draws, one after the other, here
+        alone = []
+        for r in range(world_size):
+            model.load_state_dict(start)
+            gen = fold_in(torch.Generator(device=dev).manual_seed(seed), r)
+            m = grad_fn(*(a[r * per:(r + 1) * per] for a in full),
+                        generator=gen)
+            alone.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        out["one_process_loss"] = sum(alone) / world_size
+        out["one_process_shard_losses"] = alone
+    model.load_state_dict(start)
+    errs, unequal = {}, {}
+    with checked_path(errs, unequal):
+        lifted(*shard, generator=torch.Generator(device=dev).manual_seed(1))
+        torch.cuda.synchronize()
+    out["checked"] = {k: float(v) for k, v in errs.items()}
+    out["bf16_unequal"] = {k: float(v) for k, v in unequal.items()}
+
+    model.load_state_dict(start)
+    opt = make_optimizer(model.parameters(), cfg)
+    step = make_train_step_from_grad(opt, lifted)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    times = []
+    for _ in range(3):
+        dist.barrier()
+        t0 = time.perf_counter()
+        m = step(lr, *shard, generator=gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        _require(np.isfinite(float(m["loss"])), f"{kind} rank {rank}: "
+                                                f"finite loss")
+    flat = _flat(model.parameters()).cpu()
+    parts = [torch.empty_like(flat) for _ in range(world_size)]
+    dist.all_gather(parts, flat)
+    out["params_bit_equal"] = all(_bit_equal(parts[0], p) for p in parts)
+    out["params_moved"] = bool((flat != _flat(
+        start[k] for k, _ in model.named_parameters()).cpu()).any())
+    out["step_time_s"] = times
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def dp_rank_checks(rank: int, world_size: int, out_path: str,
+                   device: str) -> None:
+    """Phase 12a on one rank (spawned; every rank on ``device``, the one
+    card, over gloo): the bf16 GCL step and the float32 FCGF step, written
+    to out_path % rank."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {kind: _dp_rank_case(kind, rank, world_size, dev)
+           for kind in ("gcl", "fcgf")}
+    with open(out_path % rank, "w") as f:
+        json.dump(out, f)
+
+
+def dp_checks(dev, gpu: str) -> dict:
+    """Phase 12: data parallelism on the one card. (a) two ranks on cuda:0
+    over gloo (NCCL refuses two ranks on one device) run root bench.py's
+    bf16 GCL step at 4 x 7 clouds (2 x 7 a rank) and phase 11's float32
+    FCGF step at 4 pairs (2 a rank): each rank's reduced gradients and BN
+    statistics equal the mean of both ranks' unreduced ones, the averaged
+    loss equals the one-process steps on the same two shards and draws
+    within 1e-4, every launch inside a step holds against its plain
+    version, the launches per rank a step are exact, and after 3 steps
+    the parameters are bit-equal across the ranks; (b) python -m
+    gcl_tpu_torch.bench --data_parallel at world size 1 on NCCL against
+    the plain bench at 4 x 7 bf16, in turns; (c) an FCGF trainer epoch of
+    2 iterations under --data_parallel true --num_devices 1; (d) the same
+    epoch under torchrun --nproc_per_node 1 with --distributed_init true
+    (NCCL over env://). Returns the numbers for the kernels line and
+    PERF.md."""
+    import os
+    import signal
+    import subprocess
+    import tempfile
+
+    import torch
+    from gcl_tpu_torch import bench
+    from gcl_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from gcl_tpu_torch.parallel import spawn
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        spawn(dp_rank_checks, DP_RANKS,
+              (os.path.join(tmp, "rank%d.json"), str(dev)), backend="gloo",
+              join_timeout=DP_JOIN_S)
+        ranks = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    print(f"data parallel, {DP_RANKS} ranks on one card (gloo): "
+          f"{time.perf_counter() - t0:.1f} s with the ranks' start")
+    want = {"gcl": GCL_STEP_LAUNCHES, "fcgf": FCGF_LAUNCHES}
+    for kind in ("gcl", "fcgf"):
+        for r, out in enumerate(ranks):
+            o = out[kind]
+            got = {k: v for k, v in o["launches"].items() if v}
+            print(f"DP {kind} rank {r}: launches {got}; reduced gradients "
+                  f"vs the mean of the ranks' unreduced ones "
+                  f"{o['grads_reduce_err']:.3g} of the max (the ranks' own "
+                  f"differ by {o['grads_rank_spread']:.3g}), BN statistics "
+                  f"{o['bufs_reduce_err']:.3g} (ranks {o['bufs_rank_spread']:.3g}); "
+                  f"loss {o['loss']:.6f} (its shard's {o['shard_loss']:.6f}); "
+                  f"worst rel_err inside the checked step "
+                  f"{ {k: float(f'{v:.3g}') for k, v in o['checked'].items()} }; "
+                  f"3 steps {[round(t, 4) for t in o['step_time_s']]} s; "
+                  f"params bit-equal {o['params_bit_equal']}; peak "
+                  f"{o['peak_gib']:.2f} GiB")
+            _require(got == want[kind], f"DP {kind} rank {r}: launches "
+                                        f"{want[kind]}, got {got}")
+            _require(o["grads_reduce_err"] <= 1e-6
+                     and o["bufs_reduce_err"] <= 1e-6,
+                     f"DP {kind} rank {r}: reduced = mean of the ranks' "
+                     f"unreduced gradients and statistics: {o}")
+            _require(o["grads_rank_spread"] > 0,
+                     f"DP {kind}: the ranks' shards differ")
+            _require(sorted(o["checked"]) == sorted(want[kind]),
+                     f"DP {kind} rank {r}: every kernel checked in the "
+                     f"step, {o['checked']}")
+            _require(o["params_bit_equal"] and o["params_moved"],
+                     f"DP {kind} rank {r}: parameters moved and bit-equal "
+                     f"across the ranks after 3 steps")
+        one, got = ranks[0][kind]["one_process_loss"], ranks[0][kind]["loss"]
+        _require(ranks[1][kind]["loss"] == got,
+                 f"DP {kind}: the ranks' averaged losses equal")
+        print(f"DP {kind}: averaged loss {got:.6f}, one process on the same "
+              f"shards and draws {one:.6f} (shards "
+              f"{ranks[0][kind]['one_process_shard_losses']})")
+        _require(abs(got - one) <= 1e-4, f"DP {kind}: loss within 1e-4 of "
+                                         f"the one-process steps")
+        res[kind] = dict(launches=ranks[0][kind]["launches"],
+                         step_time_s=sorted(
+                             ranks[0][kind]["step_time_s"])[1],
+                         peak_gib=max(o[kind]["peak_gib"] for o in ranks))
+
+    # (b) the benchmark at world size 1 on NCCL beside the plain one
+    common = ["--batch_size", str(BATCH), "--iters", "5", "--reps", "3",
+              "--seed", str(SEED), "--points", str(N_POINTS), "--nv",
+              str(NV_CAP), "--device", dev.type]
+    n_steps = 1 + 5 * 3
+    bench_out = {"plain": [], "data_parallel": []}
+    for name in ("plain", "data_parallel", "data_parallel", "plain"):
+        reset_launch_counts()
+        out = bench.main(common + (["--data_parallel"]
+                                   if name == "data_parallel" else []))
+        torch.cuda.synchronize()
+        got = {k: v for k, v in launch_counts().items() if v}
+        _require(got == {k: n_steps * v for k, v in
+                         GCL_STEP_LAUNCHES.items()},
+                 f"bench {name}: {n_steps} steps' launches, got {got}")
+        _require(out["data_parallel"] == (1 if name == "data_parallel"
+                                          else 0), f"bench {name}: {out}")
+        bench_out[name].append(out["step_time_s"])
+        torch.cuda.empty_cache()
+    print(f"bench 4 x 7 bf16 step_time_s (medians of 3 x 5 steps, run "
+          f"plain, DP, DP, plain): plain {bench_out['plain']}, data "
+          f"parallel at world size 1 (NCCL) {bench_out['data_parallel']}, "
+          f"on {gpu}")
+    res["bench"] = bench_out
+
+    # (c) a trainer epoch of 2 iterations, data-parallel on one card
+    from gcl_tpu_torch.data import pairs
+    from gcl_tpu_torch.data.synthetic import (generate_synthetic_kitti,
+                                              write_split_files)
+    from gcl_tpu_torch.train import __main__ as entry
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "kitti")
+        generate_synthetic_kitti(root, n_drives=1, n_frames=32, step=3.0)
+        write_split_files(os.path.join(root, "config"), 1)
+        pairs.PairComplementKittiDataset.DATA_FILES = {
+            p: os.path.join(root, "config", f"{p}_kitti.txt")
+            for p in ("train", "val", "test")}
+        run = os.path.join(tmp, "run")
+        argv = [
+            "--kitti_root", root, "--trainer",
+            "HardestContrastiveLossTrainer", "--model", "ResUNetFatBNEXP",
+            "--conv1_kernel_size", "5", "--train_dataset",
+            "PairComplementKittiDataset", "--batch_size", "2",
+            "--voxel_size", "0.3", "--point_capacity", "16384",
+            "--voxel_capacity", "4096", "--nghb_point_capacity", "16384",
+            "--use_old_pose", "false", "--pair_min_dist", "3",
+            "--pair_max_dist", "10", "--complement_pair_dist", "3",
+            "--num_complement_one_side", "2", "--val_max_iter", "1",
+            "--train_num_thread", "0", "--val_num_thread", "0",
+            "--stat_freq", "1", "--max_epoch", "1", "--data_parallel",
+            "true", "--num_devices", "1", "--device", dev.type]
+        config, device = entry.parse_config(argv + ["--out_dir", run])
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        trainer = entry.main(config, device)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        with open(os.path.join(run, "scalars.jsonl")) as f:
+            losses = [json.loads(line)["value"] for line in f
+                      if '"train/loss"' in line]
+        print(f"python -m gcl_tpu_torch.train --data_parallel true "
+              f"--num_devices 1: {time.perf_counter() - t0:.2f} s, "
+              f"train/loss {losses}, launches "
+              f"{ {k: v for k, v in got.items() if v} }")
+        _require(trainer.data_parallel and trainer.n_shards == 1,
+                 "the trainer ran as the one rank of a process group")
+        _require(len(losses) == 2 and np.isfinite(losses).all()
+                 and os.path.exists(os.path.join(run, "checkpoint.pth")),
+                 f"DP trainer epoch: 2 finite losses and a checkpoint, "
+                 f"{losses}")
+        # 2 steps of both sides' backward; validation runs no backward
+        _require(got["K7"] == 2 * FCGF_LAUNCHES["K7"]
+                 and got["K3"] == 2 * FCGF_LAUNCHES["K3"]
+                 and got["K5"] == 2 * FCGF_LAUNCHES["K5"],
+                 f"DP trainer epoch: the 2 steps' backward launches, {got}")
+        res["trainer_launches"] = got
+
+        # (d) the same epoch under torchrun --distributed_init true: the
+        # env:// rendezvous on NCCL, cuda:LOCAL_RANK, the kernel library
+        # loaded behind build_kernels_once's barrier
+        run_tr = os.path.join(tmp, "torchrun")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", "-m", "gcl_tpu_torch.train", *argv,
+             "--out_dir", run_tr, "--distributed_init", "true"],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, start_new_session=True,
+            env={**os.environ, "PYTHONPATH": os.pathsep.join(
+                p for p in (os.path.dirname(os.path.abspath(__file__)),
+                            os.environ.get("PYTHONPATH")) if p)})
+        try:
+            out, _ = proc.communicate(timeout=DP_JOIN_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            raise
+        _require(proc.returncode == 0,
+                 f"torchrun --distributed_init true: exit "
+                 f"{proc.returncode}\n{out[-3000:]}")
+        with open(os.path.join(run_tr, "scalars.jsonl")) as f:
+            losses_tr = [json.loads(line)["value"] for line in f
+                         if '"train/loss"' in line]
+        print(f"torchrun --nproc_per_node 1 -m gcl_tpu_torch.train "
+              f"--distributed_init true: {time.perf_counter() - t0:.2f} s "
+              f"with the process's start, train/loss {losses_tr}")
+        _require("Data-parallel rank 0 of 1" in out
+                 and "on cuda:0" in out,
+                 "torchrun: the trainer ran as rank 0 of 1 on cuda:0")
+        _require(len(losses_tr) == 2 and np.isfinite(losses_tr).all()
+                 and os.path.exists(os.path.join(run_tr, "checkpoint.pth")),
+                 f"torchrun epoch: 2 finite losses and a checkpoint, "
+                 f"{losses_tr}")
+        res["torchrun_losses"] = losses_tr
+    return res
+
+
+# the zoo on the card (phase 13): the FCGF step of phase 11 with V2 and the
+# instance-norm ResUNetIN2E at their full published widths
+ZOO = {"ResUNetFatBNEXP_V2": 22, "ResUNetIN2E": 20}   # convs on K6 / K7
+V2_EXTRA = ("conv1_extra", "conv1_tr_extra")
+
+
+def zoo_kernel_checks(dev, gpu: str) -> dict:
+    """Phase 13a: K6 and K7 at V2's conv1_extra (1 -> 5, k = 5, dilation
+    5, 32 -> 32) and conv1_tr_extra (5 -> 1, dilation 4, 160 -> 128) on
+    the FCGF batch's side 0: against their plain versions, timed, bounds,
+    the rows each gather-GEMM executes against the matched rows (counted
+    by the kernel), K7's dW staged rows. Returns {conv: numbers}."""
+    import torch
+    from gcl_tpu_torch.core.coords import lookup
+    from gcl_tpu_torch.core.kernel_maps import build_graph
+    from gcl_tpu_torch.data.device_pipeline import voxelize_per_cloud
+    from gcl_tpu_torch.kernels import KERNELS, compacted_rows
+    from gcl_tpu_torch.models.resunet import ResUNetFatBNEXP_V2
+    from gcl_tpu_torch.train.trainer import step_config
+
+    config = _fcgf_config(model="ResUNetFatBNEXP_V2")
+    cfg = step_config(config, FCGF_BATCH * FCGF_NV)
+    specs = ResUNetFatBNEXP_V2.conv_specs(5)
+    points, pmask = _fcgf_batch(dev)[:2]
+    flat = voxelize_per_cloud(points, pmask, cfg.voxel_size,
+                              FCGF_NV).flatten()
+    graph = build_graph(flat.coords, flat.mask, specs, cfg.level_caps,
+                        FCGF_BATCH)
+    torch.cuda.synchronize()
+    print("V2 levels (FCGF side 0): " + ", ".join(
+        f"s{s} {lv.coords.shape[0]} rows / {lv.skeys.shape[0]} valid"
+        for s, lv in sorted(graph.levels.items())))
+    model = ResUNetFatBNEXP_V2(1, 32, conv1_kernel_size=5)
+    rec = _records("K6", "K7")
+    run = _runner(rec)
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 17)
+    out = {}
+    for name in V2_EXTRA:
+        conv = getattr(model, name)
+        sp, cin, cout = conv.spec, conv.in_ch, conv.out_ch
+        lv_in, lv_out = graph.levels[sp.in_stride], graph.levels[sp.out_stride]
+        x = (torch.randn(lv_in.coords.shape[0], cin, generator=gen).to(dev)
+             * lv_in.mask[:, None])
+        g = (torch.randn(lv_out.coords.shape[0], cout, generator=gen).to(dev)
+             * lv_out.mask[:, None])
+        w = torch.randn(125, cin, cout, generator=gen).to(dev) / (
+            125 * cin) ** .5
+        cmap = graph.maps[sp.key]
+        fwd = (x, w, cmap.qkey, lv_in.skeys, lv_in.srow)
+        bwd = (x, g, w, cmap.rqkey, lv_out.skeys, lv_out.srow)
+        mm = 2 * cin * cout
+        r = {"key": sp.key, "cin": cin, "cout": cout}
+        for k, args, skeys, srow, keys, n_bytes in (
+                ("K6", fwd, lv_in.skeys, lv_in.srow, cmap.qkey,
+                 _nbytes(*fwd) + lv_out.coords.shape[0] * cout * 4),
+                ("K7", bwd, lv_out.skeys, lv_out.srow, cmap.rqkey,
+                 _nbytes(*bwd) + _nbytes(x, w))):
+            matched, executed = compacted_rows(lookup(skeys, srow, keys) >= 0)
+            _require(matched > 0, f"{k} at V2's {name}: matched rows")
+            executed = _counted_rows(dev, lambda: KERNELS[k][0](*args),
+                                     executed, f"{k} at V2's {name}")
+            flops = (1 if k == "K6" else 2) * mm * matched
+            _, err, ms, pms = run(k, args, 1, n_bytes=n_bytes, flops=flops,
+                                  outs=(lambda o: (o,)) if k == "K6"
+                                  else (lambda o: o))
+            bound = _bound(n_bytes, flops, "split_tf32")
+            r[k] = dict(rel_err=err, ms=ms, plain_ms=pms, bound_ms=bound[0],
+                        bound_by=bound[1], matched_rows=matched,
+                        executed_rows=executed,
+                        executed_over_matched=executed / matched)
+            if k == "K7":
+                r[k]["dw_staged_rows"], r[k]["dw_blocks"] = _counted_dw(
+                    dev, lambda: KERNELS["K7"][0](*bwd), matched,
+                    f"K7 at V2's {name} dW")
+            print(f"{k} at V2's {name} {sp.key} {cin}->{cout}: rel_err "
+                  f"{err:.3g} kernel {ms:.3f} ms plain {pms:.3f} ms bound "
+                  f"{bound[0]:.4f} ms ({bound[1]}); rows matched {matched} "
+                  f"executed {executed} ({executed / matched:.2f}x), on "
+                  f"{gpu}")
+        out[name] = r
+        del x, g, w
+    return out
+
+
+def zoo_step_checks(dev, gpu: str, name: str) -> dict:
+    """Phase 13b: phase 11's float32 FCGF step with ``name`` at its full
+    published widths: a kernel-path and a plain-path step from the same
+    weights and draws (loss within 1e-4, gradients within 0.1 of each
+    tensor's max), a step with every launch held to its plain version, the
+    launches exactly K2 2, K4 2, K3 2, K5 2 and K6 = K7 = 2 x its convs, 3
+    timed steps and the peak memory."""
+    import torch
+    from gcl_tpu_torch import infer
+    from gcl_tpu_torch.kernels import (KERNELS, launch_counts,
+                                       reset_launch_counts)
+    from gcl_tpu_torch.models import load_model
+    from gcl_tpu_torch.models.weights import gradients_by_name
+    from gcl_tpu_torch.train.steps import make_pair_train_step
+    from gcl_tpu_torch.train.trainer import step_config
+
+    config = _fcgf_config(model=name)
+    cfg = step_config(config, FCGF_BATCH * FCGF_NV)
+    cls = load_model(name)
+    batch = _fcgf_batch(dev)
+    draws = _fcgf_draws(dev, FCGF_BATCH * FCGF_NV)
+    n = ZOO[name]
+    want = {**{k: 0 for k in KERNELS}, "K2": 2, "K4": 2, "K3": 2, "K5": 2,
+            "K6": 2 * n, "K7": 2 * n}
+    runs, errs = {}, {}
+    for path, ctx in (("kernel", contextlib.nullcontext()),
+                      ("plain", plain_path()),
+                      ("checked", checked_path(errs))):
+        model = infer.serving_model(SEED, dev, cls)
+        opt, step = make_pair_train_step(model, cls.conv_specs(5), cfg,
+                                         "hardest_contrastive", dict(config))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        with ctx:
+            m = step(config.lr, *batch, draws=draws)
+            torch.cuda.synchronize()
+        runs[path] = dict(model=model, step=step, launches=launch_counts(),
+                          metrics={k: float(v) for k, v in m.items()},
+                          grads={k: g.clone() for k, g in
+                                 gradients_by_name(model).items()})
+        print(f"{name} FCGF step, {path}: {runs[path]['metrics']}")
+    for path in ("kernel", "checked"):
+        _require(runs[path]["launches"] == want,
+                 f"{name} launches per step {path}: "
+                 f"{ {k: v for k, v in runs[path]['launches'].items() if v} }")
+    _require(not any(runs["plain"]["launches"].values()),
+             "the plain path launches no kernel")
+    _require(sorted(errs) == sorted(k for k, v in want.items() if v),
+             f"{name}: every kernel checked inside the step, {errs}")
+    mk, mp = runs["kernel"]["metrics"], runs["plain"]["metrics"]
+    _require(abs(mk["loss"] - mp["loss"]) <= 1e-4 and mk["num_pos_pairs"]
+             == mp["num_pos_pairs"] > 0,
+             f"{name}: loss within 1e-4 and equal positives, {mk} {mp}")
+    worst = max(((float((g - runs["plain"]["grads"][k]).abs().max())
+                  / float(runs["plain"]["grads"][k].abs().max()), k)
+                 for k, g in runs["kernel"]["grads"].items()))
+    print(f"{name}: worst rel_err inside the checked step "
+          f"{ {k: float(f'{v:.3g}') for k, v in sorted(errs.items())} }; "
+          f"gradients kernel vs plain path: worst {worst[0]:.3g} of the "
+          f"tensor's max ({worst[1]})")
+    _require(worst[0] <= 0.1, f"{name}: gradients within 0.1, {worst}")
+    step = runs["kernel"]["step"]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        m = step(config.lr, *batch, generator=gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        _require(np.isfinite(float(m["loss"])), f"{name}: finite loss")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    dt = sorted(times)[1]
+    print(f"{name} FCGF train step ({FCGF_BATCH} pairs, float32): "
+          f"step_time_s {dt:.4f} (min {min(times):.4f}, max "
+          f"{max(times):.4f}), {FCGF_BATCH / dt:.3f} pairs/s, peak device "
+          f"memory {peak:.2f} GiB, on {gpu}")
+    return dict(launches=runs["kernel"]["launches"], step_time_s=dt,
+                pairs_per_s=FCGF_BATCH / dt, peak_gib=peak,
+                loss=mk["loss"], checked=errs)
+
+
 class _PhaseClock:
     """Prints each phase's wall seconds, and the run's so far."""
 
@@ -2548,6 +3089,19 @@ def main() -> None:
     fcgf_entry_checks()
     torch.cuda.empty_cache()
     clock("11d the training entry point")
+    # 12. data parallel on the one card: two gloo ranks, NCCL at world size
+    # 1, a data-parallel trainer epoch
+    dp = dp_checks(dev, gpu)
+    torch.cuda.empty_cache()
+    clock("12 data parallel")
+    # 13. the zoo: V2's extra convs, the FCGF step with V2 and ResUNetIN2E
+    v2_extra = zoo_kernel_checks(dev, gpu)
+    torch.cuda.empty_cache()
+    zoo = {}
+    for name in ZOO:
+        zoo[name] = zoo_step_checks(dev, gpu, name)
+        torch.cuda.empty_cache()
+    clock("13 the model zoo")
 
     conv, radius = "pallas_conv.py", "pallas_radius.py"
     table = [
@@ -2654,8 +3208,29 @@ def main() -> None:
             **({"fcgf_convs": r["convs"],
                 "fcgf_dx_executed_over_matched":
                     r["dx_executed_over_matched"]} if k == "K7" else {}))
+    # the launches of phases 12 and 13's paths, each driven with the counts
+    # set to 0 just before and read just after: one rank of each 2-rank
+    # data-parallel step, the FCGF step of V2 and of ResUNetIN2E
+    for i, (k, *_) in enumerate(table):
+        kernels[i].update(
+            dp_gcl_rank_launches=dp["gcl"]["launches"][k],
+            dp_fcgf_rank_launches=dp["fcgf"]["launches"][k],
+            v2_fcgf_launches=zoo["ResUNetFatBNEXP_V2"]["launches"][k],
+            in2e_fcgf_launches=zoo["ResUNetIN2E"]["launches"][k])
+    for i in (0, 1):  # K6, K7 at V2's conv1_extra and conv1_tr_extra
+        kernels[i]["float32"]["v2_extra"] = {
+            conv: {"key": r["key"], "cin": r["cin"], "cout": r["cout"],
+                   **r[table[i][0]]} for conv, r in v2_extra.items()}
     print(json.dumps({"fcgf_step": {
         k: v for k, v in fcgf.items() if "launches" not in k}}))
+    print(json.dumps({"data_parallel": {
+        "gcl_bf16_2_ranks_one_card": {k: v for k, v in dp["gcl"].items()
+                                      if k != "launches"},
+        "fcgf_2_ranks_one_card": {k: v for k, v in dp["fcgf"].items()
+                                  if k != "launches"},
+        "bench_step_time_s": dp["bench"]}, "zoo": {
+        name: {k: v for k, v in r.items() if k not in ("launches", "checked")}
+        for name, r in zoo.items()}}))
     print(json.dumps({"kernels": kernels}))
     print(f"{gpu}")
     print(json.dumps({"ok": True, "device": {

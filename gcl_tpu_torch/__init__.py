@@ -9,7 +9,10 @@ Subpackages mirror gcl_tpu's layout:
   core      keys, voxelizer, stride levels + query keys, sparse conv ops
   kernels   hand-written CUDA kernels (sources in csrc/), their ctypes
             loader, wrappers, plain PyTorch versions and launch counters
-  models    ResUNet2 / ResUNetFatBN as nn.Modules + the flax weight bridge
+  models    every model gcl_tpu registers (the ResUNet2 family with its
+            instance-norm and V2 variants, SimpleNets, heads, MLPs) as
+            nn.Modules + the flax weight bridge
+  parallel  data-parallel training, one process a card
   data      per-cloud voxelization, synthetic LiDAR scans
   reg       SE(3) helpers, weighted Kabsch, SC2-PCR
   infer     feature extractor + pair registration (the serving path)

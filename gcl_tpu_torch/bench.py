@@ -15,6 +15,14 @@ windowed cell top-k kernel, printed as ``"search": "grid_1.08"``) for the
 brute-force O(QT) one (``"search": "brute_force"``), the step this
 benchmark timed before the grid search was ported.
 
+``--data_parallel`` runs the step as root ``bench.py --data_parallel``
+does: over every visible card, one rank a card (gcl_tpu_torch.parallel;
+a single card is a process group of one, on NCCL), each rank with its
+slice of the batch, capacities and the loss's sample counts per shard,
+and the averaged ``num_valid_voxels`` scaled back to the whole batch. On
+one card it times what the data-parallel step costs over the plain one
+(``"data_parallel": world size`` in the output).
+
 ``--batch_size 8`` is 56 clouds a step, above the 31 that the implicit
 conv maps address: the step then builds explicit index tables with the
 join kernel and runs the index-table conv kernels, as the root bench.py
@@ -45,7 +53,10 @@ from .data.synthetic import synth_lidar
 from .losses.gcl import GCLLossConfig
 from .models.resunet import ResUNetFatBN
 from .models.weights import random_state_dict
-from .train.steps import StepConfig, make_gcl_train_step
+from .parallel import (backend_for, broadcast_module, check_divisible,
+                       make_parallel_train_step, run_ranks, shard_of)
+from .train.steps import (StepConfig, make_gcl_grad_fn, make_optimizer,
+                          make_train_step_from_grad)
 
 BASELINE_VOXELS_PER_SEC = 6.4e5
 N_CLOUDS = 7  # the centre scan + 6 neighbours
@@ -86,15 +97,22 @@ def bench_config(batch_size: int, nv_cap: int = 18432,
 
 def bench_step(model, batch_size: int, nv_cap: int = 18432,
                search: str = "grid", graph: str = "auto",
-               compute_dtype: torch.dtype = torch.bfloat16):
-    """(optimizer, step_fn) at the root bench.py's settings."""
+               compute_dtype: torch.dtype = torch.bfloat16,
+               data_parallel: bool = False):
+    """(optimizer, step_fn) at the root bench.py's settings for a (shard's)
+    batch of ``batch_size`` samples; ``data_parallel``: the grad_fn lifted
+    onto the ranks of the process group (parallel.make_parallel_train_step)."""
     specs, cfg = bench_config(batch_size, nv_cap, search, graph,
                               compute_dtype)
-    return make_gcl_train_step(
+    grad_fn = make_gcl_grad_fn(
         model, specs, cfg, GCLLossConfig(block_finest_gradient=False),
         "finest", max_pos_cluster=256 * batch_size,
         max_hn_samples=256 * batch_size, pos_weight=1.0, finest_weight=1.0,
         neg_weight=1.0)
+    if data_parallel:
+        return make_parallel_train_step(model, grad_fn, cfg)
+    opt = make_optimizer(model.parameters(), cfg)
+    return opt, make_train_step_from_grad(opt, grad_fn)
 
 
 def bench_batch(seed: int, batch_size: int, n_points: int, device):
@@ -180,12 +198,25 @@ def main(argv=None):
     ap.add_argument("--compute_dtype", default="bfloat16",
                     choices=sorted(COMPUTE_DTYPES))
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--data_parallel", action="store_true")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this benchmark times the card "
                          "(pass --device cpu for a functional run)")
+    if not args.data_parallel:
+        return run(0, 1, args)
+    n = torch.cuda.device_count() if args.device == "cuda" else 1
+    check_divisible(args.batch_size, n)
+    return run_ranks(run, n, (args,), backend_for(args.device), args.device)
+
+
+def run(rank: int, world_size: int, args):
+    """The benchmark of ``args`` on this rank (cuda:rank, or the CPU) of
+    ``world_size`` (1 without data parallelism); rank 0 prints."""
     on_card = args.device == "cuda"
-    dev = torch.device(args.device)
+    dev = torch.device("cuda", rank) if on_card else torch.device("cpu")
+    if on_card:
+        torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -193,15 +224,21 @@ def main(argv=None):
         if on_card:
             torch.cuda.synchronize()
 
+    per = shard_of(args.batch_size)[2]  # static capacities are PER SHARD
     model = bench_model(args.seed, dev)
-    _, step = bench_step(model, args.batch_size, args.nv, args.search,
-                         args.graph, COMPUTE_DTYPES[args.compute_dtype])
-    batch = bench_batch(args.seed, args.batch_size, args.points, dev)
+    if args.data_parallel:
+        broadcast_module(model)
+    _, step = bench_step(model, per, args.nv, args.search, args.graph,
+                         COMPUTE_DTYPES[args.compute_dtype],
+                         args.data_parallel)
+    batch = tuple(a[rank * per:(rank + 1) * per] for a in bench_batch(
+        args.seed, args.batch_size, args.points, dev))
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
     metrics = step(0.1, *batch, generator=gen)  # warm-up (builds kernels)
     sync()
-    n_vox = float(metrics["num_valid_voxels"])
+    # averaged over the ranks when data-parallel: scaled to the batch
+    n_vox = float(metrics["num_valid_voxels"]) * world_size
     times = []
     for _ in range(args.reps):
         t0 = time.perf_counter()
@@ -213,8 +250,10 @@ def main(argv=None):
     if not bool(torch.isfinite(metrics["loss"])):
         raise RuntimeError(f"non-finite loss {metrics['loss']}")
 
-    if args.profile and on_card:
+    if args.profile and on_card and rank == 0:
         print(json.dumps(profile_step(step, batch, gen)))
+    if rank != 0:
+        return None
 
     voxels_per_sec = n_vox / dt
     out = {
@@ -230,13 +269,15 @@ def main(argv=None):
         "compute_dtype": args.compute_dtype,
         "search": (f"grid_{SEARCH_CELL}" if args.search == "grid"
                    else "brute_force"),
-        "graph": graph_route(args.graph, args.batch_size * N_CLOUDS),
+        "graph": graph_route(args.graph, per * N_CLOUDS),
+        "data_parallel": world_size if args.data_parallel else 0,
     }
     if on_card:
         from .infer import gpu_identity
         out["gpu"] = gpu_identity()
         out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-    print(json.dumps(out))
+    print(json.dumps(out), flush=True)
+    return out
 
 
 if __name__ == "__main__":

@@ -7,6 +7,12 @@ into lists. ``DataLoader`` keeps gcl_tpu's order and batching: the same
 index batches (a shuffle by np.random.RandomState(epoch), the last
 short batch dropped or kept), handed to torch.utils.data.DataLoader as
 its batch sampler, with worker processes where asked for.
+
+Data-parallel ranks share the train loader's order: every rank shuffles
+with the same seed and keeps its contiguous slice of each global batch,
+rank r of n the samples [r * B / n, (r + 1) * B / n), as gcl_tpu's
+loader does for its hosts (and as its mesh lays a global batch over its
+devices).
 """
 from __future__ import annotations
 
@@ -41,15 +47,23 @@ class DataLoader:
     """Iterable over collated batches in gcl_tpu's order. num_workers=0
     reads in-process; with workers, torch.utils.data's processes (started
     by spawn, so the dataset must pickle) read the samples
-    and the batches come in order."""
+    and the batches come in order.
+
+    ``shard_id`` / ``num_shards``: this rank's slice of every global batch
+    of ``batch_size`` samples (which num_shards must divide); the loader's
+    length and ``batch_size`` stay the global ones."""
 
     def __init__(self, dataset, batch_size=1, shuffle=False, num_workers=0,
-                 drop_last=False):
+                 drop_last=False, shard_id=0, num_shards=1):
+        if batch_size % num_shards:
+            raise ValueError(f"batch_size {batch_size} not divisible by "
+                             f"{num_shards} shards")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.num_workers = num_workers
         self.drop_last = drop_last
+        self.shard_id, self.num_shards = shard_id, num_shards
         self._epoch = 0
 
     def __len__(self):
@@ -68,6 +82,10 @@ class DataLoader:
                    for i in range(0, n, self.batch_size)]
         if self.drop_last:
             batches = [b for b in batches if len(b) == self.batch_size]
+        if self.num_shards > 1:
+            per = self.batch_size // self.num_shards
+            lo = self.shard_id * per
+            batches = [b[lo:lo + per] for b in batches if b[lo:lo + per]]
         return batches
 
     def __iter__(self):
@@ -79,12 +97,14 @@ class DataLoader:
             multiprocessing_context="spawn" if self.num_workers else None))
 
 
-def make_data_loader(config, phase, batch_size, num_threads=0, shuffle=None):
+def make_data_loader(config, phase, batch_size, num_threads=0, shuffle=None,
+                     shard=(0, 1)):
     """gcl_tpu's loader dispatch: the train phase's dataset from
     config.train_dataset (a colocation dataset for GCL, a pair dataset for
     FCGF), val and test from config.dataset; augmentation flags from the
     config in the train phase only; the train phase shuffled with its last
-    short batch dropped."""
+    short batch dropped. ``shard`` = (rank, world size): a data-parallel
+    rank's slice of each train batch (other phases are not sharded)."""
     assert phase in ("train", "val", "test")
     if shuffle is None:
         shuffle = phase != "test"
@@ -101,5 +121,7 @@ def make_data_loader(config, phase, batch_size, num_threads=0, shuffle=None):
         random_rotation=train and config.use_random_rotation,
         random_scale=train and config.use_random_scale,
         manual_seed=not train, config=config)
+    shard_id, num_shards = shard if train else (0, 1)
     return DataLoader(dataset, batch_size=batch_size, shuffle=shuffle,
-                      num_workers=num_threads, drop_last=train)
+                      num_workers=num_threads, drop_last=train,
+                      shard_id=shard_id, num_shards=num_shards)

@@ -16,13 +16,15 @@ jitter's noise is cast to the features' type.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
 
 from ..core.kernel_maps import ConvSpec
-from ..core.sparse_ops import (draw_input_eps, masked_mean_var, sparse_conv,
-                               sparse_conv_c1z, sparse_conv_c1z_exact_jitter,
+from ..core.sparse_ops import (draw_input_eps, masked_instance_mean_var,
+                               masked_mean_var, sparse_conv, sparse_conv_c1z,
+                               sparse_conv_c1z_exact_jitter,
                                sparse_conv_c1z_jittered, sparse_conv_implicit)
 from ..core.types import SparseGraph, map_key
 
@@ -143,7 +145,10 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                batch_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``batch_idx`` (the rows' cloud ids) is the norms' common
+        signature; batch norm does not read it."""
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
             mean, var, cnt = masked_mean_var(xf, mask)
@@ -158,9 +163,34 @@ class MaskedBatchNorm(nn.Module):
         return ((xf - mean) * inv + self.bias).to(x.dtype)
 
 
-def get_norm(norm_type: str, features: int,
-             bn_momentum: float = 0.1) -> nn.Module:
-    """'BN' -> MaskedBatchNorm (instance norm variants are not ported)."""
+class MaskedInstanceNorm(nn.Module):
+    """Per-cloud normalization (ME.MinkowskiInstanceNorm) over the valid
+    rows of each cloud, in train and eval mode alike: no parameters, no
+    running statistics. Clouds are told apart by ``batch_idx`` (a level's
+    ``coords[:, 0]``); ids from ``num_items`` on share the extra segment
+    (core.sparse_ops.masked_instance_mean_var). Statistics in float32; the
+    output in x's type."""
+
+    def __init__(self, features: int, num_items: int = 64,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.features, self.num_items, self.eps = features, num_items, eps
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                batch_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if batch_idx is None:
+            raise ValueError("instance norm needs the rows' cloud ids")
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean, var = masked_instance_mean_var(xf, mask, batch_idx,
+                                             self.num_items)
+        return ((xf - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
+
+
+def get_norm(norm_type: str, features: int, bn_momentum: float = 0.1,
+             num_items: int = 64) -> nn.Module:
+    """'BN' -> MaskedBatchNorm, 'IN' -> MaskedInstanceNorm."""
     if norm_type == "BN":
         return MaskedBatchNorm(features, momentum=bn_momentum)
+    if norm_type == "IN":
+        return MaskedInstanceNorm(features, num_items=num_items)
     raise ValueError(f"Type {norm_type}, not defined")

@@ -5,10 +5,13 @@ flax ``params`` and ``batch_stats`` arrive as nested dicts of numpy arrays
 parameters and buffers like the flax modules, and both keep conv weights
 as [K, Cin, Cout] in kernel_offsets order, so the mapping is by path alone
 (``conv1/kernel`` <-> ``conv1.kernel``, ``block1/norm1/mean`` <->
-``block1.norm1.mean``) and an identity on values. The same paths name a
-flax-shaped tree of gradients and an optax ``trace`` state (the momentum
-tree), so tests compare ``p.grad`` and the optimizer's momentum buffers
-with gcl_tpu's by name.
+``block1.norm1.mean``) and an identity on values, with one exception: the
+dense layers of the MLPs (modules named ``dense*``) are nn.Linear, whose
+``weight`` [out, in] is the flax Dense ``kernel`` [in, out] transposed.
+Instance norm has no state. The same paths name a flax-shaped tree of
+gradients and an optax ``trace`` state (the momentum tree), so tests
+compare ``p.grad`` and the optimizer's momentum buffers with gcl_tpu's by
+name.
 """
 from __future__ import annotations
 
@@ -34,12 +37,22 @@ def flatten_tree(tree: dict, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+def _is_dense(path) -> bool:
+    """True for a leaf of an MLP's dense layer (a module named dense*)."""
+    return len(path) > 0 and path[-1].startswith("dense")
+
+
 def flax_to_state_dict(params: dict,
                        batch_stats: dict) -> Dict[str, torch.Tensor]:
     """Nested flax params + batch_stats -> the port's state_dict."""
     flat = {**flatten_tree(params), **flatten_tree(batch_stats)}
-    return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in
-            flat.items()}
+    out = {}
+    for key, val in flat.items():
+        *path, leaf = key.split(".")
+        if leaf == "kernel" and _is_dense(path):
+            key, val = ".".join(path + ["weight"]), val.T
+        out[key] = torch.from_numpy(np.array(val, copy=True))
+    return out
 
 
 def state_dict_to_flax(state: Dict[str, torch.Tensor]) -> Tuple[dict, dict]:
@@ -48,10 +61,13 @@ def state_dict_to_flax(state: Dict[str, torch.Tensor]) -> Tuple[dict, dict]:
     stats: dict = {}
     for key, val in state.items():
         *path, leaf = key.split(".")
+        val = val.detach().cpu().numpy()
+        if leaf == "weight" and _is_dense(path):
+            leaf, val = "kernel", np.ascontiguousarray(val.T)
         node = stats if leaf in _STATS else params
         for p in path:
             node = node.setdefault(p, {})
-        node[leaf] = val.detach().cpu().numpy()
+        node[leaf] = val
     return params, stats
 
 
@@ -85,6 +101,9 @@ def random_state_dict(model: nn.Module,
         leaf = key.rsplit(".", 1)[-1]
         if leaf == "kernel":
             bound = 1.0 / np.sqrt(np.prod(shape[:-1]))
+            v = rng.uniform(-bound, bound, shape)
+        elif leaf == "weight":  # nn.Linear, [out, in]
+            bound = 1.0 / np.sqrt(shape[1])
             v = rng.uniform(-bound, bound, shape)
         elif leaf == "scale":
             v = 1.0 + 0.2 * rng.randn(*shape)

@@ -8,6 +8,16 @@ then .train().
 takes the flags of gcl_tpu_torch/config.py (scripts/train_fcgf_kitti.sh's
 and scripts/train_gcl_kitti.sh's among them) and ``--device {cuda,cpu}``:
 the CUDA card by default, which raises without one.
+
+Data parallelism, one process a card (gcl_tpu_torch.parallel):
+``--data_parallel true`` (or ``auto`` over more than one card with a
+batch that divides) starts one rank a visible card, or ``--num_devices``
+of them (on the CPU, ``--num_devices`` gloo ranks); a single rank runs in
+this process. Under torchrun, ``--distributed_init true`` joins the group
+torchrun describes instead (every machine runs the command):
+
+    torchrun --nnodes 2 --nproc_per_node 8 --rdzv_endpoint HOST:PORT \
+        -m gcl_tpu_torch.train --distributed_init true ...
 """
 from __future__ import annotations
 
@@ -19,20 +29,58 @@ import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import Config, get_config
 from ..data.loader import make_data_loader
 from ..eval_kitti import device_of
+from ..parallel import (backend_for, build_kernels_once,
+                        data_parallel_ranks, init_from_env, rank_device,
+                        run_ranks, world)
 from .trainer import get_trainer
 
 
 def main(config, device: str = "cuda"):
-    """Build the loaders and the trainer of ``config`` on ``device`` and
-    train; returns the trainer."""
-    device_of(device)  # no card for 'cuda': raise before loading data
+    """Train ``config`` on ``device``: in this process, or on the ranks of
+    a data-parallel run (gcl_tpu_torch.parallel.launch). Returns the
+    trainer of this process (rank 0's for a single data-parallel rank),
+    or None where spawned ranks trained."""
+    dev = device_of(device)  # no card for 'cuda': raise before loading data
+    if config.distributed_init:
+        rank_dev = init_from_env(dev.type)
+        try:
+            if dev.type == "cuda":
+                build_kernels_once()
+            return train_on(config, rank_dev)
+        finally:
+            dist.destroy_process_group()
+    n_ranks = data_parallel_ranks(config, dev.type, config.batch_size)
+    if not n_ranks:
+        return train_on(config, dev)
+    return run_ranks(_train_rank, n_ranks, (config, dev.type),
+                     backend_for(dev.type), dev.type)
+
+
+def _train_rank(rank: int, world_size: int, config, device_type: str):
+    """One data-parallel rank: cuda:rank (or the CPU), its loader slice.
+    A spawned rank logs to its standard output as the entry point does."""
+    if world_size > 1:
+        _log_to_stdout()
+    np.random.seed(0)
+    torch.manual_seed(0)
+    dev = rank_device(device_type, rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return train_on(config, dev)
+
+
+def train_on(config, dev: torch.device):
+    """Build the loaders and the trainer of ``config`` on ``dev`` and
+    train; returns the trainer. Inside a process group the train loader
+    feeds this rank's slice of each batch."""
     train_loader = make_data_loader(
         config, config.train_phase, config.batch_size,
-        num_threads=config.train_num_thread)
+        num_threads=config.train_num_thread, shard=world())
     val_loader = None
     if config.test_valid:
         val_loader = make_data_loader(
@@ -40,8 +88,10 @@ def main(config, device: str = "cuda"):
             num_threads=config.val_num_thread)
     trainer = get_trainer(config.trainer)(
         config=config, data_loader=train_loader,
-        val_data_loader=val_loader, device=device)
+        val_data_loader=val_loader, device=dev)
     trainer.train()
+    if trainer.writer is not None:
+        trainer.writer.close()
     return trainer
 
 
@@ -65,10 +115,14 @@ def parse_config(argv=None):
     return Config(dconfig), args.device
 
 
-if __name__ == "__main__":
+def _log_to_stdout():
     logging.basicConfig(format="%(asctime)s %(message)s",
                         datefmt="%m/%d %H:%M:%S", level=logging.INFO,
                         handlers=[logging.StreamHandler(sys.stdout)])
+
+
+if __name__ == "__main__":
+    _log_to_stdout()
     np.random.seed(0)
     torch.manual_seed(0)  # the model's initial weights, as gcl_tpu's key 0
     config, device = parse_config()

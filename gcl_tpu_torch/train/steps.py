@@ -284,13 +284,13 @@ def make_gcl_train_step(model: torch.nn.Module,
 def make_train_step_from_grad(opt: torch.optim.Optimizer,
                               grad_fn: Callable,
                               stage: str = "gcl") -> Callable:
-    """grad_fn(*batch, generator, draws) -> metrics, which leaves the
-    gradients in ``.grad``, as a one-SGD-step-per-batch step function:
+    """grad_fn(*batch, generator=None, draws=None) -> metrics, which leaves
+    the gradients in ``.grad``, as a one-SGD-step-per-batch step function:
     step_fn(lr, *batch, generator=None, draws=None) -> metrics. The update
     is the profiler range ``{stage}/sgd``."""
 
     def step_fn(lr: float, *batch, generator=None, draws=None):
-        metrics = grad_fn(*batch, generator, draws)
+        metrics = grad_fn(*batch, generator=generator, draws=draws)
         for group in opt.param_groups:
             group["lr"] = lr
         with record_function(f"{stage}/sgd"):
@@ -478,7 +478,7 @@ class AccumStepper:
         return self._acc
 
     def __call__(self, lr: float, *batch, generator=None, draws=None):
-        metrics = self.grad_fn(*batch, generator, draws)
+        metrics = self.grad_fn(*batch, generator=generator, draws=draws)
         with torch.no_grad():
             if self._acc is None:
                 self._acc = [torch.zeros_like(p, dtype=torch.float32)

@@ -8,10 +8,18 @@ package's checkpoint; ``resume`` restores the epoch, the best validation
 value and the SGD momentum buffers from the port's own checkpoint
 (``finetune_restart``: the weights only).
 
-The trainers run on one device, ``device`` ('cuda' by default; 'cpu' when
-asked for). Two of gcl_tpu's settings have no counterpart and raise:
-data_parallel over more than one device (ROADMAP Queue 1 item 4) and the
-Pallas conv tuning knobs --conv_* (TPU only, not ported).
+A trainer runs on one device, ``device`` ('cuda' by default; 'cpu' when
+asked for). Built inside a process group (gcl_tpu_torch.parallel.launch:
+the entry point starts one rank a card), it is one rank of a
+data-parallel run, as gcl_tpu's trainer over its device mesh: its loader
+feeds its slice of each global batch, capacities and the loss's sample
+counts are per shard, the lifted grad_fn averages the gradients, the BN
+running statistics and the metrics over the ranks, and the parameters
+start as rank 0's. Every rank runs the validation (the parameters are
+replicated and its draws fixed, so the ranks agree); rank 0 alone writes
+config.json, the checkpoints and the scalars.
+gcl_tpu's Pallas conv tuning knobs --conv_* (TPU only) have no
+counterpart and raise.
 """
 from __future__ import annotations
 
@@ -22,11 +30,14 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.kernel_maps import default_level_caps
 from ..eval_kitti import device_of
 from ..losses.gcl import GCLLossConfig
 from ..models import load_model
+from ..parallel import (broadcast_module, data_parallel_ranks,
+                        make_global_grad_fn, shard_of)
 from ..utils.timer import AverageMeter, Timer
 from . import checkpoint as ckpt
 from .steps import (AccumStepper, StepConfig, make_dist_err_step,
@@ -39,7 +50,7 @@ _CONV_KNOBS = {"conv_tile": 256, "conv_win": 384, "conv_win_down": 768,
                "conv_pair": 1, "conv_fold": False, "conv_stack": 1}
 
 
-def _refuse_unported(config, dev: torch.device, batch_size: int) -> None:
+def _refuse_unported(config) -> None:
     """Raise on the settings gcl_tpu honours and the port does not."""
     set_knobs = sorted(k for k, v in _CONV_KNOBS.items()
                        if getattr(config, k, None) not in (None, v))
@@ -47,16 +58,6 @@ def _refuse_unported(config, dev: torch.device, batch_size: int) -> None:
         raise NotImplementedError(
             f"{set_knobs}: gcl_tpu's Pallas conv tuning knobs have no "
             f"counterpart in gcl_tpu_torch (ROADMAP 'Not to port')")
-    dp = str(getattr(config, "data_parallel", "false")).lower()
-    n_avail = torch.cuda.device_count() if dev.type == "cuda" else 1
-    n_req = getattr(config, "num_devices", 0) or n_avail
-    n_dev = max(1, min(n_req, n_avail))
-    if ((dp == "true" and n_req > 1)
-            or (dp == "auto" and n_dev > 1 and batch_size % n_dev == 0)):
-        raise NotImplementedError(
-            f"data_parallel {dp!r} over {n_req} devices: data parallelism "
-            f"is not ported yet (ROADMAP Queue 1 item 4); pass "
-            f"--num_devices 1 or --data_parallel false")
 
 
 def _search_cell(config) -> Optional[float]:
@@ -114,13 +115,33 @@ class AlignmentTrainer:
         self.data_loader = data_loader
         self.val_data_loader = val_data_loader
         self.test_valid = val_data_loader is not None
-        _refuse_unported(config, self.device, self.batch_size)
+        _refuse_unported(config)
+        # a trainer inside a process group is one rank of a data-parallel
+        # run; static capacities below are PER SHARD
+        self.data_parallel = dist.is_initialized()
+        self.rank, self.n_shards, self.shard_batch = shard_of(
+            self.batch_size)
+        dp = str(getattr(config, "data_parallel", "false")).lower()
+        if self.data_parallel and dp == "false":
+            raise RuntimeError(
+                "--data_parallel false inside a process group: a trainer "
+                "there is one rank of a data-parallel run")
+        if not self.data_parallel and data_parallel_ranks(
+                config, self.device.type, self.batch_size):
+            raise RuntimeError(
+                "data_parallel: build the trainer inside the ranks of "
+                "gcl_tpu_torch.parallel.launch (python -m "
+                "gcl_tpu_torch.train starts them)")
+        if self.data_parallel:
+            logging.info(f"Data-parallel rank {self.rank} of "
+                         f"{self.n_shards} ({self.shard_batch} samples a "
+                         f"rank) on {self.device}")
 
         self.clouds_per_sample = self._clouds_per_sample()
         self.specs = model_cls.conv_specs(config.conv1_kernel_size)
         self.step_cfg = step_config(config, config.voxel_capacity
                                     * self.clouds_per_sample
-                                    * self.batch_size)
+                                    * self.shard_batch)
         # validation runs on pair batches of val_batch_size
         self.val_step_cfg = step_config(
             config, config.voxel_capacity * (val_data_loader.batch_size
@@ -134,9 +155,12 @@ class AlignmentTrainer:
         self.generator = torch.Generator(device=self.device).manual_seed(0)
         self._build_steps()
 
-        os.makedirs(self.checkpoint_dir, exist_ok=True)
-        ckpt.dump_config_json(self.checkpoint_dir, config)
-        self.writer = SummaryWriter(config.out_dir)
+        # rank 0 writes; N ranks writing one file would race
+        self.writer = None
+        if self.rank == 0:
+            os.makedirs(self.checkpoint_dir, exist_ok=True)
+            ckpt.dump_config_json(self.checkpoint_dir, config)
+            self.writer = SummaryWriter(config.out_dir)
 
         if config.weights:
             self.model.load_state_dict(
@@ -163,6 +187,8 @@ class AlignmentTrainer:
                     self.best_val = state["best_val"]
                     self.best_val_epoch = state["best_val_epoch"]
                     self.best_val_metric = state["best_val_metric"]
+        if self.data_parallel:
+            broadcast_module(self.model)
 
     # ------------------------------------------------------------------
     def _clouds_per_sample(self):
@@ -172,9 +198,12 @@ class AlignmentTrainer:
         raise NotImplementedError
 
     def _steps_from_grad(self, grad_fn: Callable, stage: str):
-        """(optimizer, step_fn): one SGD step a batch, or with iter_size >
-        1 the gradients of loss / iter_size summed over iter_size
-        micro-batches and one step a window (AccumStepper)."""
+        """(optimizer, step_fn): the per-shard grad_fn lifted onto the ranks
+        in a data-parallel run, then one SGD step a batch, or with
+        iter_size > 1 the gradients of loss / iter_size summed over
+        iter_size micro-batches and one step a window (AccumStepper)."""
+        if self.data_parallel:
+            grad_fn = make_global_grad_fn(grad_fn, self.model)
         opt = make_optimizer(self.model.parameters(), self.step_cfg)
         if self.iter_size > 1:
             return opt, AccumStepper(opt, grad_fn, self.iter_size, stage)
@@ -209,16 +238,20 @@ class AlignmentTrainer:
         for epoch in range(self.start_epoch, self.max_epoch + 1):
             lr = self.lr_at(epoch)
             logging.info(f" Epoch: {epoch}, LR: {lr}")
-            if profile_dir and epoch == self.start_epoch:
+            if profile_dir and epoch == self.start_epoch and self.rank == 0:
                 self._profiled_epoch(epoch, profile_dir)
             else:
                 self._train_epoch(epoch)
             self._save_checkpoint(epoch)
 
             if self.test_valid and epoch % self.val_epoch_freq == 0:
+                # every rank validates its replica of the parameters with
+                # the same draws, so no rank waits in a collective while
+                # another validates; rank 0 alone writes
                 val_dict = self._valid_epoch()
-                for k, v in val_dict.items():
-                    self.writer.add_scalar(f"val/{k}", v, epoch)
+                if self.writer is not None:
+                    for k, v in val_dict.items():
+                        self.writer.add_scalar(f"val/{k}", v, epoch)
                 if self.best_val < val_dict[self.best_val_metric]:
                     logging.info(
                         f"Saving the best val model with "
@@ -259,6 +292,8 @@ class AlignmentTrainer:
         prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
 
     def _save_checkpoint(self, epoch, filename="checkpoint"):
+        if self.rank != 0:
+            return
         path = os.path.join(self.checkpoint_dir, f"{filename}.pth")
         logging.info(f"Saving checkpoint: {path} ...")
         ckpt.save_checkpoint(
@@ -355,7 +390,8 @@ class AlignmentTrainer:
             total_timer.toc()
             data_meter.update(data_time)
 
-            if curr_iter % (config.stat_freq * self.iter_size) == 0:
+            if (curr_iter % (config.stat_freq * self.iter_size) == 0
+                    and self.rank == 0):
                 step = start_iter + curr_iter // self.iter_size
                 for tag in ("loss", "pos_loss", "neg_loss"):
                     self.writer.add_scalar(f"train/{tag}", metrics[tag],
@@ -376,7 +412,8 @@ class ContrastiveLossTrainer(AlignmentTrainer):
 
     def _build_steps(self):
         cfg = dict(self.config)
-        cfg["batch_size"] = self.batch_size  # the loss counts scale by it
+        # the loss's sample counts scale by the (shard's) batch
+        cfg["batch_size"] = self.shard_batch
         grad_fn = make_pair_grad_fn(self.model, self.specs, self.step_cfg,
                                     self.trainer_kind, cfg)
         self.opt, self.step_fn = self._steps_from_grad(grad_fn, "fcgf")
@@ -436,8 +473,8 @@ class FinestContrastiveLossTrainer(AlignmentTrainer):
             safe_radius=cfg.safe_radius)
         grad_fn = make_gcl_grad_fn(
             self.model, self.specs, self.step_cfg, loss_cfg, self.loss_kind,
-            max_pos_cluster=cfg.num_pos_per_batch * self.batch_size,
-            max_hn_samples=cfg.num_hn_samples_per_batch * self.batch_size,
+            max_pos_cluster=cfg.num_pos_per_batch * self.shard_batch,
+            max_hn_samples=cfg.num_hn_samples_per_batch * self.shard_batch,
             pos_weight=cfg.pos_weight, finest_weight=cfg.finest_weight,
             neg_weight=cfg.neg_weight, jitter=cfg.jitter_feats)
         self.opt, self.step_fn = self._steps_from_grad(grad_fn, "gcl")

@@ -114,6 +114,51 @@ def jax_map_refs(graph, specs):
     return jax.tree_util.tree_map(np.asarray, refs(graph.levels))
 
 
+def voxelized(seed, n_clouds, nv, n_points=700, scale=1.0):
+    """Level-0 (coords, mask) of clouds(seed, ...) spread ``scale`` times
+    wider, voxelized as the train step does."""
+    from gcl_tpu_torch.data.device_pipeline import voxelize_per_cloud
+
+    pts, pmask = clouds(seed, n_clouds, n_points)
+    pts = (pts * scale).astype(np.float32)
+    vox = voxelize_per_cloud(torch.from_numpy(pts), torch.from_numpy(pmask),
+                             VOXEL, nv)
+    flat = vox.flatten()
+    return to_np(flat.coords), to_np(flat.mask)
+
+
+def check_graph(coords, mask, specs, caps, n_clouds):
+    """Levels and every forward map of the port equal gcl_tpu's: level
+    coords / masks row for row, query keys as _build_fused_maps packs
+    them, and the resolved rows against _build_kmap and the sort-join
+    maps."""
+    from gcl_tpu_torch.core.coords import lookup
+    from gcl_tpu_torch.core.kernel_maps import build_graph
+
+    g = build_graph(torch.from_numpy(coords), torch.from_numpy(mask), specs,
+                    caps, n_clouds)
+    gj = jax_graph(coords, mask, specs, caps, n_clouds)
+    assert sorted(g.levels) == sorted(gj.levels)
+    for s, lv in g.levels.items():
+        np.testing.assert_array_equal(to_np(lv.coords),
+                                      np.asarray(gj.levels[s].coords))
+        np.testing.assert_array_equal(to_np(lv.mask),
+                                      np.asarray(gj.levels[s].mask))
+        assert (np.diff(to_np(lv.skeys).astype(np.int64)) > 0).all()
+    refs = jax_map_refs(gj, specs)
+    for sp in specs:
+        if sp.is_identity_map:
+            continue
+        qk, ref = refs[sp.key]
+        cmap = g.maps[sp.key]
+        np.testing.assert_array_equal(to_np(cmap.qkey), qk)
+        lv = g.levels[sp.in_stride]
+        rows = to_np(lookup(lv.skeys, lv.srow, cmap.qkey))
+        np.testing.assert_array_equal(rows, ref)
+        np.testing.assert_array_equal(rows, np.asarray(gj.kmaps[sp.key]))
+    return g, gj
+
+
 def assert_close_to_max(got, ref, rel: float, what: str = ""):
     """max|got - ref| <= rel * max|ref|, on arrays of one shape."""
     got, ref = np.asarray(got), np.asarray(ref)

@@ -19,8 +19,8 @@ from gcl_tpu_torch.core.types import INVALID_BATCH
 from gcl_tpu_torch.core.voxelize import representative_xyz, voxelize_points
 from gcl_tpu_torch.data.device_pipeline import voxelize_per_cloud
 
-from _torch_parity import (VOXEL, clouds, fatbn_specs, jax_graph,
-                           jax_map_refs, strides_of, to_np)
+from _torch_parity import (VOXEL, check_graph, clouds, fatbn_specs,
+                           strides_of, to_np, voxelized)
 
 
 def _rand_coords(rng, n, n_clouds, stride=1, lim=600):
@@ -86,49 +86,12 @@ def test_voxelize_points_multi_cloud_exact():
         np.asarray(j_rep_xyz(jnp.asarray(pts), rj, bj.mask)))
 
 
-def _voxelized(seed, n_clouds, nv, n_points=700):
-    pts, pmask = clouds(seed, n_clouds, n_points)
-    vox = voxelize_per_cloud(torch.from_numpy(pts), torch.from_numpy(pmask),
-                             VOXEL, nv)
-    flat = vox.flatten()
-    return to_np(flat.coords), to_np(flat.mask)
-
-
-def _check_graph(coords, mask, specs, caps, n_clouds):
-    """Levels and every forward map of the port equal gcl_tpu's: level
-    coords / masks row for row, query keys as _build_fused_maps packs
-    them, and the resolved rows against _build_kmap and the sort-join
-    maps."""
-    g = build_graph(torch.from_numpy(coords), torch.from_numpy(mask), specs,
-                    caps, n_clouds)
-    gj = jax_graph(coords, mask, specs, caps, n_clouds)
-    assert sorted(g.levels) == sorted(gj.levels)
-    for s, lv in g.levels.items():
-        np.testing.assert_array_equal(to_np(lv.coords),
-                                      np.asarray(gj.levels[s].coords))
-        np.testing.assert_array_equal(to_np(lv.mask),
-                                      np.asarray(gj.levels[s].mask))
-        assert (np.diff(to_np(lv.skeys).astype(np.int64)) > 0).all()
-    refs = jax_map_refs(gj, specs)
-    for sp in specs:
-        if sp.is_identity_map:
-            continue
-        qk, ref = refs[sp.key]
-        cmap = g.maps[sp.key]
-        np.testing.assert_array_equal(to_np(cmap.qkey), qk)
-        lv = g.levels[sp.in_stride]
-        rows = to_np(tc.lookup(lv.skeys, lv.srow, cmap.qkey))
-        np.testing.assert_array_equal(rows, ref)
-        np.testing.assert_array_equal(rows, np.asarray(gj.kmaps[sp.key]))
-    return g, gj
-
-
 def test_graph_fatbn_exact():
     specs = fatbn_specs()
     nv = 512
-    coords, mask = _voxelized(2, 2, nv)
+    coords, mask = voxelized(2, 2, nv)
     caps = jkm.default_level_caps(nv, strides_of(specs), 0.7)
-    g, gj = _check_graph(coords, mask, specs, caps, 2)
+    g, gj = check_graph(coords, mask, specs, caps, 2)
     aux = to_np(g.maps["s1->s1/k5d1"].c1z)
     np.testing.assert_array_equal(aux, np.asarray(jkm._c1z_aux(
         gj.levels[1])))
@@ -146,10 +109,10 @@ def test_graph_exp_exact(seed, n_clouds):
     specs = ResUNetFatBNEXP.conv_specs(5)
     assert strides_of(specs) == [1, 3, 9, 27]
     nv = 448
-    coords, mask = _voxelized(seed, n_clouds, nv, n_points=1500)
+    coords, mask = voxelized(seed, n_clouds, nv, n_points=1500)
     caps = jkm.default_level_caps(nv, strides_of(specs), 0.6)
     assert tkm.default_level_caps(nv, strides_of(specs), 0.6) == caps
-    g, _ = _check_graph(coords, mask, specs, caps, n_clouds)
+    g, _ = check_graph(coords, mask, specs, caps, n_clouds)
     assert (to_np(g.levels[27].coords)[to_np(g.levels[27].mask), 1:]
             < 0).any()
     for sp in specs:
@@ -167,9 +130,9 @@ def test_graph_17_plus_clouds_exact():
     specs = [ConvSpec("block1", 1, 1, 3), ConvSpec("conv2", 1, 2, 3),
              ConvSpec("block2", 2, 2, 3), ConvSpec("conv2_tr", 2, 1, 3)]
     nv = 96
-    coords, mask = _voxelized(3, 18, nv, n_points=150)
+    coords, mask = voxelized(3, 18, nv, n_points=150)
     caps = {2: nv * 4}
-    g, _ = _check_graph(coords, mask, specs, caps, 18)
+    g, _ = check_graph(coords, mask, specs, caps, 18)
     assert (to_np(g.levels[1].skeys) < 0).any()
 
 
@@ -192,14 +155,14 @@ def test_graph_upmap_scale_exact():
     mask[:n] = True
     specs = [ConvSpec("d", 1, 2, 3), ConvSpec("u", 2, 1, 3),
              ConvSpec("s", 2, 2, 3)]
-    _check_graph(coords, mask, specs, {1: cap, 2: cap}, 1)
+    check_graph(coords, mask, specs, {1: cap, 2: cap}, 1)
 
 
 def test_more_than_31_clouds_raises():
     """(Kept under its first name.) Above 31 clouds the implicit route
     raises, since its packed keys fold cloud ids mod 31; 'auto' builds
     index tables over unblocked levels instead."""
-    coords, mask = _voxelized(4, 2, 64)
+    coords, mask = voxelized(4, 2, 64)
     args = (torch.from_numpy(coords), torch.from_numpy(mask), fatbn_specs(),
             {2: 64, 4: 64, 8: 64})
     with pytest.raises(ValueError, match="31"):

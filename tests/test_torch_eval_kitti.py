@@ -255,8 +255,13 @@ def test_flags_and_device(run):
 
 
 def test_load_model_names_the_models_not_ported():
-    from gcl_tpu_torch.models import ResUNetFatBNEXP, load_model
+    """(Kept under its first name.) load_model answers gcl_tpu's names
+    with the port's classes, ResUNetBN2C among them; an unknown name
+    raises."""
+    from gcl_tpu_torch.models import load_model
+    from gcl_tpu_torch.models.resunet import ResUNetBN2C, ResUNetFatBNEXP
     assert load_model("ResUNetFatBNEXP") is ResUNetFatBNEXP
     assert gcl_tpu.models.load_model("ResUNetBN2C") is not None
-    with pytest.raises(ValueError, match="Queue 1 item 5"):
-        load_model("ResUNetBN2C")
+    assert load_model("ResUNetBN2C") is ResUNetBN2C
+    with pytest.raises(ValueError, match="not registered"):
+        load_model("NoSuchNet")

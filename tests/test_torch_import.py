@@ -3,6 +3,7 @@ flax, optax or gcl_tpu, and importing it builds no kernel; chip_smoke.py
 imports none of them either; the port's bench runs on the CPU when asked."""
 import ast
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -31,7 +32,12 @@ missing = [n for n in ("gcl_tpu_torch.losses.gcl", "gcl_tpu_torch.train.steps",
                        "gcl_tpu_torch.data.colocation",
                        "gcl_tpu_torch.train.trainer",
                        "gcl_tpu_torch.train.writer",
-                       "gcl_tpu_torch.train.__main__")
+                       "gcl_tpu_torch.train.__main__",
+                       "gcl_tpu_torch.parallel.mesh",
+                       "gcl_tpu_torch.parallel.launch",
+                       "gcl_tpu_torch.models.simpleunet",
+                       "gcl_tpu_torch.models.projection_head",
+                       "gcl_tpu_torch.models.mlp")
            if n not in names]
 print(len(names), bad + missing, build._lib is None)
 """
@@ -43,7 +49,7 @@ def test_import_leaves_jax_out_and_builds_nothing():
     line = out.stdout.strip().splitlines()[-1]
     n_modules, rest = line.split(" ", 1)
     assert rest == "[] True", line  # no JAX module, no library loaded
-    assert int(n_modules) >= 30, line
+    assert int(n_modules) >= 37, line
 
 
 def test_synth_lidar_is_bench_copy():
@@ -96,9 +102,12 @@ def test_bench_runs_on_the_cpu_when_asked():
             ([], "grid_1.08", "bfloat16"),
             (["--search", "brute_force", "--compute_dtype", "float32"],
              "brute_force", "float32")):
+        # two threads: the suite's workers already share the cores, and a
+        # pool of all of them stalls at its barriers when they are busy
         out = subprocess.run(base + ["--device", "cpu"] + extra,
                              capture_output=True, text=True, timeout=600,
-                             check=True)
+                             check=True, env={**os.environ,
+                                              "OMP_NUM_THREADS": "2"})
         res = json.loads(out.stdout.strip().splitlines()[-1])
         assert res["search"] == search and res["device"] == "cpu"
         assert res["metric"] == "gcl_train_voxels_per_sec"

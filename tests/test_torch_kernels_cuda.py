@@ -920,17 +920,103 @@ def test_exp_k5_backward_matches_plain(dev, key, cin, cout, dtype):
     assert matched <= staged <= 1.05 * matched + 8 * blocks
 
 
-def test_exp_pair_step_on_card_matches_cpu(dev):
+# --- ResUNetFatBNEXP_V2's extra pair: conv1_extra (1 -> 5, k = 5,
+# dilation 5) and conv1_tr_extra (5 -> 1, dilation 4), a geometry no other
+# model has: levels at strides 5, 10, 20, 40 and offsets 5 or 4 apart ---
+
+V2_EXTRA = [("s1->s5/k5d5", 32, 32), ("s5->s1/k5d4", 160, 128)]
+
+
+def _v2_graph(dev, seed=3, n_clouds=2):
+    from gcl_tpu_torch.models.resunet import ResUNetFatBNEXP_V2
+    pts, pmask = clouds(seed, n_clouds, 2500)
+    pts = pts * np.float32(3.0)
+    vox = voxelize_per_cloud(torch.from_numpy(pts).to(dev),
+                             torch.from_numpy(pmask).to(dev), VOXEL, 1600)
+    flat = vox.flatten()
+    return build_graph(flat.coords, flat.mask,
+                       ResUNetFatBNEXP_V2.conv_specs(5),
+                       {5: 600, 10: 300, 20: 160, 40: 80}, n_clouds)
+
+
+@pytest.mark.parametrize("key,cin,cout", V2_EXTRA)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_v2_extra_convs_match_plain(dev, key, cin, cout, dtype):
+    """K6 and K7 on V2's conv1_extra and conv1_tr_extra at their real
+    widths: forward, dX and dW against the plain versions (float32 within
+    1e-4 of the max; bf16 at the bf16 gate, float32 dW within 1e-4), dX
+    also against K6 through the reverse map, and the rows each
+    gather-GEMM multiplies equal to compacted_rows' count, the dW's staged
+    rows within 1.05 x the matched pairs + 8 a block."""
+    from gcl_tpu_torch.core.coords import lookup
+    g = _v2_graph(dev)
+    s_in, s_out = (int(t[1:]) for t in key.split("/")[0].split("->"))
+    lv_in, lv_out = g.levels[s_in], g.levels[s_out]
+    gen = torch.Generator().manual_seed(cin + 7 * cout)
+    x = (torch.randn(lv_in.coords.shape[0], cin, generator=gen).to(dev)
+         * lv_in.mask[:, None]).to(dtype)
+    gr = (torch.randn(lv_out.coords.shape[0], cout, generator=gen).to(dev)
+          * lv_out.mask[:, None]).to(dtype)
+    w = torch.randn(125, cin, cout, generator=gen).to(dev) / (125 * cin) ** .5
+    fwd = (x, w, g.maps[key].qkey, lv_in.skeys, lv_in.srow)
+    rqkey = g.maps[key].rqkey
+    bwd = (x, gr, w, rqkey, lv_out.skeys, lv_out.srow)
+    out, ref = sparse_conv_implicit_fwd(*fwd), sparse_conv_implicit_fwd_plain(
+        *fwd)
+    dx, dw = sparse_conv_implicit_bwd(*bwd)
+    rdx, rdw = sparse_conv_implicit_bwd_plain(*bwd)
+    two_pass = sparse_conv_implicit_fwd(
+        gr, w.flip(0).transpose(1, 2).contiguous(), rqkey, lv_out.skeys,
+        lv_out.srow)
+    torch.cuda.synchronize()
+    _close_to_max(dw, rdw, 1e-4)
+    if dtype == torch.float32:
+        _close_to_max(out, ref, 1e-4)
+        _close_to_max(dx, rdx, 1e-4)
+        _close_to_max(dx, two_pass, 1e-4)
+    else:
+        assert_bf16_close(out, ref, "K6", _sum_bound(
+            sparse_conv_implicit_fwd_plain, fwd))
+        bound = _sum_bound(sparse_conv_implicit_bwd_plain, bwd)
+        assert_bf16_close(dx, rdx, "K7 dX", bound)
+        assert_bf16_close(dx, two_pass, "K7 dX against K6", bound)
+    for launch, skeys, srow, keys in (
+            (lambda: sparse_conv_implicit_fwd(*fwd), lv_in.skeys,
+             lv_in.srow, fwd[2]),
+            (lambda: sparse_conv_implicit_bwd(*bwd), lv_out.skeys,
+             lv_out.srow, rqkey)):
+        matched, executed = compacted_rows(lookup(skeys, srow, keys) >= 0)
+        assert matched > 0
+        with counted_gather_rows(dev) as counter:
+            launch()
+        torch.cuda.synchronize()
+        assert int(counter.item()) == executed
+    matched, _ = compacted_rows(lookup(lv_out.skeys, lv_out.srow, rqkey)
+                                >= 0)
+    with counted_dw_rows(dev) as counter:
+        sparse_conv_implicit_bwd(*bwd)
+    torch.cuda.synchronize()
+    staged, blocks = (int(v) for v in counter.tolist())
+    assert matched <= staged <= 1.05 * matched + 8 * blocks
+
+
+@pytest.mark.parametrize("name,n_conv", [("ResUNetFatBNEXP", 20),
+                                         ("ResUNetFatBNEXP_V2", 22),
+                                         ("ResUNetIN2E", 20)])
+def test_exp_pair_step_on_card_matches_cpu(dev, name, n_conv):
     """One FCGF pair step (hardest contrastive, exact input jitter) of a
-    full-width ResUNetFatBNEXP on the card against the same step on the
-    CPU from the same weights and draws: exactly K2 2, K4 2, K6 40, K3 2,
-    K5 2, K7 40 launches (both sides; conv1's input takes no gradient, so
-    no K9), loss terms within 1e-4."""
+    full-width ResUNetFatBNEXP (and of V2 and of the instance-norm
+    ResUNetIN2E) on the card against the same step on the CPU from the
+    same weights and draws: exactly K2 2, K4 2, K3 2, K5 2 and K6 = K7 =
+    2 x its convs on K6 (20; V2 22) launches (both sides; conv1's input
+    takes no gradient, so no K9), loss terms within 1e-4."""
+    from gcl_tpu_torch.core.kernel_maps import default_level_caps
     from gcl_tpu_torch.kernels import launch_counts, reset_launch_counts
     from gcl_tpu_torch.losses.pairs import PairLossDraws
-    from gcl_tpu_torch.models.resunet import ResUNetFatBNEXP
+    from gcl_tpu_torch.models import load_model
     from gcl_tpu_torch.train.steps import (PairDraws, StepConfig, StepDraws,
                                            make_pair_grad_fn)
+    cls = load_model(name)
     pts, pmask = clouds(8, 2, 2500)
     pts = pts * np.float32(3.0)
     moved = pts + np.float32([0.6, -0.9, 0.0])
@@ -949,15 +1035,19 @@ def test_exp_pair_step_on_card_matches_cpu(dev):
         hn1=torch.rand(256, generator=gen)))
     out = {}
     for d in (dev, torch.device("cpu")):
-        model = ResUNetFatBNEXP(1, 32, bn_momentum=0.05,
-                                normalize_feature=True, conv1_kernel_size=5)
+        model = cls(1, 32, bn_momentum=0.05, normalize_feature=True,
+                    conv1_kernel_size=5)
         model.load_state_dict(random_state_dict(model, seed=5))
         model.to(d)
-        step_cfg = StepConfig(voxel_size=VOXEL, nv_cap=nv,
-                              level_caps={3: 1800, 9: 800, 27: 320},
+        specs = cls.conv_specs(5)
+        strides = sorted({s for sp in specs
+                          for s in (sp.in_stride, sp.out_stride)})
+        caps = ({3: 1800, 9: 800, 27: 320} if name == "ResUNetFatBNEXP"
+                else default_level_caps(2 * nv, strides, 0.6))
+        step_cfg = StepConfig(voxel_size=VOXEL, nv_cap=nv, level_caps=caps,
                               search_cell=1.08)
-        grad_fn = make_pair_grad_fn(model, ResUNetFatBNEXP.conv_specs(5),
-                                    step_cfg, "hardest_contrastive", cfg)
+        grad_fn = make_pair_grad_fn(model, specs, step_cfg,
+                                    "hardest_contrastive", cfg)
         reset_launch_counts()
         m = grad_fn(*(torch.from_numpy(a).to(d) for a in (
             pts, pmask, moved.astype(np.float32), pmask, trans)),
@@ -970,7 +1060,8 @@ def test_exp_pair_step_on_card_matches_cpu(dev):
             torch.cuda.synchronize()
             counts = launch_counts()
             assert {k: v for k, v in counts.items() if v} == {
-                "K2": 2, "K4": 2, "K6": 40, "K3": 2, "K5": 2, "K7": 40}, counts
+                "K2": 2, "K4": 2, "K6": 2 * n_conv, "K3": 2, "K5": 2,
+                "K7": 2 * n_conv}, counts
         out[d.type] = {k: float(v) for k, v in m.items()}
     assert out["cuda"]["num_pos_pairs"] == out["cpu"]["num_pos_pairs"] > 0
     for k in ("loss", "pos_loss", "neg_loss"):

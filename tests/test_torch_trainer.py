@@ -3,7 +3,9 @@ synthetic mini-KITTI at tests/test_train.py:tiny_config's sizes, with a
 narrow ResUNetFatBNEXP (tests/_torch_parity.py:narrow_exp_classes) put in
 both packages' load_model by a test-side patch.
 
-- get_trainer over the five names, and the two settings that raise;
+- get_trainer over the five names, the --conv_* setting that raises, and
+  data_parallel over two CPU ranks (built in spawned gloo ranks, which
+  validate without a barrier; an indivisible batch raises);
 - a HardestContrastiveLossTrainer epoch with validation, both packages
   from the same seeded weights (models/weights.py:random_state_dict,
   carried into gcl_tpu's TrainState in place of its flax init, which also
@@ -171,17 +173,62 @@ def test_get_trainer_names(name):
     assert cls.__name__ in jtrainer_mod.TRAINERS
 
 
-def test_get_trainer_unknown_and_unported_settings(synth_env, tmp_path):
+def test_get_trainer_unknown_and_unported_settings(synth_env, tmp_path,
+                                                   monkeypatch):
+    """An unknown trainer and the --conv_* knobs raise; data_parallel true
+    over num_devices=2 builds the trainer on 2 CPU ranks (spawned, gloo):
+    one sample a rank, one shard's capacities, its loader slice, rank 0's
+    parameters on both ranks, every rank validating with no barrier and
+    rank 0 alone writing; an indivisible batch raises ValueError; a
+    trainer asked for data parallelism outside the ranks raises, and one
+    told --data_parallel false inside a process group; no card for 'cuda'
+    raises."""
+    import _torch_ranks
+    from gcl_tpu_torch.parallel import spawn
+    from gcl_tpu_torch.parallel.launch import init_local_group
+
     with pytest.raises(ValueError, match="not found"):
         get_trainer("NoSuchTrainer")
     cfg = tiny_config(default_config, synth_env, tmp_path / "x")
     tl = make_data_loader(cfg, "train", 2)
-    for kw, item in ((dict(conv_tile=512), "conv tuning"),
-                     (dict(data_parallel="true", num_devices=2),
-                      "Queue 1 item 4")):
-        with pytest.raises(NotImplementedError, match=item):
-            get_trainer(cfg.trainer)(type(cfg)({**cfg, **kw}), tl,
-                                     device="cpu")
+    with pytest.raises(NotImplementedError, match="conv tuning"):
+        get_trainer(cfg.trainer)(type(cfg)({**cfg, "conv_tile": 512}), tl,
+                                 device="cpu")
+    dp = type(cfg)({**cfg, "data_parallel": "true", "num_devices": 2,
+                    "model": "ResUNetBN2C", "conv1_kernel_size": 3})
+    with pytest.raises(RuntimeError, match="inside the ranks"):
+        get_trainer(cfg.trainer)(dp, tl, device="cpu")
+    init_local_group("gloo")  # a group of one: --data_parallel false there
+    try:
+        with pytest.raises(RuntimeError, match="inside a process group"):
+            get_trainer(cfg.trainer)(type(cfg)({**cfg, "data_parallel":
+                                                "false"}), tl, device="cpu")
+    finally:
+        torch.distributed.destroy_process_group()
+    monkeypatch.chdir(synth_env)  # the ranks read ./config's split files
+    spawn(_torch_ranks.build_trainer, 2, (dp, str(tmp_path / "r%d.pt")),
+          join_timeout=120.0)
+    got = [torch.load(tmp_path / f"r{r}.pt", weights_only=False)
+           for r in range(2)]
+    for r, g in enumerate(got):
+        assert (g["data_parallel"], g["rank"], g["n_shards"],
+                g["shard_batch"], g["loader_shard"]) == (True, r, 2, 1,
+                                                         (r, 2))
+        assert g["level_caps"][1] == NV  # one shard's capacity
+    # each rank drew its own initial weights; both hold rank 0's
+    for k, v in got[0]["params"].items():
+        assert torch.equal(got[1]["params"][k], v), k
+    # both ranks validated each epoch; rank 0 alone wrote the run
+    # directory (the second epoch's equal record saves the newest too)
+    assert [g["validated"] for g in got] == [2, 2]
+    assert sorted(f for f in os.listdir(tmp_path / "x")
+                  if not f.startswith("events.out")) == [
+        "best_val_checkpoint.pth", "best_val_newest_checkpoint.pth",
+        "checkpoint.pth", "config.json", "scalars.jsonl"]
+    odd = type(cfg)({**dp, "batch_size": 3})
+    with pytest.raises(ValueError, match="not divisible"):
+        get_trainer(cfg.trainer)(odd, make_data_loader(odd, "train", 3),
+                                 device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="is_available"):
             get_trainer(cfg.trainer)(cfg, tl)
@@ -402,8 +449,9 @@ def test_entry_point_main_on_cpu(synth_env, tmp_path, monkeypatch):
     assert device == "cpu" and config.model == "NarrowEXP"
     real = make_data_loader
 
-    def short(config, phase, batch_size, num_threads=0, shuffle=None):
-        loader = real(config, phase, batch_size, num_threads, shuffle)
+    def short(config, phase, batch_size, num_threads=0, shuffle=None,
+              shard=(0, 1)):
+        loader = real(config, phase, batch_size, num_threads, shuffle, shard)
         loader.dataset.files = loader.dataset.files[:2]
         return loader
 
