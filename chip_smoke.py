@@ -1,7 +1,8 @@
 """Smoke run of gcl_tpu_torch's serving path, its FCGF evaluation path, its
 GCL train steps (the implicit and the explicit conv-map route, in float32
 and in bf16), its FCGF train step, its training entry point, its
-data-parallel steps and the rest of its model zoo on one CUDA card.
+data-parallel steps, the rest of its model zoo and its other entry points
+(the demo, the ETH evaluation, the SC2-PCR benchmark) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -170,9 +171,29 @@ Phases, in order; any failure raises and the exit code is non-zero:
    step of 11 with V2 and with the instance-norm ResUNetIN2E at full width
    (kernel path against plain path, every launch checked, exact launches,
    3 timed steps, peak memory);
-14. prints {"fcgf_step": {...}}, {"data_parallel": ..., "zoo": ...}, then
+14. the entry points, each through its main on the card: (a) python -m
+   gcl_tpu_torch.demo with ResUNetBN2C(1, 32, conv1 k = 5) and seeded
+   weights on the default synthetic scan and on a 65,536-point scan
+   written as a KITTI .bin: exactly 1 K2 and 20 K6 launches an input,
+   every launch inside an extract call against its plain version, K6 on
+   each k = 3 conv and K2 on conv1 at that geometry timed beside their
+   plain versions and bounds, the .ply's points equal to the voxels'
+   representative points, the exact t-SNE embedding finite and within
+   [0, 1], the weights written in MinkowskiEngine's layout and imported
+   back giving the same features; extract and t-SNE ms and N; (b) python
+   -m gcl_tpu_torch.eval_eth with ResUNetFatBN at full width, voxel 0.05,
+   on one synthetic scene of three 65,536-point fragments with 5000
+   keypoints each: exactly 4 K2 and 80 K6 launches (two pairs), every
+   launch checked, K6 / K2 at a fragment's geometry, the pair moved by
+   whole voxels at inlier ratio 1 and registered, the 10 deg / 0.5 m
+   pair reported, the stage ms; (c) python -m
+   gcl_tpu_torch.sc2_pcr.test_kitti at config_KITTI.json on 4 synthetic
+   .npz pairs of 5000 keypoints (70% of the descriptors shared): RR 100,
+   ms a pair;
+15. prints {"fcgf_step": {...}}, {"data_parallel": ..., "zoo": ...},
+   {"entry_points": ...}, then
    {"kernels": [...]} (twelve kernels, each with its launches on one rank
-   of phase 12's steps and on phase 13's steps;
+   of phase 12's steps, on phase 13's steps and on phase 14's paths;
    a conv kernel's row holds its bf16 form's numbers, the main path's, and
    its float32 form's under "float32"; K11's holds its 18,432-query shape
    under "second_shape"; K2's and K6's float32 parts hold phase 4b's
@@ -2840,6 +2861,332 @@ def zoo_step_checks(dev, gpu: str, name: str) -> dict:
                 loss=mk["loss"], checked=errs)
 
 
+# the entry points (phase 14): the demo, the ETH evaluation, the SC2-PCR
+# benchmark, each through its main on the card
+ETH_VOXEL = 0.05
+ETH_KEYPOINTS = 5000
+SC2_PAIRS = 4
+SC2_SHARED = 0.7     # rows whose descriptor the partner row shares
+
+
+def _k3_signatures(model) -> dict:
+    """{(map key, in stride, Cin, Cout): convs} of the model's k = 3
+    convs, the convs that run on K6."""
+    from gcl_tpu_torch.models.common import SparseConv
+
+    convs = {}
+    for m in model.modules():
+        if isinstance(m, SparseConv) and m.spec.kernel_size == 3:
+            sig = (m.spec.key, m.spec.in_stride, m.in_ch, m.out_ch)
+            convs[sig] = convs.get(sig, 0) + 1
+    return convs
+
+
+def _one_cloud_graph(model, xyz: np.ndarray, voxel: float, dev):
+    """The graph extract_features builds for one cloud: capacity N rounded
+    up to 4096, default_level_caps(n_cap, strides, 0.7)."""
+    import torch
+    from gcl_tpu_torch.core.kernel_maps import build_graph, default_level_caps
+    from gcl_tpu_torch.data.device_pipeline import voxelize_per_cloud
+
+    n_cap = -(-len(xyz) // 4096) * 4096
+    specs = type(model).conv_specs(model.conv1.spec.kernel_size)
+    strides = sorted({s for sp in specs for s in (sp.in_stride,
+                                                  sp.out_stride)})
+    pts = torch.zeros((1, n_cap, 3), device=dev)
+    pts[0, :len(xyz)] = torch.from_numpy(np.asarray(xyz, np.float32))
+    pmask = torch.zeros((1, n_cap), dtype=torch.bool, device=dev)
+    pmask[0, :len(xyz)] = True
+    flat = voxelize_per_cloud(pts, pmask, voxel, n_cap).flatten()
+    return build_graph(flat.coords, flat.mask, specs,
+                       default_level_caps(n_cap, strides, 0.7), 1)
+
+
+def _geometry_kernels(model, xyz: np.ndarray, voxel: float, dev,
+                      what: str) -> dict:
+    """K6 on each k = 3 conv of the model and K2 on its conv1 at the graph
+    of one cloud, with random features and weights at the real widths:
+    within REL_TOL of the plain version's max (K2's bits equal), times
+    of both (CUDA events) and the bound, K6 summed over the convs by
+    multiplicity. Returns {"K6": {...}, "K2": {...}}."""
+    import torch
+    from gcl_tpu_torch.core.coords import lookup
+    from gcl_tpu_torch.kernels import (c1z_unpack_bits, occupancy_conv_fwd,
+                                       occupancy_conv_fwd_plain,
+                                       sparse_conv_implicit_fwd,
+                                       sparse_conv_implicit_fwd_plain)
+
+    graph = _one_cloud_graph(model, xyz, voxel, dev)
+    print(f"{what} levels: " + ", ".join(
+        f"s{s} {lv.coords.shape[0]} rows / {lv.skeys.shape[0]} valid"
+        for s, lv in sorted(graph.levels.items())))
+    g = torch.Generator(device="cpu").manual_seed(SEED + 14)
+    k6 = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, n_bytes=0, flops=0)
+    for (key, s_in, cin, cout), mult in sorted(
+            _k3_signatures(model).items()):
+        lv = graph.levels[s_in]
+        x = (torch.randn(lv.coords.shape[0], cin, generator=g).to(dev)
+             * lv.mask[:, None])
+        w = torch.randn(27, cin, cout, generator=g).to(dev) / (27 * cin) ** .5
+        args = (x, w, graph.maps[key].qkey, lv.skeys, lv.srow)
+        out = sparse_conv_implicit_fwd(*args)
+        ref = sparse_conv_implicit_fwd_plain(*args)
+        _rel_err(out, ref, f"K6 {what} {key}")
+        k6["max_abs_err"] = max(k6["max_abs_err"],
+                                float((out - ref).abs().max()))
+        k6["ms"] += mult * _ms(lambda: sparse_conv_implicit_fwd(*args), REPS)
+        k6["plain_ms"] += mult * _ms(
+            lambda: sparse_conv_implicit_fwd_plain(*args), 2)
+        matched = int((lookup(lv.skeys, lv.srow, args[2]) >= 0).sum())
+        k6["n_bytes"] += mult * _nbytes(*args, out)
+        k6["flops"] += mult * 2 * matched * cin * cout
+    k6["bound_ms"], k6["bound_by"] = _bound(k6.pop("n_bytes"),
+                                            k6.pop("flops"), "split_tf32")
+    k = model.conv1.spec.kernel_size
+    c1 = graph.maps[f"s1->s1/k{k}d1"]
+    w1 = torch.randn(k ** 3, 1, model.conv1.out_ch, generator=g).to(dev)
+    k2_args = (c1.c1z, graph.levels[1].skeys, w1)
+    out, sbits = occupancy_conv_fwd(*k2_args)
+    ref, ref_bits = occupancy_conv_fwd_plain(*k2_args)
+    _require(torch.equal(sbits, ref_bits), f"K2 {what}: sbits equal")
+    _rel_err(out, ref, f"K2 {what}")
+    k2 = dict(max_abs_err=float((out - ref).abs().max()),
+              ms=_ms(lambda: occupancy_conv_fwd(*k2_args), REPS),
+              plain_ms=_ms(lambda: occupancy_conv_fwd_plain(*k2_args), 2))
+    k2["bound_ms"], k2["bound_by"] = _bound(
+        _k2_bytes(*k2_args, out, sbits),
+        model.conv1.out_ch * int(c1z_unpack_bits(sbits, k ** 3).sum()))
+    for name, r in (("K6", k6), ("K2", k2)):
+        print(f"{name} at {what}: max_abs_err {r['max_abs_err']:.3g} "
+              f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.3f} ms bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return {"K6": k6, "K2": k2}
+
+
+def _counted(fn):
+    """(fn's result, the kernel launches it made): the counts set to 0
+    just before and read just after."""
+    import torch
+    from gcl_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launch_counts()
+
+
+def _launches(model, clouds: int) -> dict:
+    """The launches of ``clouds`` extract calls: K2 once (conv1) and K6
+    once a k = 3 conv, each a cloud; no other kernel."""
+    from gcl_tpu_torch.kernels import KERNELS
+
+    n6 = sum(_k3_signatures(model).values())
+    return {**{k: 0 for k in KERNELS}, "K2": clouds, "K6": clouds * n6}
+
+
+def demo_checks(dev, gpu: str, tmp: str) -> dict:
+    """Phase 14a: python -m gcl_tpu_torch.demo's main with ResUNetBN2C(1,
+    32, conv1 k = 5) and seeded weights, on the default synthetic scan and
+    on an N_POINTS-point scan written as a KITTI .bin."""
+    import os
+
+    import torch
+    from gcl_tpu_torch import demo
+    from gcl_tpu_torch.data.synthetic import synth_lidar
+    from gcl_tpu_torch.train import import_torch
+    from gcl_tpu_torch.utils import visualization
+    from gcl_tpu_torch.utils.misc import extract_features
+    from gcl_tpu_torch.utils.pointcloud import read_ply_xyz
+
+    scan = os.path.join(tmp, "scan.bin")
+    pts = synth_lidar(np.random.RandomState(SEED), N_POINTS)
+    np.concatenate([pts, np.zeros((len(pts), 1), np.float32)],
+                   1).astype(np.float32).tofile(scan)
+    model = demo.demo_model("ResUNetBN2C", 32, 5, None).to(dev)
+    real_tsne = visualization.embed_tsne
+    embedded = []
+
+    def kept(data):
+        embedded.append(real_tsne(data))
+        return embedded[-1]
+
+    visualization.embed_tsne = kept
+    out = {}
+    try:
+        for name, path in (("synthetic", None), ("scan_65536", scan)):
+            xyz = demo.read_cloud(path)
+            ply = os.path.join(tmp, f"demo_{name}.ply")
+            argv = ["--output", ply] + (["--input", path] if path else [])
+            stats, launches = _counted(lambda: demo.main(argv))
+            want = _launches(model, 1)
+            _require(launches == want, f"demo {name}: launches {want}, got "
+                                       f"{launches}")
+            errs = {}
+            with checked_path(errs):
+                extract_features(model, xyz, voxel_size=0.3, device=dev)
+            _require(set(errs) == {"K2", "K6"},
+                     f"demo {name}: K2 and K6 checked, got {errs}")
+            v, f = extract_features(model, xyz, voxel_size=0.3, device=dev)
+            _require(np.array_equal(read_ply_xyz(ply), v.cpu().numpy()),
+                     f"demo {name}: the .ply's points are the voxels' "
+                     f"representative points")
+            t = embedded[-1]
+            _require(t.shape == (len(v),) and bool(torch.isfinite(t).all())
+                     and float(t.min()) >= 0.0 and float(t.max()) <= 1.0,
+                     f"demo {name}: a finite embedding within [0, 1]")
+            if path is None:  # the weights in ME's layout and back
+                me = os.path.join(tmp, "me.pth")
+                torch.save({"state_dict": import_torch.export_state_dict(
+                    model.state_dict())}, me)
+                back = demo.demo_model("ResUNetBN2C", 32, 5, None)
+                back.load_state_dict(import_torch.load_torch_checkpoint(
+                    me)[0])
+                _, f2 = extract_features(back.to(dev), xyz, voxel_size=0.3,
+                                         device=dev)
+                _require(torch.equal(f2, f), "demo: the weights brought "
+                         "back from ME's layout give the same features")
+            r = dict(n_points=stats["n_points"], n_voxels=stats["n_voxels"],
+                     extract_ms=stats["extract_ms"],
+                     tsne_ms=stats["tsne_ms"], launches=launches,
+                     checked=errs,
+                     kernels=_geometry_kernels(model, xyz, 0.3, dev,
+                                               f"demo {name}"))
+            print(f"demo {name}: N {r['n_points']} points, "
+                  f"{r['n_voxels']} voxels; extract {r['extract_ms']:.1f} "
+                  f"ms, t-SNE + PLY {r['tsne_ms']:.1f} ms on {gpu}; "
+                  f"launches {launches}; every launch against its plain "
+                  f"version: {errs}")
+            out[name] = r
+    finally:
+        visualization.embed_tsne = real_tsne
+    return out
+
+
+def _eth_scene(root: str) -> dict:
+    """One ETH-layout scene (gazebo_summer) of three N_POINTS-point
+    fragments with ETH_KEYPOINTS keypoint indices each (the same rows):
+    fragment 0 random in a 4 m cube about the origin, every point at
+    least a tenth of a voxel from a voxel face (65,536 points, ~61,500
+    voxels); fragment 1 fragment 0 moved by whole voxels
+    of the coarsest level (16, 8, 8 voxels at stride 8: the same voxels,
+    the same features); fragment 2 fragment 0 under a 10 deg / 0.5 m
+    rigid transform. gt.log holds the pairs 0-1 and 0-2. Returns their
+    gt (fragment id2 into id1's frame)."""
+    import os
+
+    from gcl_tpu_torch.utils.pointcloud import write_ply_xyz
+
+    rng = np.random.RandomState(SEED + 15)
+    cells = rng.randint(-40, 40, (N_POINTS, 3))
+    frac = rng.uniform(0.1, 0.9, (N_POINTS, 3))
+    x0 = (cells + frac) * ETH_VOXEL
+    x1 = (cells + [16, 8, 8] + frac) * ETH_VOXEL
+    t2 = _rigid(10.0, [0.5, 0.0, 0.0])
+    x2 = x0 @ t2[:3, :3].T + t2[:3, 3]
+    shift = np.eye(4)
+    shift[:3, 3] = -np.array([16, 8, 8]) * ETH_VOXEL
+    gts = {"0_1": shift, "0_2": np.linalg.inv(t2)}
+    scene = os.path.join(root, "gazebo_summer")
+    os.makedirs(os.path.join(scene, "Keypoints"))
+    kp = rng.choice(N_POINTS, ETH_KEYPOINTS, replace=False)
+    for i, x in enumerate((x0, x1, x2)):
+        write_ply_xyz(os.path.join(scene, f"Hokuyo_{i}.ply"),
+                      x.astype(np.float32))
+        np.savetxt(os.path.join(scene, "Keypoints",
+                                f"Hokuyo_{i}_Keypoints.txt"), kp, fmt="%d")
+    with open(os.path.join(scene, "gt.log"), "w") as f:
+        for pair, gt in gts.items():
+            f.write("\t".join(pair.split("_")) + "\t3\n")
+            for r in range(4):
+                f.write("\t".join(repr(float(v)) for v in gt[r]) + "\n")
+    return gts
+
+
+def eth_checks(dev, gpu: str, tmp: str) -> dict:
+    """Phase 14b: python -m gcl_tpu_torch.eval_eth's main on one synthetic
+    scene with ResUNetFatBN(1, 32, conv1 k = 5) at full width, seeded
+    weights, voxel ETH_VOXEL."""
+    import os
+
+    from gcl_tpu_torch import eval_eth, infer
+    from gcl_tpu_torch.train.checkpoint import save_checkpoint
+    from gcl_tpu_torch.utils.misc import extract_features
+    from gcl_tpu_torch.utils.pointcloud import read_ply_xyz
+
+    root = os.path.join(tmp, "eth")
+    gts = _eth_scene(root)
+    model = infer.serving_model(SEED, dev)
+    ckpt = os.path.join(tmp, "eth.pth")
+    save_checkpoint(ckpt, epoch=0, state_dict=model.state_dict(),
+                    optimizer=None, config={}, best_val=0.0,
+                    best_val_epoch=0, best_val_metric="x")
+    x0 = read_ply_xyz(os.path.join(root, "gazebo_summer", "Hokuyo_0.ply"))
+    res, launches = _counted(lambda: eval_eth.main(
+        ["--eth_root", root, "--checkpoint", ckpt],
+        scenes=["gazebo_summer"]))
+    want = _launches(model, 2 * len(gts))
+    _require(launches == want, f"ETH: launches {want}, got {launches}")
+    errs = {}
+    with checked_path(errs):
+        extract_features(model, x0, voxel_size=ETH_VOXEL, device=dev)
+    _require(set(errs) == {"K2", "K6"}, f"ETH: K2 and K6 checked, {errs}")
+    pairs = {p["pair"]: p for p in res["scenes"]["gazebo_summer"]["pairs"]}
+    _require(set(pairs) == set(gts), f"ETH pairs {sorted(gts)}")
+    whole = pairs["0_1"]
+    _require(whole["inlier_ratio"] == 1.0 and whole["registered"]
+             and whole["rte"] < 0.3 and whole["rre"] < 15.0,
+             f"ETH: the pair moved by whole voxels has inlier ratio 1 and "
+             f"registers, got {whole}")
+    stage_ms = {s: float(np.mean([p["stage_ms"][s] for p in pairs.values()]))
+                for s in eval_eth.STAGES}
+    out = dict(launches=launches, checked=errs, stage_ms=stage_ms,
+               pairs={k: {f: p[f] for f in ("inlier_ratio", "rte", "rre",
+                                            "registered", "n_mutual")}
+                      for k, p in pairs.items()},
+               kernels=_geometry_kernels(model, x0, ETH_VOXEL, dev,
+                                         "ETH fragment"))
+    print(f"ETH on {gpu}: launches {launches}; every launch against its "
+          f"plain version: {errs}; pairs {json.dumps(out['pairs'])}; "
+          f"stage ms a pair {json.dumps(stage_ms)} (the 10 deg / 0.5 m "
+          f"pair reported, not gated: random weights)")
+    return out
+
+
+def sc2_benchmark_checks(gpu: str, tmp: str) -> dict:
+    """Phase 14c: python -m gcl_tpu_torch.sc2_pcr.test_kitti's main at
+    config_KITTI.json unchanged on SC2_PAIRS synthetic KITTI .npz pairs of
+    N_KEY keypoints: the second cloud a rigid transform of the first,
+    SC2_SHARED of the rows with their partner row's unit descriptor, the
+    rest random unit vectors. RR must be 100."""
+    import os
+
+    from gcl_tpu_torch.data.synthetic import synth_lidar
+    from gcl_tpu_torch.sc2_pcr import test_kitti
+
+    rng = np.random.RandomState(SEED + 16)
+    root = os.path.join(tmp, "sc2")
+    os.makedirs(os.path.join(root, "fcgf_test"))
+    for i in range(SC2_PAIRS):
+        xyz0 = synth_lidar(rng, N_KEY)
+        gt = _rigid(10.0 * (i + 1), [2.0 * i, 1.0, 0.2]).astype(np.float32)
+        xyz1 = (xyz0 @ gt[:3, :3].T + gt[:3, 3]).astype(np.float32)
+        f0 = rng.randn(N_KEY, 32)
+        f1 = f0.copy()
+        other = rng.rand(N_KEY) >= SC2_SHARED
+        f1[other] = rng.randn(int(other.sum()), 32)
+        f0, f1 = (f / np.linalg.norm(f, axis=1, keepdims=True)
+                  for f in (f0, f1))
+        np.savez(os.path.join(root, "fcgf_test", f"pair_{i}.npz"),
+                 xyz0=xyz0, xyz1=xyz1, features0=f0.astype(np.float32),
+                 features1=f1.astype(np.float32), gt_trans=gt)
+    stats, launches = _counted(lambda: test_kitti.main(["--data_root",
+                                                        root]))
+    print(f"SC2-PCR benchmark, {SC2_PAIRS} pairs of {N_KEY} keypoints at "
+          f"config_KITTI.json: {json.dumps(stats)} on {gpu}")
+    _require(stats["RR"] == 100.0, f"SC2-PCR benchmark RR 100, got {stats}")
+    return dict(stats, launches=launches)
+
+
 class _PhaseClock:
     """Prints each phase's wall seconds, and the run's so far."""
 
@@ -3102,6 +3449,14 @@ def main() -> None:
         zoo[name] = zoo_step_checks(dev, gpu, name)
         torch.cuda.empty_cache()
     clock("13 the model zoo")
+    # 14. the entry points: the demo, the ETH evaluation, the SC2-PCR benchmark
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        entry = {"demo": demo_checks(dev, gpu, tmp),
+                 "eth": eth_checks(dev, gpu, tmp),
+                 "sc2_benchmark": sc2_benchmark_checks(gpu, tmp)}
+    torch.cuda.empty_cache()
+    clock("14 the entry points")
 
     conv, radius = "pallas_conv.py", "pallas_radius.py"
     table = [
@@ -3217,6 +3572,20 @@ def main() -> None:
             dp_fcgf_rank_launches=dp["fcgf"]["launches"][k],
             v2_fcgf_launches=zoo["ResUNetFatBNEXP_V2"]["launches"][k],
             in2e_fcgf_launches=zoo["ResUNetIN2E"]["launches"][k])
+    # phase 14's paths, each driven with the counts set to 0 just before
+    # and read just after: the demo's extract of each input, the ETH
+    # evaluation's four (two pairs); K6 and K2 at those geometries
+    demo_runs = entry["demo"]
+    for i, (k, *_) in enumerate(table):
+        kernels[i].update(
+            demo_synthetic_launches=demo_runs["synthetic"]["launches"][k],
+            demo_scan_launches=demo_runs["scan_65536"]["launches"][k],
+            eth_launches=entry["eth"]["launches"][k])
+    for i, k in ((0, "K6"), (2, "K2")):
+        kernels[i]["float32"].update(
+            demo_synthetic=demo_runs["synthetic"]["kernels"][k],
+            demo_scan_65536=demo_runs["scan_65536"]["kernels"][k],
+            eth_fragment=entry["eth"]["kernels"][k])
     for i in (0, 1):  # K6, K7 at V2's conv1_extra and conv1_tr_extra
         kernels[i]["float32"]["v2_extra"] = {
             conv: {"key": r["key"], "cin": r["cin"], "cout": r["cout"],
@@ -3231,6 +3600,14 @@ def main() -> None:
         "bench_step_time_s": dp["bench"]}, "zoo": {
         name: {k: v for k, v in r.items() if k not in ("launches", "checked")}
         for name, r in zoo.items()}}))
+    print(json.dumps({"entry_points": {
+        "demo": {name: {k: v for k, v in r.items()
+                        if k not in ("kernels", "launches", "checked")}
+                 for name, r in demo_runs.items()},
+        "eth": {k: v for k, v in entry["eth"].items()
+                if k not in ("kernels", "launches")},
+        "sc2_benchmark": {k: v for k, v in entry["sc2_benchmark"].items()
+                       if k != "launches"}}}))
     print(json.dumps({"kernels": kernels}))
     print(f"{gpu}")
     print(json.dumps({"ok": True, "device": {

@@ -30,12 +30,15 @@ class VoxelizedClouds:
     """Per-cloud voxelization output, fixed per-cloud capacity.
 
     coords: int32[C, Nv, 4] (cloud, x, y, z); mask: bool[C, Nv];
-    xyz: float32[C, Nv, 3] representative original points (zeros on pads).
+    xyz: float32[C, Nv, 3] representative original points (zeros on pads);
+    rep: int32[C, Nv], the point index of each voxel's representative
+    (voxelize_per_cloud sets it; 0 on pads).
     """
 
     coords: torch.Tensor
     mask: torch.Tensor
     xyz: torch.Tensor
+    rep: Optional[torch.Tensor] = None
 
     def flatten(self) -> SparseBatch:
         """Concatenate clouds into one SparseBatch (global row = c*Nv+i)."""
@@ -57,7 +60,7 @@ def voxelize_per_cloud(points: torch.Tensor, pmask: torch.Tensor,
                             device=points.device)[:, None]
     coords = coords.clone()
     coords[:, :, 0] = torch.where(mask, cloud_id, INVALID_BATCH)
-    return VoxelizedClouds(coords, mask, xyz)
+    return VoxelizedClouds(coords, mask, xyz, rep)
 
 
 def transform_points(xyz: torch.Tensor, t: torch.Tensor) -> torch.Tensor:

@@ -22,11 +22,18 @@ import numpy as np
 import torch.utils.data
 
 from .colocation import ColocationKittiDataset, ColocationNuscenesDataset
+from .legacy import (KITTINMPairDataset, KITTIPairDataset,
+                     KITTIRandDistPairDataset, ThreeDMatchPairDataset,
+                     ThreeDMatchTestDataset)
 from .pairs import PairComplementKittiDataset, PairComplementNuscenesDataset
 
 ALL_DATASETS = {d.__name__: d for d in (
     ColocationKittiDataset, ColocationNuscenesDataset,
-    PairComplementKittiDataset, PairComplementNuscenesDataset)}
+    PairComplementKittiDataset, PairComplementNuscenesDataset,
+    # the legacy FCGF datasets, selectable by config.dataset as in the
+    # reference's registry (lib/data_loaders.py:629-729)
+    ThreeDMatchPairDataset, ThreeDMatchTestDataset, KITTIPairDataset,
+    KITTINMPairDataset, KITTIRandDistPairDataset)}
 
 
 def collate_stack(samples: List[Dict]) -> Dict:
@@ -111,10 +118,8 @@ def make_data_loader(config, phase, batch_size, num_threads=0, shuffle=None,
     name = (getattr(config, "train_dataset", config.dataset)
             if phase == "train" else config.dataset)
     if name not in ALL_DATASETS:
-        raise ValueError(
-            f"dataset {name!r} is not in gcl_tpu_torch, which has "
-            f"{sorted(ALL_DATASETS)} (the legacy FCGF datasets are ROADMAP "
-            f"Queue 1 item 6)")
+        raise ValueError(f"unknown dataset {name!r}: the datasets are "
+                         f"{sorted(ALL_DATASETS)}")
     train = phase == "train"
     dataset = ALL_DATASETS[name](
         phase, transform=None,

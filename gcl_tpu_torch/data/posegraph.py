@@ -1,14 +1,23 @@
-"""Multiway pose-graph GT refinement (a copy of gcl_tpu/data/posegraph.py
-without its offline CLI that fills the ICP cache): for each side of a
+"""Multiway pose-graph GT refinement (a copy of gcl_tpu/data/posegraph.py)
+and its offline cache pass: for each side of a
 training frame, all-pairs ICP between [current, complement...] clouds builds a
 pose graph (consecutive = certain odometry edges, the rest = uncertain
 loop closures), a robust Gauss-Newton optimisation with a line process
 on the loop edges refines the node poses, and the per-complement
 transforms go to the same `icp/<drive>_<t_next>_<t_curr>.npy` cache the
 per-pair path uses. Host-side numpy.
+
+    python -m gcl_tpu_torch.data.posegraph --kitti_root ROOT [config flags]
+
+fills that cache for every training frame (config.py's flags; from a
+directory whose config/ holds the split files). The work is host-side
+(numpy, scipy); like every entry point of the port it takes ``--device``
+(cuda by default, which needs a card) and ``--device cpu`` on a machine
+without one.
 """
 from __future__ import annotations
 
+import os
 from typing import List, Sequence
 
 import numpy as np
@@ -213,3 +222,74 @@ def multiway_transforms(xyz_curr: np.ndarray,
                                   max_corr_fine=icp_voxel_size * 1.5)
         out.extend(poses[1:])
     return out
+
+
+# ----------------------------------------------------------------------
+# Offline cache CLI
+# ----------------------------------------------------------------------
+
+def build_cache(config, phase: str = "train", limit: int = 0,
+                force: bool = False) -> int:
+    """Precompute the multiway-refined ``icp/`` cache for every frame's
+    complement set of ``phase`` (the reference computes these lazily on
+    first touch inside its loader workers; this is the explicit offline
+    pass). ``limit`` > 0 stops after that many entries of the pair list;
+    ``force`` recomputes files that exist. Returns the number of .npy
+    files written."""
+    from . import kitti_io
+    from .pairs import PairComplementKittiDataset
+
+    ds = PairComplementKittiDataset(phase, random_rotation=False,
+                                    random_scale=False, config=config)
+    written = 0
+    seen = set()
+    for fi, entry in enumerate(ds.files):
+        if limit and fi >= limit:
+            break
+        drive, t0, t1, cmpl0, cmpl1 = entry
+        all_pos = ds._all_pos(drive)
+        for t_curr, cmpls in ((t0, cmpl0), (t1, cmpl1)):
+            if (drive, t_curr) in seen:
+                continue
+            seen.add((drive, t_curr))
+            names = [os.path.join(ds.icp_path,
+                                  f"{drive}_{tt}_{t_curr}.npy")
+                     for tt in cmpls]
+            if not force and all(os.path.exists(f) for f in names):
+                continue
+            xyz_curr = ds._xyz(drive, t_curr)
+            xyz_cmpls = [ds._xyz(drive, tt) for tt in cmpls]
+            odo = [kitti_io.odometry_pair_transform(all_pos[t_curr],
+                                                    all_pos[tt])
+                   for tt in cmpls]
+            ms = multiway_transforms(xyz_curr, xyz_cmpls, odo,
+                                     ds.num_complement_one_side,
+                                     ds.icp_voxel_size)
+            for f, m in zip(names, ms):
+                np.save(f, np.asarray(m))
+                written += 1
+            print(f"drive {drive} frame {t_curr}: "
+                  f"{len(ms)} transforms", flush=True)
+    return written
+
+
+def main(argv=None) -> int:
+    """Fill the cache of config.train_phase; returns the files written."""
+    import argparse
+
+    from ..config import get_config
+    from ..eval_kitti import device_of
+
+    ap = argparse.ArgumentParser(add_help=False)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args, rest = ap.parse_known_args(argv)
+    device_of(args.device)
+    cfg = get_config(rest)
+    n = build_cache(cfg, phase=cfg.train_phase)
+    print(f"wrote {n} refined transforms to "
+          f"{os.path.join(cfg.kitti_root, 'icp')}")
+    return n
+
+
+if __name__ == "__main__":
+    main()

@@ -38,20 +38,29 @@ def make_feature_extractor(model: torch.nn.Module,
                            nv_cap: int, level_caps: Dict[int, int]):
     """Eval-mode features for one batch of clouds.
 
-    extract(points f32[C, P, 3], pmask bool[C, P]) -> (VoxelizedClouds,
-    feats f32[C, nv_cap, out_channels]); rows follow vox row for row. The
-    settings ride on the function as attributes (model, conv_specs,
-    voxel_size, nv_cap, level_caps).
+    extract(points f32[C, P, 3], pmask bool[C, P], point_feats=None) ->
+    (VoxelizedClouds, feats f32[C, nv_cap, out_channels]); rows follow vox
+    row for row. The model's input is the occupancy (ones on voxels), or
+    ``point_feats`` f32[C, P, F] taken at each voxel's representative
+    point. The settings ride on the function as attributes (model,
+    conv_specs, voxel_size, nv_cap, level_caps).
     """
     model.eval()
 
     @torch.inference_mode()
-    def extract(points: torch.Tensor, pmask: torch.Tensor):
+    def extract(points: torch.Tensor, pmask: torch.Tensor,
+                point_feats: Optional[torch.Tensor] = None):
         vox = voxelize_per_cloud(points, pmask, voxel_size, nv_cap)
         flat = vox.flatten()
+        x = flat.feats
+        if point_feats is not None:
+            f_in = point_feats.shape[-1]
+            x = torch.gather(point_feats, 1, vox.rep.long()[..., None]
+                             .expand(-1, -1, f_in))
+            x = torch.where(vox.mask[..., None], x, 0.0).reshape(-1, f_in)
         graph = build_graph(flat.coords, flat.mask, conv_specs, level_caps,
                             n_clouds=points.shape[0])
-        f = model(graph, flat.feats)
+        f = model(graph, x)
         c, nv = vox.mask.shape
         return vox, f.reshape(c, nv, -1)
 

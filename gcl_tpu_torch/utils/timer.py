@@ -1,7 +1,18 @@
-"""Timers and meters (a copy of gcl_tpu/utils/timer.py)."""
+"""Timers and meters (a copy of gcl_tpu/utils/timer.py), and the host
+clock read after the card has finished its queued work."""
 from __future__ import annotations
 
 import time
+
+import torch
+
+
+def synced_time(dev: torch.device) -> float:
+    """time.perf_counter() once ``dev``'s queued work is done (a
+    synchronize first on a CUDA device)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter()
 
 
 class AverageMeter:
