@@ -1,8 +1,9 @@
 """Smoke run of gcl_tpu_torch's serving path, its FCGF evaluation path, its
 GCL train steps (the implicit and the explicit conv-map route, in float32
 and in bf16), its FCGF train step, its training entry point, its
-data-parallel steps, the rest of its model zoo and its other entry points
-(the demo, the ETH evaluation, the SC2-PCR benchmark) on one CUDA card.
+data-parallel steps, the rest of its model zoo, its other entry points
+(the demo, the ETH evaluation, the SC2-PCR benchmark), its host C++
+library and nuScenes data path, and its shell wrappers on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -190,10 +191,28 @@ Phases, in order; any failure raises and the exit code is non-zero:
    gcl_tpu_torch.sc2_pcr.test_kitti at config_KITTI.json on 4 synthetic
    .npz pairs of 5000 keypoints (70% of the descriptors shared): RR 100,
    ms a pair;
+16. host native and the wrappers (before 15's lines are printed): (a)
+   the host library gcl_tpu_torch.native must have built on this machine;
+   voxelize (0.3 m), radius_knn (r 0.45, k 5, 20,000 queries) and
+   kernel_map (27 offsets over the voxels) of a 120,000-point scan, each
+   equal to its numpy / scipy plain version, both timed; (b) a synthetic
+   nuScenes-as-KITTI root (2 logs of 150 frames): ColocationNuscenesDataset
+   ("train") iterated once with the scan pool and 0 workers, every
+   sample's first read of each of its scans served by the pool (counted
+   here by wrapping the pool's fetch binding), the samples bit-equal to a
+   pass without the pool and to one in 2 forked torch.utils.data workers;
+   (c) bash gcl_tpu_torch/scripts/train_gcl_nuscenes.sh with its defaults
+   (ResUNetFatBN at full width, 4 samples of 7 clouds) for one epoch on
+   that root, as a subprocess: exit 0, the root wrappers' OUT_DIR, its
+   log, checkpoint.pth and 2-6 finite train/loss lines; (d) bash
+   gcl_tpu_torch/scripts/test_gcl_nuscenes.sh on that OUT_DIR: exit 0, at
+   least one pair, finite RTE and RRE; no kernel launch in this process
+   (the wrappers' kernels run in their subprocesses);
 15. prints {"fcgf_step": {...}}, {"data_parallel": ..., "zoo": ...},
-   {"entry_points": ...}, then
+   {"entry_points": ...}, {"host_native": ...}, then
    {"kernels": [...]} (twelve kernels, each with its launches on one rank
-   of phase 12's steps, on phase 13's steps and on phase 14's paths;
+   of phase 12's steps, on phase 13's steps, on phase 14's paths and on
+   phase 16's in-process parts;
    a conv kernel's row holds its bf16 form's numbers, the main path's, and
    its float32 form's under "float32"; K11's holds its 18,432-query shape
    under "second_shape"; K2's and K6's float32 parts hold phase 4b's
@@ -3187,6 +3206,257 @@ def sc2_benchmark_checks(gpu: str, tmp: str) -> dict:
     return dict(stats, launches=launches)
 
 
+# host native and the wrappers (phase 16)
+NATIVE_POINTS = 120000
+NATIVE_QUERIES = 20000
+NUSC_LOGS, NUSC_FRAMES = 2, 150
+WRAPPER_TIMEOUT_S = 600.0
+# MISC_ARGS of the train wrapper: the colocation bands the 300 m synthetic
+# logs fill (14 samples: 3 iterations of 4), one validation batch, every
+# iteration's loss logged; both wrappers read in-process (a spawned loader
+# worker takes ~9 s to start; (b) checks the pool in forked workers)
+TRAIN_MISC = ("--min_dist 3 --max_dist 18 --val_max_iter 1 "
+              "--train_num_thread 0 --val_num_thread 0 --stat_freq 1")
+TEST_MISC = "--test_num_thread 0"
+
+
+def _native_checks(gpu: str) -> dict:
+    """Phase 16a: the host library built here, and each of its functions
+    on a 120,000-point scan equal to its plain version; ms of both."""
+    from gcl_tpu_torch import native
+
+    _require(native.available(),
+             f"the host library builds here: {native.build_error()}")
+    rng = np.random.RandomState(SEED)
+    pts = (rng.randn(NATIVE_POINTS, 3) * [20, 20, 2]).astype(np.float32)
+    offsets = np.array([[dx, dy, dz] for dx in (-1, 0, 1)
+                        for dy in (-1, 0, 1) for dz in (-1, 0, 1)], np.int32)
+    vox = native.voxelize(pts, 0.3)
+    cases = {
+        "voxelize": (native.voxelize, native.voxelize_plain, (pts, 0.3)),
+        "radius_knn": (native.radius_knn, native.radius_knn_plain,
+                       (pts[:NATIVE_QUERIES], pts, 0.45, 5)),
+        "kernel_map": (native.kernel_map, native.kernel_map_plain,
+                       (vox[0], vox[0], offsets))}
+    out, results = {}, {}
+    for name, (fn, plain, args) in cases.items():
+        t0 = time.perf_counter()
+        got = fn(*args)
+        t1 = time.perf_counter()
+        want = plain(*args)
+        t2 = time.perf_counter()
+        got, want = ((g,) if isinstance(g, np.ndarray) else g
+                     for g in (got, want))
+        _require(all(a.dtype == b.dtype and np.array_equal(a, b)
+                     for a, b in zip(got, want)),
+                 f"native {name} equal to its plain version")
+        out[name] = {"ms": (t1 - t0) * 1e3, "plain_ms": (t2 - t1) * 1e3}
+        results[name] = got
+    out["voxels"] = int(len(vox[0]))
+    out["knn_hits"] = int(results["radius_knn"][1].sum())
+    out["kernel_map_matches"] = int((results["kernel_map"][0] >= 0).sum())
+    print(f"host library on {gpu}'s host: {NATIVE_POINTS} points -> "
+          f"{out['voxels']} voxels; " + ", ".join(
+              f"{k} {v['ms']:.2f} ms (plain {v['plain_ms']:.2f} ms)"
+              for k, v in out.items() if isinstance(v, dict))
+          + "; each equal to its plain version")
+    return out
+
+
+class _Seeded:
+    """A dataset whose item i is drawn with np.random and its rotation
+    generator seeded with i: the same sample in any process and order."""
+
+    def __init__(self, ds):
+        self.ds = ds
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        self.ds.reset_seed(i)
+        np.random.seed(i)
+        return self.ds[i]
+
+
+class _ServedFetches:
+    """The pool's library with its fetches counted: one that returns a
+    payload (n >= 0) was served by the pool."""
+
+    def __init__(self, lib):
+        self._lib, self.served = lib, 0
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def gcl_reader_fetch(self, *args):
+        n = self._lib.gcl_reader_fetch(*args)
+        self.served += n >= 0
+        return n
+
+
+def _samples_equal(a, b) -> bool:
+    return len(a) == len(b) and all(
+        x.keys() == y.keys() and all(
+            x[k] == y[k] if k == "meta" else
+            (np.asarray(x[k]).dtype == np.asarray(y[k]).dtype
+             and np.array_equal(x[k], y[k])) for k in x)
+        for x, y in zip(a, b))
+
+
+def _pool_checks(root: str) -> dict:
+    """Phase 16b: ColocationNuscenesDataset("train") at the train
+    wrapper's settings, iterated with the pool (0 workers), without it,
+    and with the pool in 2 forked workers."""
+    import torch.utils.data
+
+    from gcl_tpu_torch.config import default_config
+    from gcl_tpu_torch.data import colocation, kitti_io
+
+    cfg = default_config(kitti_root=root, min_dist=3, max_dist=18,
+                         num_neighborhood=6)
+    ds = _Seeded(colocation.ColocationNuscenesDataset(
+        "train", random_rotation=True, random_scale=True, config=cfg))
+
+    def one_pass(workers: int):
+        # forked workers (the port's own loader spawns them): each child
+        # inherits this process's pool without its threads, and must build
+        # its own (ScanPrefetcher._check_fork)
+        loader = torch.utils.data.DataLoader(
+            ds, batch_size=None, num_workers=workers,
+            collate_fn=lambda s: s,
+            multiprocessing_context="fork" if workers else None)
+        return list(loader)
+
+    reads = []
+    real_read, real_hint = kitti_io.read_velodyne_bin, kitti_io.prefetch_scans
+
+    def read(path):
+        reads[-1].append(path)
+        return real_read(path)
+
+    def hint(paths):
+        reads.append([])  # a sample hints before its first read
+        real_hint(paths)
+
+    pool = kitti_io._get_prefetcher()
+    counted = _ServedFetches(pool._lib)
+    pool._lib, kitti_io.read_velodyne_bin = counted, read
+    kitti_io.prefetch_scans = hint
+    t0 = time.perf_counter()
+    try:
+        with_pool = one_pass(0)
+    finally:
+        pool._lib, kitti_io.read_velodyne_bin = counted._lib, real_read
+        kitti_io.prefetch_scans = real_hint
+    t1 = time.perf_counter()
+    kitti_io.prefetch_scans = lambda paths: None
+    try:
+        without = one_pass(0)
+    finally:
+        kitti_io.prefetch_scans = real_hint
+    t2 = time.perf_counter()
+    forked = one_pass(2)
+    t3 = time.perf_counter()
+    n_reads = sum(len(r) for r in reads)
+    distinct = sum(len(set(r)) for r in reads)
+    out = {"samples": len(with_pool), "scan_reads": n_reads,
+           "distinct_scan_reads": distinct, "pool_served": counted.served,
+           "pool_s": t1 - t0, "no_pool_s": t2 - t1,
+           "forked_2_workers_s": t3 - t2}
+    print(f"ColocationNuscenesDataset train: {json.dumps(out)}")
+    _require(len(reads) == len(with_pool) >= 8,
+             f"one hint a sample, {len(reads)} for {len(with_pool)}")
+    _require(counted.served == distinct > 0,
+             f"each sample's scans served by the pool: {out}")
+    _require(_samples_equal(with_pool, without),
+             "samples with the pool bit-equal to those without")
+    _require(_samples_equal(with_pool, forked),
+             "samples in 2 forked workers bit-equal to the in-process ones")
+    return out
+
+
+def _wrapper(argv, cwd: str, env: dict, log: str):
+    """Run a wrapper as a subprocess; its output goes to ``log``. A failure
+    prints the log's tail and fails the run."""
+    import subprocess
+
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        rc = subprocess.run(argv, cwd=cwd, env=env, stdout=f,
+                            stderr=subprocess.STDOUT,
+                            timeout=WRAPPER_TIMEOUT_S).returncode
+    wall = time.perf_counter() - t0
+    with open(log) as f:
+        lines = f.read().splitlines()
+    if rc != 0:
+        print("\n".join(lines[-40:]))
+    _require(rc == 0, f"{' '.join(argv)} exits 0, got {rc}")
+    return lines, wall
+
+
+def host_native_checks(gpu: str, tmp: str) -> dict:
+    """Phase 16: the host library, the nuScenes data path through the scan
+    pool, and the nuScenes GCL train and test wrappers on the card."""
+    import os
+    import re
+
+    from gcl_tpu_torch.data.synthetic import generate_synthetic_nuscenes
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = {"native": _native_checks(gpu)}
+    root = os.path.join(tmp, "nuscenes")
+    generate_synthetic_nuscenes(root, n_logs=NUSC_LOGS, n_frames=NUSC_FRAMES)
+    out["pool"] = _pool_checks(root)
+
+    # (c) the train wrapper at its defaults for one epoch
+    run = os.path.join(tmp, "wrappers")
+    os.makedirs(run)
+    env = {**os.environ, "PYTHONPATH": repo, "NUSCENES_PATH": root,
+           "MAX_EPOCH": "1"}
+    scripts = os.path.join(repo, "gcl_tpu_torch", "scripts")
+    lines, wall = _wrapper(["bash", os.path.join(scripts,
+                                                 "train_gcl_nuscenes.sh"),
+                            "", TRAIN_MISC], run, env,
+                           os.path.join(tmp, "train_wrapper.log"))
+    out_dir = lines[0]
+    scheme = (r"\./outputs/Experiments/PairComplementNuscenesDataset-v0\.3/"
+              r"FinestContrastiveLossTrainer/ResUNetFatBN/"
+              r"SGD-lr1e-1-e1-b4i1-modelnout32/"
+              r"\d{4}-\d\d-\d\d_\d\d-\d\d-\d\d")
+    _require(re.fullmatch(scheme, out_dir) is not None,
+             f"the root wrappers' OUT_DIR scheme, got {out_dir!r}")
+    full = os.path.join(run, out_dir)
+    stamp = out_dir.rsplit("/", 1)[1]
+    for f in (f"log_{stamp}.txt", "checkpoint.pth", "config.json",
+              "best_val_checkpoint.pth"):
+        _require(os.path.exists(os.path.join(full, f)),
+                 f"the train wrapper wrote {f}")
+    with open(os.path.join(full, "scalars.jsonl")) as f:
+        losses = [json.loads(line)["value"] for line in f
+                  if '"train/loss"' in line]
+    print(f"train_gcl_nuscenes.sh, 1 epoch: {wall:.1f} s wall, train/loss "
+          f"{losses}, OUT_DIR {out_dir}")
+    _require(2 <= len(losses) <= 6 and np.isfinite(losses).all(),
+             f"2-6 finite train losses, got {losses}")
+    out["train_wrapper"] = {"wall_s": wall, "iterations": len(losses),
+                            "losses": losses, "out_dir": out_dir}
+
+    # (d) the test wrapper on that run directory
+    lines, wall = _wrapper(["bash", os.path.join(scripts,
+                                                 "test_gcl_nuscenes.sh"),
+                            out_dir, TEST_MISC], run, env,
+                           os.path.join(tmp, "test_wrapper.log"))
+    res = json.loads([line for line in lines
+                      if line.startswith('{"rr"')][-1])
+    print(f"test_gcl_nuscenes.sh: {wall:.1f} s wall, {json.dumps(res)}")
+    _require(res["pairs"] >= 1 and np.isfinite([res["rte"], res["rre"]]).all()
+             and res["device"] == "cuda",
+             f"at least one pair, finite RTE / RRE on the card, got {res}")
+    out["test_wrapper"] = {"wall_s": wall, **res}
+    return out
+
+
 class _PhaseClock:
     """Prints each phase's wall seconds, and the run's so far."""
 
@@ -3457,6 +3727,13 @@ def main() -> None:
                  "sc2_benchmark": sc2_benchmark_checks(gpu, tmp)}
     torch.cuda.empty_cache()
     clock("14 the entry points")
+    # 16. the host library, the nuScenes data path and the wrappers (the
+    # in-process parts driven with the counts set to 0 just before)
+    with tempfile.TemporaryDirectory() as tmp:
+        host, host_launches = _counted(lambda: host_native_checks(gpu, tmp))
+    _require(not any(host_launches.values()),
+             f"no launch in phase 16's own process, got {host_launches}")
+    clock("16 host native and the wrappers")
 
     conv, radius = "pallas_conv.py", "pallas_radius.py"
     table = [
@@ -3581,6 +3858,8 @@ def main() -> None:
             demo_synthetic_launches=demo_runs["synthetic"]["launches"][k],
             demo_scan_launches=demo_runs["scan_65536"]["launches"][k],
             eth_launches=entry["eth"]["launches"][k])
+    for i, (k, *_) in enumerate(table):  # phase 16's in-process parts
+        kernels[i]["host_native_launches"] = host_launches[k]
     for i, k in ((0, "K6"), (2, "K2")):
         kernels[i]["float32"].update(
             demo_synthetic=demo_runs["synthetic"]["kernels"][k],
@@ -3608,6 +3887,7 @@ def main() -> None:
                 if k not in ("kernels", "launches")},
         "sc2_benchmark": {k: v for k, v in entry["sc2_benchmark"].items()
                        if k != "launches"}}}))
+    print(json.dumps({"host_native": host}))
     print(json.dumps({"kernels": kernels}))
     print(f"{gpu}")
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,9 @@ bands along the trajectory, loads the scans, applies the SE(3) + scale
 augmentation and emits fixed-capacity point arrays; voxelization and the
 colocation-group search run on the device (data/device_pipeline.py). The
 helpers it shares with the pair datasets (DATA_FILES, apply_transform,
-_cap_points, _pad_points) live in data/pairs.py. Scans are read with
-numpy (data/kitti_io.py); gcl_tpu's native prefetch hint has no
-counterpart.
+_cap_points, _pad_points) live in data/pairs.py. Each sample hints its
+scans to the native async reader before reading them
+(data/kitti_io.py:prefetch_scans).
 """
 from __future__ import annotations
 
@@ -78,8 +78,14 @@ class ColocationDatasetBase:
     def _poses(self, drive):
         raise NotImplementedError
 
-    def _xyz(self, drive, t):
+    def _scan_path(self, drive, t):
         raise NotImplementedError
+
+    def _xyz(self, drive, t):
+        return kitti_io.read_velodyne_bin(self._scan_path(drive, t))
+
+    def _prefetch(self, drive, ts):
+        kitti_io.prefetch_scans(self._scan_path(drive, t) for t in ts)
 
     def _neighborhood_frames(self, frame: int):
         """Sample num_neighborhood frames in per-ring distance bands, half
@@ -131,6 +137,9 @@ class ColocationDatasetBase:
         all_pos = self._poses(drive)
         pos = all_pos[t]
         pos_cmpl = [all_pos[tt] for tt in t_cmpl]
+        # hint all of the sample's scans to the native async reader so
+        # the 1 + num_neighborhood disk reads overlap
+        self._prefetch(drive, [t] + list(t_cmpl))
 
         xyz = _cap_points(self._xyz(drive, t), self.max_in_p, np.random)
         xyz_cmpl = [
@@ -201,9 +210,8 @@ class ColocationKittiDataset(ColocationDatasetBase):
     def _poses(self, drive):
         return kitti_io.slam_poses(self.root, drive)
 
-    def _xyz(self, drive, t):
-        return kitti_io.read_velodyne_bin(
-            kitti_io.scan_path(self.root, drive, t))
+    def _scan_path(self, drive, t):
+        return kitti_io.scan_path(self.root, drive, t)
 
 
 class ColocationNuscenesDataset(ColocationDatasetBase):
@@ -233,7 +241,6 @@ class ColocationNuscenesDataset(ColocationDatasetBase):
     def _poses(self, dirname):
         return kitti_io.nuscenes_poses(self.root, str(dirname))
 
-    def _xyz(self, dirname, t):
-        return kitti_io.read_velodyne_bin(
-            os.path.join(self.root, "sequences", str(dirname),
-                         "velodyne", "%06d.bin" % t))
+    def _scan_path(self, dirname, t):
+        return os.path.join(self.root, "sequences", str(dirname),
+                            "velodyne", "%06d.bin" % t)

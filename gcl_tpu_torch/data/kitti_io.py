@@ -1,6 +1,9 @@
 """KITTI odometry host-side IO: velodyne scans, calib, poses (port of
-gcl_tpu/data/kitti_io.py with its numpy reader; gcl_tpu's native async
-prefetcher is not ported, and scans are read when asked for).
+gcl_tpu/data/kitti_io.py). Datasets hint each sample's scans to the
+native async reader (native.ScanPrefetcher, a C++ thread pool of
+``GCL_IO_THREADS`` threads, 4 by default), and ``read_velodyne_bin``
+serves hinted payloads from it; without the native library every scan
+is read with numpy when asked for.
 
 Covers both pose sources the reference uses:
   * GT odometry poses `<root>/dataset/poses/%02d.txt` (camera frame,
@@ -36,9 +39,37 @@ def velo2cam_T() -> np.ndarray:
     return np.vstack((m, [0, 0, 0, 1])).T
 
 
+_prefetcher = None
+
+
+def _get_prefetcher():
+    global _prefetcher
+    if _prefetcher is None:
+        from ..native import ScanPrefetcher
+
+        _prefetcher = ScanPrefetcher(
+            n_threads=int(os.environ.get("GCL_IO_THREADS", "4")))
+    return _prefetcher
+
+
+def prefetch_scans(paths) -> None:
+    """Hint upcoming scan files to the native async reader
+    (native/scan_reader.cpp). Datasets call this with all of a sample's
+    scans before reading them, so that the thread pool reads them while
+    the host assembles the sample; a no-op without the native library."""
+    p = _get_prefetcher()
+    for path in paths:
+        p.submit(path)
+
+
 def read_velodyne_bin(path: str) -> np.ndarray:
-    """Load an Nx3 float32 point cloud from a KITTI .bin (xyzr)."""
-    return np.fromfile(path, dtype=np.float32).reshape(-1, 4)[:, :3]
+    """Load an Nx3 float32 point cloud from a KITTI .bin (xyzr);
+    serves prefetched payloads from the native reader when hinted."""
+    if _prefetcher is not None:
+        xyzr = _prefetcher.fetch(path).reshape(-1, 4)
+    else:
+        xyzr = np.fromfile(path, dtype=np.float32).reshape(-1, 4)
+    return xyzr[:, :3]
 
 
 def scan_path(root: str, drive: int, t: int) -> str:

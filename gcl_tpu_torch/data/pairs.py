@@ -162,9 +162,14 @@ class PairComplementKittiDataset:
             return cam
         return kitti_io.slam_poses(self.root, drive)
 
+    def _scan_path(self, drive, t):
+        return kitti_io.scan_path(self.root, drive, t)
+
     def _xyz(self, drive, t):
-        return kitti_io.read_velodyne_bin(
-            kitti_io.scan_path(self.root, drive, t))
+        return kitti_io.read_velodyne_bin(self._scan_path(drive, t))
+
+    def _prefetch(self, drive, ts):
+        kitti_io.prefetch_scans(self._scan_path(drive, t) for t in ts)
 
     def _prepare(self, phase):
         """Pair index: d ~ U(MIN,MAX) along the trajectory, both ends must
@@ -295,6 +300,8 @@ class PairComplementKittiDataset:
             cmpl0 = cmpl1 = []
         all_pos = self._all_pos(drive)
         pos0, pos1 = all_pos[t0], all_pos[t1]
+        # overlap this sample's disk reads via the native async reader
+        self._prefetch(drive, [t0, t1] + list(cmpl0) + list(cmpl1))
         xyz0 = self._xyz(drive, t0)
         xyz1 = self._xyz(drive, t1)
 
@@ -431,10 +438,9 @@ class PairComplementNuscenesDataset(PairComplementKittiDataset):
     def _all_pos(self, dirname):
         return kitti_io.nuscenes_poses(self.root, str(dirname))
 
-    def _xyz(self, dirname, t):
-        return kitti_io.read_velodyne_bin(
-            os.path.join(self.root, "sequences", str(dirname),
-                         "velodyne", "%06d.bin" % t))
+    def _scan_path(self, dirname, t):
+        return os.path.join(self.root, "sequences", str(dirname),
+                            "velodyne", "%06d.bin" % t)
 
     def _get_icp(self, drive, t_curr, t_next, xyz_curr, xyz_next,
                  pos_curr, pos_next):

@@ -6,8 +6,9 @@ benchmark, and a miniature KITTI-layout dataset.
 world of random structure (ground plane + boxes) and a vehicle driving
 through it, written as real `sequences/%02d/velodyne/%06d.bin` scans,
 `calib.txt`, `poses.txt` (SLAM layout) and `poses/%02d.txt` (odometry
-layout), so the pair datasets and the evaluation entry point run
-unmodified on it.
+layout), or as a nuScenes-as-KITTI export
+(`sequences/<log>/velodyne/%06d.bin` and `poses.npy`), so the datasets
+and the entry points run unmodified on it.
 """
 import os
 import pathlib
@@ -129,6 +130,28 @@ def generate_synthetic_kitti(root: str, n_drives=1, n_frames=60,
                 p = v2c @ T @ np.linalg.inv(v2c)
                 f.write(" ".join("%.9e" % v for v in p[:3].reshape(-1))
                         + "\n")
+    return str(root)
+
+
+def generate_synthetic_nuscenes(root: str, n_logs=1, n_frames=60,
+                                step=2.0, seed=0, max_range=45.0):
+    """Write a synthetic nuScenes-as-KITTI export under `root`: the
+    layout assets/export_kitti_minimal.py produces and the nuScenes
+    datasets consume -- root/dataset/sequences/<log>/velodyne/%06d.bin
+    plus poses.npy ([N, 4, 4] velodyne world poses, used directly as GT;
+    reference lib/complement_data_loader.py:1035)."""
+    rng = np.random.RandomState(seed)
+    base = pathlib.Path(root) / "dataset"
+    for li in range(n_logs):
+        log = f"n000-synthetic-log-{li:02d}"
+        seq = base / "sequences" / log
+        (seq / "velodyne").mkdir(parents=True, exist_ok=True)
+        poses = []
+        for i, (T, xyzr) in enumerate(
+                _gen_drive(rng, n_frames, step, max_range)):
+            poses.append(T)
+            xyzr.tofile(seq / "velodyne" / ("%06d.bin" % i))
+        np.save(seq / "poses.npy", np.stack(poses))
     return str(root)
 
 

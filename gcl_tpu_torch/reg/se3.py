@@ -21,3 +21,15 @@ def integrate_trans(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     out[..., :3, :3] = r
     out[..., :3, 3:4] = t.reshape(*batch, 3, 1)
     return out
+
+
+def decompose_trans(trans: torch.Tensor):
+    """[..., 4, 4] -> (R [..., 3, 3], t [..., 3, 1])."""
+    return trans[..., :3, :3], trans[..., :3, 3:4]
+
+
+def concatenate(trans1: torch.Tensor, trans2: torch.Tensor) -> torch.Tensor:
+    """Composite transform: first trans2, then trans1."""
+    r1, t1 = decompose_trans(trans1)
+    r2, t2 = decompose_trans(trans2)
+    return integrate_trans(r1 @ r2, r1 @ t2 + t1)

@@ -61,3 +61,16 @@ class Timer:
         self.calls += 1
         self.avg = self.average_time
         return self.average_time if average else self.diff
+
+
+class MinTimer(Timer):
+    """A Timer that also keeps the shortest of its intervals."""
+
+    def __init__(self):
+        super().__init__()
+        self.min = float("inf")
+
+    def toc(self, average=True):
+        out = super().toc(average)
+        self.min = min(self.min, self.diff)
+        return out

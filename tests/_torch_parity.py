@@ -23,6 +23,24 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+def build_gcl_tpu_native(out_dir) -> str:
+    """gcl_tpu's host library compiled from gcl_tpu/native/*.cpp with its
+    Makefile's flags into out_dir (not in place: tests/test_native.py
+    runs `make` there, maybe in another worker at the same time)."""
+    import os
+    import subprocess
+
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "gcl_tpu", "native")
+    so = os.path.join(str(out_dir), "libgclnative.so")
+    subprocess.run(["g++", "-O3", "-march=native", "-fPIC", "-fopenmp",
+                    "-std=c++17", "-Wall", "-shared", "-o", so,
+                    os.path.join(src, "voxel_ops.cpp"),
+                    os.path.join(src, "scan_reader.cpp")],
+                   check=True, capture_output=True)
+    return so
+
+
 def clouds(seed: int, n_clouds: int = 2, n_points: int = 700):
     """Small LiDAR-like clouds, float32[C, P, 3] (a ground patch + posts,
     a few metres across, so a few hundred voxels each) and pmask with a

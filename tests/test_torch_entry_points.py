@@ -301,13 +301,15 @@ def _sc2_pair(rng, n=400):
 
 @pytest.fixture
 def sc2_roots(tmp_path):
-    """A 3DMatch root (gt_result/<scene>-evaluation/*.npz) and a KITTI
-    root (fcgf_test/*.npz, FCGF's key names), two pairs each. In the
+    """A 3DMatch root (gt_result/<scene>-evaluation/*.npz) and two KITTI
+    roots (fcgf_test/*.npz, FCGF's key names), two pairs each. In the
     3DMatch root a third of the second pair's descriptors are random unit
-    vectors. The KITTI root has no such outliers: its config refines over
-    the inliers within 1.2 m, and a random match whose residual lies
-    within float32 rounding of that flips between the packages (0.011 deg
-    of RE seen)."""
+    vectors. The first KITTI root has no such outliers; the second
+    ("KITTI outliers") holds the same arrays with the 3DMatch root's
+    random third: config_KITTI.json refines over the inliers within
+    1.2 m, and a random match whose residual lies within float32 rounding
+    of that may flip between the packages
+    (test_sc2pcr_kitti_with_outliers_matches_root)."""
     rng = np.random.RandomState(0)
     threed = tmp_path / "3dmatch"
     (threed / "fragments" / "7-scenes-redkitchen").mkdir(parents=True)
@@ -315,6 +317,8 @@ def sc2_roots(tmp_path):
     gt_dir.mkdir(parents=True)
     kitti = tmp_path / "kitti" / "fcgf_test"
     kitti.mkdir(parents=True)
+    outliers = tmp_path / "kitti_outliers" / "fcgf_test"
+    outliers.mkdir(parents=True)
     for i in range(2):
         xyz0, xyz1, f0, f1, gt = _sc2_pair(rng)
         np.savez(kitti / f"pair_{i}.npz", xyz0=xyz0, xyz1=xyz1,
@@ -324,8 +328,12 @@ def sc2_roots(tmp_path):
             f1[::3] = noise / np.linalg.norm(noise, axis=1, keepdims=True)
         np.savez(gt_dir / f"pair_{i}.npz", xyz0=xyz0, xyz1=xyz1, feat0=f0,
                  feat1=f1, gt_trans=gt)
+        np.savez(outliers / f"pair_{i}.npz", xyz0=xyz0, xyz1=xyz1,
+                 features0=f0, features1=f1, gt_trans=gt)
     return {"3DMatch": (threed, "config_3DMatch.json"),
-            "KITTI": (tmp_path / "kitti", "config_KITTI.json")}
+            "KITTI": (tmp_path / "kitti", "config_KITTI.json"),
+            "KITTI outliers": (tmp_path / "kitti_outliers",
+                               "config_KITTI.json")}
 
 
 @pytest.mark.parametrize("dataset", ["3DMatch", "KITTI"])
@@ -356,6 +364,123 @@ def test_sc2pcr_benchmark_matches_root(sc2_roots, tmp_path, monkeypatch,
             stats = shim.main(["--data_root", str(root), "--device",
                                "cpu"])
             assert stats["RR"] == 100.0
+
+
+def _record_refinement(monkeypatch, jsc, tsc):
+    """Record, in each package's post_refinement, every round's pose (the
+    argument of transform) and inlier weights (the argument of
+    rigid_transform_3d: w > 0 exactly on the matches within 1.2 m).
+    gcl_tpu's rounds run inside its jitted SC2_PCR: ordered debug
+    callbacks hand their values out as they run. Returns {"ref": [...],
+    "ours": [...]}, each a list of ("T" | "w", array) in call order (per
+    pair: 20 rounds of T then w, then the estimator's final T)."""
+    rec = {"ref": [], "ours": []}
+    j_rigid, j_transform = jsc.rigid_transform_3d, jsc.transform
+    t_rigid, t_transform = tsc.rigid_transform_3d, tsc.transform
+
+    def keep(kind):
+        return lambda a: rec["ref"].append((kind, np.asarray(a)[0].copy()))
+
+    def j_rigid_rec(src, tgt, w):
+        if w.ndim == 2 and w.shape[0] == 1:  # a refinement round, bs 1
+            jax.debug.callback(keep("w"), w, ordered=True)
+        return j_rigid(src, tgt, w)
+
+    def j_transform_rec(pts, trans):
+        jax.debug.callback(keep("T"), trans, ordered=True)
+        return j_transform(pts, trans)
+
+    def t_rigid_rec(src, tgt, w):
+        if w.dim() == 2 and w.shape[0] == 1:
+            rec["ours"].append(("w", w[0].cpu().numpy().copy()))
+        return t_rigid(src, tgt, w)
+
+    def t_transform_rec(pts, trans):
+        rec["ours"].append(("T", trans[0].cpu().numpy().copy()))
+        return t_transform(pts, trans)
+
+    monkeypatch.setattr(jsc, "rigid_transform_3d", j_rigid_rec)
+    monkeypatch.setattr(jsc, "transform", j_transform_rec)
+    monkeypatch.setattr(tsc, "rigid_transform_3d", t_rigid_rec)
+    monkeypatch.setattr(tsc, "transform", t_transform_rec)
+    return rec
+
+
+def test_sc2pcr_kitti_with_outliers_matches_root(sc2_roots, tmp_path,
+                                                 monkeypatch):
+    """config_KITTI.json's outlier path: a third of the second pair's
+    descriptors are random, so its matches hold outliers at every
+    residual, some near the refinement's 1.2 m.
+
+    In every one of the 20 refinement rounds of each pair, the two
+    packages' inlier sets may differ only on matches whose residual is
+    within float32 rounding of 1.2 m: in float64, from the float32
+    coordinates and each package's own pose of that round, both residuals
+    lie within 8 float32 epsilons of |src| + |t| + |tgt| (the rounding of
+    R src + t - tgt and its norm) plus the two poses' largest difference
+    times |src| + 1. (On these arrays the sets are equal in every round.)
+    RR and F1 are equal. The final poses are within 1e-5 (float32
+    rounding of the 20 reweighted Kabsch rounds) plus, for each match
+    whose membership differs in the last round, its weight's largest
+    pull on the weighted fit, 0.5 * 1.2 m / (the round's weight sum): a
+    match at 1.2 m has weight 1 / (1 + 1)."""
+    import gcl_tpu.reg.sc2pcr as jsc
+
+    from gcl_tpu_torch.reg import sc2pcr as tsc
+
+    root, name = sc2_roots["KITTI outliers"]
+    with open(os.path.join(SC2_CONFIGS, name)) as f:
+        cfg = json.load(f)
+    cfg.update(num_node="all", max_points=500)
+    cfg_path = str(tmp_path / "cfg.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    flags = ["--config_path", cfg_path, "--data_root", str(root)]
+    rec = _record_refinement(monkeypatch, jsc, tsc)
+    root_bench = _script("scripts/SC2_PCR/test_KITTI.py", "root_sc2")
+    monkeypatch.setattr("sys.argv", ["test_KITTI.py"] + flags)
+    ref = root_bench.main()
+    got = test_kitti.main(flags + ["--device", "cpu"])
+    assert got["RR"] == ref["RR"] == 100.0
+    assert got["F1"] == ref["F1"] and 0.5 < got["F1"] <= 1.0
+
+    rounds = cfg["num_iterations"]
+    per_pair = 2 * rounds + 1
+    eps = float(np.finfo(np.float32).eps)
+    n_pairs = len(os.listdir(root / "fcgf_test"))
+    assert len(rec["ref"]) == len(rec["ours"]) == n_pairs * per_pair
+    outlier_rounds = 0
+    for p in range(n_pairs):
+        pair = np.load(root / "fcgf_test" / f"pair_{p}.npz")
+        f0, f1 = pair["features0"], pair["features1"]
+        nn = np.argmin(2 - 2 * f0 @ f1.T, axis=1)  # num_node "all"
+        src = pair["xyz0"].astype(np.float64)
+        tgt = pair["xyz1"][nn].astype(np.float64)
+        scale = np.abs(src).sum(1) + np.abs(tgt).sum(1)
+        recs = [r[p * per_pair:(p + 1) * per_pair] for r in
+                (rec["ref"], rec["ours"])]
+        assert all([k for k, _ in r] == ["T", "w"] * rounds + ["T"]
+                   for r in recs)
+        for j in range(rounds):
+            (_, t_ref), (_, w_ref) = recs[0][2 * j:2 * j + 2]
+            (_, t_ours), (_, w_ours) = recs[1][2 * j:2 * j + 2]
+            in_ref, in_ours = w_ref > 0, w_ours > 0
+            outlier_rounds += int((~in_ref).any())
+            gap = np.abs(t_ref.astype(np.float64) - t_ours).max()
+            for m in np.nonzero(in_ref != in_ours)[0]:
+                tol = (8 * eps * (scale[m] + np.abs(t_ref[:3, 3]).sum())
+                       + gap * (np.abs(src[m]).sum() + 1))
+                for t in (t_ref, t_ours):
+                    t = t.astype(np.float64)
+                    res = np.linalg.norm(src[m] @ t[:3, :3].T + t[:3, 3]
+                                         - tgt[m])
+                    assert abs(res - 1.2) <= tol, (p, j, m, res, tol)
+        w_last = [recs[i][2 * rounds - 1][1] for i in (0, 1)]
+        flips = int(((w_last[0] > 0) != (w_last[1] > 0)).sum())
+        pose_tol = 1e-5 + flips * 0.5 * 1.2 / w_last[1].sum()
+        np.testing.assert_allclose(recs[1][-1][1], recs[0][-1][1], rtol=0,
+                                   atol=pose_tol)
+    assert outlier_rounds >= rounds  # the outlier pair's rounds saw some
 
 
 @pytest.mark.parametrize("entry,argv", [

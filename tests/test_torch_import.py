@@ -1,7 +1,8 @@
 """gcl_tpu_torch stands alone: it imports on a CPU-only machine without JAX,
 flax, optax, gcl_tpu, scikit-learn or matplotlib (the card's machine has
-neither of the last two), and importing it builds no kernel; chip_smoke.py
-imports none of them either; the port's bench runs on the CPU when asked."""
+neither of the last two), and importing it builds no kernel and no host
+library; chip_smoke.py imports none of them either; the port's bench runs
+on the CPU when asked."""
 import ast
 import json
 import os
@@ -19,6 +20,11 @@ names = [m.name for m in pkgutil.walk_packages(gcl_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 from gcl_tpu_torch.kernels import build
+from gcl_tpu_torch import native
+from gcl_tpu_torch.data.kitti_io import prefetch_scans, read_velodyne_bin
+from gcl_tpu_torch.data.synthetic import generate_synthetic_nuscenes
+from gcl_tpu_torch.reg.se3 import concatenate, decompose_trans
+from gcl_tpu_torch.utils.timer import MinTimer
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "gcl_tpu", "sklearn", "matplotlib"))
@@ -52,9 +58,11 @@ missing = [n for n in ("gcl_tpu_torch.losses.gcl", "gcl_tpu_torch.train.steps",
                        "gcl_tpu_torch.utils.misc",
                        "gcl_tpu_torch.utils.pointcloud",
                        "gcl_tpu_torch.utils.trajectory",
-                       "gcl_tpu_torch.utils.visualization")
+                       "gcl_tpu_torch.utils.visualization",
+                       "gcl_tpu_torch.native")
            if n not in names]
-print(len(names), bad + missing, build._lib is None)
+print(len(names), bad + missing, build._lib is None and native._lib is None
+      and not native._tried)
 """
 
 
@@ -64,7 +72,7 @@ def test_import_leaves_jax_out_and_builds_nothing():
     line = out.stdout.strip().splitlines()[-1]
     n_modules, rest = line.split(" ", 1)
     assert rest == "[] True", line  # no JAX module, no library loaded
-    assert int(n_modules) >= 52, line
+    assert int(n_modules) >= 53, line
 
 
 def test_synth_lidar_is_bench_copy():

@@ -9,7 +9,9 @@ Tolerances:
   fitness equal wherever every residual clears the threshold by 1e-4
   (and each edge-length comparison of its sample by as much), the same hypothesis chosen, the transform within 1e-4, inliers equal;
 - est_quad_linear_robust: within 1e-4 (20 float32 6x6 solves);
-- metrics within 1e-6; ICP, a numpy copy, bit for bit.
+- metrics within 1e-6; ICP, a numpy copy, bit for bit;
+- decompose_trans exactly, concatenate within 1e-6 (float32 3x3
+  products and sums, XLA's and torch's orders).
 """
 import jax
 import jax.numpy as jnp
@@ -24,8 +26,9 @@ from gcl_tpu.reg.matching import find_nn as j_find_nn
 from gcl_tpu.reg.procrustes import rigid_transform_3d as j_rigid
 from gcl_tpu.reg.ransac import ransac_pose as j_ransac_pose
 from gcl_tpu.reg.robust import est_quad_linear_robust as j_robust
+from gcl_tpu.reg import se3 as jse3
 from gcl_tpu.reg.se3 import transform as j_transform
-from gcl_tpu_torch.reg import icp, metrics
+from gcl_tpu_torch.reg import icp, metrics, se3
 from gcl_tpu_torch.reg.matching import (find_corr, find_nn, find_nn_cpu,
                                         mutual_feature_match)
 from gcl_tpu_torch.reg.ransac import ransac_pose, score_hypotheses
@@ -301,3 +304,28 @@ def test_icp_is_gcl_tpus_bit_for_bit():
                                   jicp.registration_icp(src, dst, 0.2))
     np.testing.assert_array_equal(icp.voxel_downsample(src, 0.25),
                                   jicp.voxel_downsample(src, 0.25))
+
+
+@pytest.mark.parametrize("batch", [(), (3,), (2, 4)])
+def test_decompose_and_concatenate_match_jax(batch):
+    """decompose_trans's (R, t) equal gcl_tpu's; concatenate (first
+    trans2, then trans1) within 1e-6 of gcl_tpu's, and acting on points
+    as trans2 then trans1 do."""
+    rng = np.random.RandomState(len(batch))
+    n = int(np.prod(batch))
+    t1, t2 = (np.stack([_transform(rng, 90, 5) for _ in range(n)]).reshape(
+        *batch, 4, 4) for _ in range(2))
+    for ours, ref in zip(se3.decompose_trans(torch.from_numpy(t1)),
+                         jse3.decompose_trans(jnp.asarray(t1))):
+        np.testing.assert_array_equal(to_np(ours), np.asarray(ref))
+    got = to_np(se3.concatenate(torch.from_numpy(t1), torch.from_numpy(t2)))
+    ref = np.asarray(jse3.concatenate(jnp.asarray(t1), jnp.asarray(t2)))
+    assert got.shape == (*batch, 4, 4) and got.dtype == np.float32
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
+    x = rng.randn(50, 3).astype(np.float32)
+    flat = got.reshape(-1, 4, 4)
+    for i in range(n):
+        a, b = t1.reshape(-1, 4, 4)[i], t2.reshape(-1, 4, 4)[i]
+        np.testing.assert_allclose(_apply(flat[i], x), _apply(a, _apply(b, x)),
+                                   rtol=0, atol=1e-4)
+

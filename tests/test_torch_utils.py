@@ -30,13 +30,15 @@ from gcl_tpu.utils import file as jfile
 from gcl_tpu.utils import misc as jmisc
 from gcl_tpu.utils import pointcloud as jpc
 from gcl_tpu.utils import trajectory as jtraj
+from gcl_tpu.utils import timer as jtimer
 from gcl_tpu.utils import visualization as jvis
 from gcl_tpu_torch.models import load_model
 from gcl_tpu_torch.models.weights import flax_to_state_dict, random_state_dict
 from gcl_tpu_torch.sc2_pcr.utils import max_clique, sinkhorn
 from gcl_tpu_torch.train import import_torch
 from gcl_tpu_torch.utils import file as tfile
-from gcl_tpu_torch.utils import misc, pointcloud, trajectory, visualization
+from gcl_tpu_torch.utils import (misc, pointcloud, timer, trajectory,
+                                  visualization)
 
 from _torch_parity import one_torch_thread  # noqa: F401
 
@@ -222,3 +224,22 @@ def test_me_import_equals_gcl_tpu_bit_for_bit(tmp_path, name, k, in_block):
     if in_block:
         assert not any(k.startswith(in_block + ".norm") for k in sd)
     assert any("_tr.kernel" in k for k in sd) and "final.kernel" in sd
+
+
+def test_min_timer_matches_gcl_tpu(monkeypatch):
+    """MinTimer on a clock that reads 0, 3, 10, 11, 20, 25 (intervals 3, 1,
+    5): the same min, average and last interval as gcl_tpu's."""
+    out = []
+    for mod in (timer, jtimer):
+        reads = iter([0.0, 3.0, 10.0, 11.0, 20.0, 25.0])
+        monkeypatch.setattr(mod.time, "time", lambda: next(reads))
+        t = mod.MinTimer()
+        assert t.min == float("inf")
+        got = []
+        for _ in range(3):
+            t.tic()
+            got.append(t.toc(average=False))
+        out.append((got, t.min, t.avg, t.calls, t.diff))
+        monkeypatch.undo()
+    assert out[0] == out[1] == ([3.0, 1.0, 5.0], 1.0, 3.0, 3, 5.0)
+
