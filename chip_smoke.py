@@ -146,8 +146,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
    every launch held to its plain version, exactly K2 2, K4 2, K6 40, K3
    2, K5 2, K7 40 launches, 3 timed steps (pairs/s; finite losses,
    positives found, a parameter of every module changed), a timed
-   plain-path step, the peak memory and a torch.profiler window of two
-   steps (device ms by fcgf/ stage, the device's idle share); (c) one
+   plain-path step and the peak memory; (c) one
    bf16 step with the same launches, every launch against its plain bf16
    version, the loss terms
    within twice the plain path's bf16-vs-float32 drift; (d) the entry
@@ -2134,14 +2133,12 @@ def fcgf_step_checks(dev, gpu: str) -> dict:
     counts, 3 timed steps, a timed plain-path step, peak memory) and one
     bf16 step (the same launch counts, every launch against its plain bf16
     version, loss terms within twice the plain path's bf16-vs-float32
-    drift), and a torch.profiler window of two steps. Returns
-    {"launches", "bf16_launches", "step_time_s", "pairs_per_s",
-    "plain_step_time_s", "peak_gib", "loss", "stage_ms",
-    "device_idle_share"}."""
+    drift). Returns {"launches", "bf16_launches", "step_time_s",
+    "pairs_per_s", "plain_step_time_s", "peak_gib", "loss"}."""
     import dataclasses
 
     import torch
-    from gcl_tpu_torch import bench, infer
+    from gcl_tpu_torch import infer
     from gcl_tpu_torch.kernels import (KERNELS, launch_counts,
                                        reset_launch_counts)
     from gcl_tpu_torch.models.resunet import ResUNetFatBNEXP
@@ -2253,9 +2250,6 @@ def fcgf_step_checks(dev, gpu: str) -> dict:
         runs["plain"]["step"](lr, *batch, generator=gen)
         torch.cuda.synchronize()
         plain_dt = time.perf_counter() - t0
-    # where the step's time goes: its fcgf/ ranges and device ops
-    prof = bench.profile_step(step, batch, gen, 2, "fcgf")
-    print(f"FCGF train step profile (2 steps, float32): {json.dumps(prof)}")
     dt = sorted(times)[1]
     print(f"FCGF train step ({FCGF_BATCH} pairs, float32), kernel path: "
           f"step_time_s {dt:.4f} (min {min(times):.4f}, max "
@@ -2269,10 +2263,7 @@ def fcgf_step_checks(dev, gpu: str) -> dict:
                 bf16_launches=runs["bf16_checked"]["launches"],
                 step_time_s=dt, pairs_per_s=FCGF_BATCH / dt,
                 plain_step_time_s=plain_dt, peak_gib=peak / 2 ** 30,
-                loss=float(metrics["loss"]),
-                stage_ms={k: v.get("device_ms") for k, v in
-                          prof["stage_ms"].items()},
-                device_idle_share=prof["device_idle_share"])
+                loss=float(metrics["loss"]))
 
 
 def fcgf_entry_checks() -> None:

@@ -29,15 +29,16 @@ join kernel and runs the index-table conv kernels, as the root bench.py
 does at that batch (``"graph": "explicit"`` in the output; ``"implicit"``
 up to batch 4). ``--graph explicit`` asks for the tables at any batch.
 
-With ``--profile`` it first prints a JSON line of where one step's time
-goes (host-clock stage times with a synchronize after each stage's range,
-device time by stage and by op from torch.profiler, the device's idle
-share). It then prints, last, ONE JSON line with bench.py's keys (``metric:
+It prints ONE JSON line with bench.py's keys (``metric:
 gcl_train_voxels_per_sec``, ``value``, ``unit``, ``vs_baseline``,
 ``step_time_s`` with min and max, ``voxels_per_step``, ``device``) plus
 ``compute_dtype``, ``search``, ``graph`` and ``gpu`` (the card's name and
 power limit). ``vs_baseline`` divides by the upstream project's own figure for
-this batch shape on an RTX 3090 (~0.81 s/step = 6.4e5 voxel/s).
+this batch shape on an RTX 3090 (~0.81 s/step = 6.4e5 voxel/s). Where
+a step's time goes is the benchmark's to say (``python3 benchmark/run.py
+--workload gcl.train.b4x7 --seed <n> --seconds <s> --trace 1``); an
+operator's trace of a training run is ``python -m gcl_tpu_torch.train
+--profile_dir DIR``.
 """
 from __future__ import annotations
 
@@ -134,54 +135,6 @@ def bench_batch(seed: int, batch_size: int, n_points: int, device):
                  for a in (points, pmask, transforms, radius))
 
 
-def profile_step(step, batch, gen, iters: int = 2,
-                 prefix: str = "gcl") -> dict:
-    """Where a step's time goes on the card: one torch.profiler window
-    over ``iters`` steps. Stage times are the host-side spans of the
-    step's record_function ranges named ``{prefix}/...`` (the GCL step's
-    voxelize, groups, graph, unet, loss, backward, sgd; the FCGF step's
-    ``fcgf/`` ranges) and the device time of the kernels launched inside
-    them; the device's busy time is the sum over device-side events."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            step(0.1, *batch, generator=gen)
-            torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    # device-side events only (kernels and copies), without the ranges'
-    # own device-side annotations, which span the same time again
-    kernels = sorted(((e.self_device_time_total, e.key, e.count)
-                      for e in events if e.device_type == DeviceType.CUDA
-                      and not e.key.startswith(prefix + "/")), reverse=True)
-    busy_ms = sum(us for us, _, _ in kernels) / 1e3
-    # each range shows twice: on the host (its span there) and as an
-    # annotation on the device's timeline (the span of its kernels)
-    stages = {}
-    for e in events:
-        if e.key.startswith(prefix + "/"):
-            stage = stages.setdefault(e.key[len(prefix) + 1:], {})
-            if e.device_type == DeviceType.CUDA:
-                stage["device_ms"] = e.device_time_total / 1e3 / iters
-            else:
-                stage["host_ms"] = e.cpu_time_total / 1e3 / iters
-    # autograd launches the backward's kernels from its own thread, outside
-    # the range: its device time is what the other stages leave
-    stages["backward"]["device_ms"] = busy_ms / iters - sum(
-        v.get("device_ms", 0.0) for k, v in stages.items()
-        if k != "backward")
-    return {"stage_ms": stages, "window_ms_per_step": wall_ms / iters,
-            "device_busy_ms_per_step": busy_ms / iters,
-            "device_idle_share": 1.0 - busy_ms / wall_ms,
-            "top_device_ops": [
-                {"op": k[:80], "ms_per_step": us / 1e3 / iters,
-                 "calls_per_step": n / iters} for us, k, n in kernels[:20]]}
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch_size", type=int, default=4)
@@ -197,7 +150,6 @@ def main(argv=None):
                     choices=["auto", "implicit", "explicit"])
     ap.add_argument("--compute_dtype", default="bfloat16",
                     choices=sorted(COMPUTE_DTYPES))
-    ap.add_argument("--profile", action="store_true")
     ap.add_argument("--data_parallel", action="store_true")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -250,8 +202,6 @@ def run(rank: int, world_size: int, args):
     if not bool(torch.isfinite(metrics["loss"])):
         raise RuntimeError(f"non-finite loss {metrics['loss']}")
 
-    if args.profile and on_card and rank == 0:
-        print(json.dumps(profile_step(step, batch, gen)))
     if rank != 0:
         return None
 

@@ -42,6 +42,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from ..kernels.join_kmap import join_kmap
+from ..utils.spans import span
 from .coords import (DEFAULT_KEY_BITS, GRID_HALF, GRID_SIZE, coord_keys,
                      floordiv, kernel_offsets, pack_keys, pack_query_keys,
                      sort_by_keys)
@@ -290,23 +291,29 @@ def build_graph(coords: torch.Tensor, mask: torch.Tensor,
     'fused'), and ``level_caps`` gives the capacity of every stride > 1
     before the n_clouds * 256 rows of block slack; above 31 they are one
     compacted run of ``level_caps[s]`` rows.
+
+    Three spans (utils.spans) name its phases in a profiler trace:
+    ``graph/levels`` (the stride levels), ``graph/index`` (each level's
+    sorted keys) and ``graph/maps`` (query keys, occupancy aux, reverse
+    twins, index tables).
     """
     route = graph_route(method, n_clouds)
     blocked = n_clouds <= MAX_CLOUDS
     strides = sorted({s for sp in specs
                       for s in (sp.in_stride, sp.out_stride)})
     levels: Dict[int, LevelCoords] = {}
-    for s in strides:
-        if s == 1:
-            levels[1] = LevelCoords(coords, mask)
-            continue
-        cap = level_caps[s] + (n_clouds * _BLOCK_ALIGN if blocked else 0)
-        # floor(floor(x/a)/b) == floor(x/(ab)): derive each level from the
-        # coarsest finer level already built
-        src = max((p for p in levels if s % p == 0), default=None)
-        src_coords = levels[src].coords if src is not None else coords
-        levels[s] = _downsample_level(src_coords, s, cap,
-                                      n_clouds if blocked else None)
+    with span("graph/levels"):
+        for s in strides:
+            if s == 1:
+                levels[1] = LevelCoords(coords, mask)
+                continue
+            cap = level_caps[s] + (n_clouds * _BLOCK_ALIGN if blocked else 0)
+            # floor(floor(x/a)/b) == floor(x/(ab)): derive each level from
+            # the coarsest finer level already built
+            src = max((p for p in levels if s % p == 0), default=None)
+            src_coords = levels[src].coords if src is not None else coords
+            levels[s] = _downsample_level(src_coords, s, cap,
+                                          n_clouds if blocked else None)
 
     # every odd-kernel map also gets its reverse twin; for the ResUNet
     # family this adds nothing (a same-level map is its own twin and each
@@ -326,22 +333,26 @@ def build_graph(coords: torch.Tensor, mask: torch.Tensor,
     implicit = [sp for sp in uniq.values()
                 if route == "implicit" and sp.kernel_size % 2 == 1]
     explicit = [sp for sp in uniq.values() if sp not in implicit]
-    for s, lv in levels.items():
-        if implicit:
-            _packed_index(lv, s)
-        if any(s == sp.in_stride for sp in explicit):
-            _two_word_index(lv, s)
+    with span("graph/index"):
+        for s, lv in levels.items():
+            if implicit:
+                _packed_index(lv, s)
+            if any(s == sp.in_stride for sp in explicit):
+                _two_word_index(lv, s)
 
     maps: Dict[str, ConvMap] = {}
-    for sp in implicit:
-        c1z = None
-        if sp.in_stride == sp.out_stride == 1 and sp.dilation == 1:
-            c1z = _c1z_aux(levels[1])
-        maps[sp.key] = ConvMap(query_keys(sp, levels[sp.out_stride]), c1z)
-    for sp in implicit:
-        maps[sp.key].rqkey = maps[map_key(
-            sp.out_stride, sp.in_stride, sp.kernel_size, sp.dilation)].qkey
-    kmaps = {sp.key: build_kmap(sp, levels) for sp in explicit}
+    with span("graph/maps"):
+        for sp in implicit:
+            c1z = None
+            if sp.in_stride == sp.out_stride == 1 and sp.dilation == 1:
+                c1z = _c1z_aux(levels[1])
+            maps[sp.key] = ConvMap(query_keys(sp, levels[sp.out_stride]),
+                                   c1z)
+        for sp in implicit:
+            maps[sp.key].rqkey = maps[map_key(
+                sp.out_stride, sp.in_stride, sp.kernel_size,
+                sp.dilation)].qkey
+        kmaps = {sp.key: build_kmap(sp, levels) for sp in explicit}
     return SparseGraph(levels, maps, kmaps)
 
 

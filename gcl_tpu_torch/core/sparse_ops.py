@@ -30,6 +30,10 @@ its dX come in the features' type, the upstream gradient is cast to it
 before the backward, and dW comes back float32; the kernels take the
 weights to the features' type themselves (the Cin == 1 conv of K4 keeps
 them float32, as gcl_tpu's does).
+
+Each Function's forward runs inside the span ``conv/fwd`` and its
+backward inside ``conv/bwd`` (utils.spans), on the thread autograd runs
+it on.
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ from ..kernels import (c1z_unpack_bits, occupancy_conv_dw, occupancy_conv_fwd,
                        sparse_conv_dw, sparse_conv_implicit_bwd,
                        sparse_conv_implicit_fwd, sparse_conv_table_fwd)
 from ..kernels.build import summing
+from ..utils.spans import span
 from .types import ConvMap, LevelCoords
 
 __all__ = ["SparseConvImplicit", "SparseConvTable", "OccupancyConv",
@@ -71,77 +76,82 @@ class SparseConvImplicit(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, qkey, rqkey, in_skeys, in_srow, out_skeys,
                 out_srow, two_pass=False):
-        x, w = x.contiguous(), w.contiguous()
-        ctx.save_for_backward(x, w)
-        ctx.fwd = (qkey, in_skeys, in_srow)
-        ctx.rev = (rqkey, out_skeys, out_srow)
-        ctx.two_pass = two_pass
-        return sparse_conv_implicit_fwd(x, w, qkey, in_skeys, in_srow)
+        with span("conv/fwd"):
+            x, w = x.contiguous(), w.contiguous()
+            ctx.save_for_backward(x, w)
+            ctx.fwd = (qkey, in_skeys, in_srow)
+            ctx.rev = (rqkey, out_skeys, out_srow)
+            ctx.two_pass = two_pass
+            return sparse_conv_implicit_fwd(x, w, qkey, in_skeys, in_srow)
 
     @staticmethod
     def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        g = g.to(x.dtype)
-        rqkey, out_skeys, out_srow = ctx.rev
-        if rqkey is None:
-            raise ValueError(
-                "this implicit map has no reverse twin (build_graph gives "
-                "an even kernel an index table instead)")
-        want_dx, want_dw = ctx.needs_input_grad[:2]
-        if ctx.two_pass:
-            g = g.contiguous()
-            dx = dw = None
-            if want_dx:
-                dx = sparse_conv_implicit_fwd(g, _flipped_transposed(w),
-                                              rqkey, out_skeys, out_srow)
-            if want_dw:
-                dw = sparse_conv_dw(x, g, *ctx.fwd)
-        else:
-            dx, dw = sparse_conv_implicit_bwd(
-                x, g, w, rqkey, out_skeys, out_srow, want_dx=want_dx)
-        return ((dx, dw if want_dw else None)
-                + (None,) * (len(ctx.needs_input_grad) - 2))
+        with span("conv/bwd"):
+            x, w = ctx.saved_tensors
+            g = g.to(x.dtype)
+            rqkey, out_skeys, out_srow = ctx.rev
+            if rqkey is None:
+                raise ValueError(
+                    "this implicit map has no reverse twin (build_graph "
+                    "gives an even kernel an index table instead)")
+            want_dx, want_dw = ctx.needs_input_grad[:2]
+            if ctx.two_pass:
+                g = g.contiguous()
+                dx = dw = None
+                if want_dx:
+                    dx = sparse_conv_implicit_fwd(g, _flipped_transposed(w),
+                                                  rqkey, out_skeys, out_srow)
+                if want_dw:
+                    dw = sparse_conv_dw(x, g, *ctx.fwd)
+            else:
+                dx, dw = sparse_conv_implicit_bwd(
+                    x, g, w, rqkey, out_skeys, out_srow, want_dx=want_dx)
+            return ((dx, dw if want_dw else None)
+                    + (None,) * (len(ctx.needs_input_grad) - 2))
 
 
 class SparseConvTable(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, kmap, rev_kmap):
-        x, w = x.contiguous(), w.contiguous()
-        ctx.save_for_backward(x, w)
-        ctx.maps = (kmap, rev_kmap)
-        return sparse_conv_table_fwd(x, w, kmap)
+        with span("conv/fwd"):
+            x, w = x.contiguous(), w.contiguous()
+            ctx.save_for_backward(x, w)
+            ctx.maps = (kmap, rev_kmap)
+            return sparse_conv_table_fwd(x, w, kmap)
 
     @staticmethod
     def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        kmap, rev_kmap = ctx.maps
-        want_dx, want_dw = ctx.needs_input_grad[:2]
-        g = g.to(x.dtype).contiguous()
-        dx = dw = None
-        if rev_kmap is not None:
-            if want_dx:
-                dx = sparse_conv_table_fwd(g, _flipped_transposed(w),
-                                           rev_kmap)
-            if want_dw:
-                dw = sparse_conv_dw(x, g, kmap)
-            return dx, dw, None, None
-        # no reverse table: dX by scatter-add, dW from the gathered rows,
-        # offset by offset (gcl_tpu's _sparse_conv_bwd, plain XLA there),
-        # summed in float32 (bf16 features: w rounded to bf16, dX rounded
-        # once)
-        n_in, cin = x.shape
-        xs, gs = summing(x), summing(g)
-        idx = torch.where(kmap < 0, n_in, kmap).long()
-        xp = torch.cat([xs, xs.new_zeros((1, cin))])
-        dxp = xs.new_zeros((n_in + 1, cin)) if want_dx else None
-        dws = []
-        for k in range(w.shape[0]):
-            if want_dw:
-                dws.append(xp[idx[k]].T @ gs)
-            if want_dx:  # row n_in: the pads
-                dxp.index_add_(0, idx[k], gs @ summing(w[k].to(x.dtype)).T)
-        return (dxp[:n_in].to(x.dtype) if want_dx else None,
-                torch.stack(dws) if want_dw else None, None, None)
+        with span("conv/bwd"):
+            x, w = ctx.saved_tensors
+            kmap, rev_kmap = ctx.maps
+            want_dx, want_dw = ctx.needs_input_grad[:2]
+            g = g.to(x.dtype).contiguous()
+            dx = dw = None
+            if rev_kmap is not None:
+                if want_dx:
+                    dx = sparse_conv_table_fwd(g, _flipped_transposed(w),
+                                               rev_kmap)
+                if want_dw:
+                    dw = sparse_conv_dw(x, g, kmap)
+                return dx, dw, None, None
+            # no reverse table: dX by scatter-add, dW from the gathered
+            # rows, offset by offset (gcl_tpu's _sparse_conv_bwd, plain XLA
+            # there), summed in float32 (bf16 features: w rounded to bf16,
+            # dX rounded once)
+            n_in, cin = x.shape
+            xs, gs = summing(x), summing(g)
+            idx = torch.where(kmap < 0, n_in, kmap).long()
+            xp = torch.cat([xs, xs.new_zeros((1, cin))])
+            dxp = xs.new_zeros((n_in + 1, cin)) if want_dx else None
+            dws = []
+            for k in range(w.shape[0]):
+                if want_dw:
+                    dws.append(xp[idx[k]].T @ gs)
+                if want_dx:  # row n_in: the pads
+                    dxp.index_add_(0, idx[k],
+                                   gs @ summing(w[k].to(x.dtype)).T)
+            return (dxp[:n_in].to(x.dtype) if want_dx else None,
+                    torch.stack(dws) if want_dw else None, None, None)
 
 
 class OccupancyConv(torch.autograd.Function):
@@ -150,42 +160,47 @@ class OccupancyConv(torch.autograd.Function):
         """(out, sbits): the presence bitmasks come out too, so that a
         caller can mask by presence without a second kernel pass. out is
         in ``out_dtype`` (the features' type; w's when None)."""
-        out, sbits = occupancy_conv_fwd(aux, skeys, w.contiguous(),
-                                        out_dtype)
-        ctx.save_for_backward(sbits)
-        ctx.mark_non_differentiable(sbits)
-        ctx.kcube, ctx.out_dtype = w.shape[0], out.dtype
-        return out, sbits
+        with span("conv/fwd"):
+            out, sbits = occupancy_conv_fwd(aux, skeys, w.contiguous(),
+                                            out_dtype)
+            ctx.save_for_backward(sbits)
+            ctx.mark_non_differentiable(sbits)
+            ctx.kcube, ctx.out_dtype = w.shape[0], out.dtype
+            return out, sbits
 
     @staticmethod
     def backward(ctx, g, _g_sbits):
-        (sbits,) = ctx.saved_tensors
-        dw = occupancy_conv_dw(sbits, g.to(ctx.out_dtype), ctx.kcube)
-        return dw, None, None, None
+        with span("conv/bwd"):
+            (sbits,) = ctx.saved_tensors
+            dw = occupancy_conv_dw(sbits, g.to(ctx.out_dtype), ctx.kcube)
+            return dw, None, None, None
 
 
 class ScalarConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, aux, skeys, srow, row_sel):
-        x, w = x.contiguous(), w.contiguous()
-        ctx.save_for_backward(x, w)
-        ctx.rest = (aux, skeys, srow, row_sel)
-        return scalar_conv_fwd(x, w, aux, skeys, srow, row_sel)
+        with span("conv/fwd"):
+            x, w = x.contiguous(), w.contiguous()
+            ctx.save_for_backward(x, w)
+            ctx.rest = (aux, skeys, srow, row_sel)
+            return scalar_conv_fwd(x, w, aux, skeys, srow, row_sel)
 
     @staticmethod
     def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        aux, skeys, srow, row_sel = ctx.rest
-        g = g.to(x.dtype)
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            # gcl_tpu's dX conv takes the weights flipped and cast to the
-            # features' type (K4 itself reads them in float32)
-            dx = scalar_conv_dx(g, summing(w.to(x.dtype)), aux, skeys, srow,
-                                row_sel)
-        if ctx.needs_input_grad[1]:
-            dw = scalar_conv_dw(x, g, aux, skeys, srow, w.shape[0], row_sel)
-        return (dx, dw) + (None,) * 4
+        with span("conv/bwd"):
+            x, w = ctx.saved_tensors
+            aux, skeys, srow, row_sel = ctx.rest
+            g = g.to(x.dtype)
+            dx = dw = None
+            if ctx.needs_input_grad[0]:
+                # gcl_tpu's dX conv takes the weights flipped and cast to the
+                # features' type (K4 itself reads them in float32)
+                dx = scalar_conv_dx(g, summing(w.to(x.dtype)), aux, skeys,
+                                    srow, row_sel)
+            if ctx.needs_input_grad[1]:
+                dw = scalar_conv_dw(x, g, aux, skeys, srow, w.shape[0],
+                                    row_sel)
+            return (dx, dw) + (None,) * 4
 
 
 def sparse_conv_implicit(x: torch.Tensor, w: torch.Tensor, cmap: ConvMap,

@@ -34,6 +34,7 @@ from .reg.matching import find_nn
 from .reg.ransac import ransac_pose
 from .reg.sc2pcr import Matcher
 from .train.checkpoint import load_checkpoint
+from .utils.spans import span
 from .utils.timer import AverageMeter, Timer
 
 N_POINTS = 5000
@@ -44,15 +45,16 @@ SC2_CONFIG = os.path.join(os.path.dirname(os.path.dirname(
 
 def random_sample(pcd, feats, n, rng):
     """Exactly n rows: a permutation's first n, or n drawn with
-    replacement from fewer."""
-    n1 = pcd.shape[0]
-    if n1 == n:
-        return pcd, feats
-    if n1 > n:
-        choice = rng.permutation(n1)[:n]
-    else:
-        choice = rng.choice(n1, n)
-    return pcd[choice], feats[choice]
+    replacement from fewer; inside the span ``match/sample``."""
+    with span("match/sample"):
+        n1 = pcd.shape[0]
+        if n1 == n:
+            return pcd, feats
+        if n1 > n:
+            choice = rng.permutation(n1)[:n]
+        else:
+            choice = rng.choice(n1, n)
+        return pcd[choice], feats[choice]
 
 
 def device_of(name: str) -> torch.device:

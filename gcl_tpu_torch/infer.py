@@ -7,10 +7,13 @@ scripts/bench_infer.py. For each pair:
   -> random keypoint subsample per cloud -> SC2-PCR (cloud 0 -> cloud 1)
 
 ``python -m gcl_tpu_torch.infer`` times that on the card for a synthetic
-pair at bench_infer.py's shapes. It prints a JSON line of where the time
-goes (profile_pair), then, last, one JSON line with bench_infer.py's keys
-(``metric: gcl_sc2pcr_inference``, ``pairs/s``, ``pair_time_s``) measured
-before the profiler ran.
+pair at bench_infer.py's shapes and prints one JSON line with
+bench_infer.py's keys (``metric: gcl_sc2pcr_inference``, ``pairs/s``,
+``pair_time_s``). Where the time goes is the benchmark's to say
+(``python3 benchmark/run.py --workload gcl.register.sc2pcr --seed <n>
+--seconds <s> --trace 1``): the extractor's spans ``extract/voxelize``,
+``extract/graph``, ``extract/unet`` and register_pair's
+``register/keypoints`` (utils.spans) name the stages in its trace.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from .data.synthetic import synth_lidar
 from .models.resunet import ResUNetFatBN
 from .models.weights import random_state_dict
 from .reg.sc2pcr import Matcher, stable_topk_indices
+from .utils.spans import span
 
 BASELINE_FPS = 7.0  # the reference's own figure on an RTX 3090
 
@@ -50,17 +54,21 @@ def make_feature_extractor(model: torch.nn.Module,
     @torch.inference_mode()
     def extract(points: torch.Tensor, pmask: torch.Tensor,
                 point_feats: Optional[torch.Tensor] = None):
-        vox = voxelize_per_cloud(points, pmask, voxel_size, nv_cap)
-        flat = vox.flatten()
-        x = flat.feats
-        if point_feats is not None:
-            f_in = point_feats.shape[-1]
-            x = torch.gather(point_feats, 1, vox.rep.long()[..., None]
-                             .expand(-1, -1, f_in))
-            x = torch.where(vox.mask[..., None], x, 0.0).reshape(-1, f_in)
-        graph = build_graph(flat.coords, flat.mask, conv_specs, level_caps,
-                            n_clouds=points.shape[0])
-        f = model(graph, x)
+        with span("extract/voxelize"):
+            vox = voxelize_per_cloud(points, pmask, voxel_size, nv_cap)
+            flat = vox.flatten()
+            x = flat.feats
+            if point_feats is not None:
+                f_in = point_feats.shape[-1]
+                x = torch.gather(point_feats, 1, vox.rep.long()[..., None]
+                                 .expand(-1, -1, f_in))
+                x = torch.where(vox.mask[..., None], x, 0.0).reshape(
+                    -1, f_in)
+        with span("extract/graph"):
+            graph = build_graph(flat.coords, flat.mask, conv_specs,
+                                level_caps, n_clouds=points.shape[0])
+        with span("extract/unet"):
+            f = model(graph, x)
         c, nv = vox.mask.shape
         return vox, f.reshape(c, nv, -1)
 
@@ -90,11 +98,12 @@ def register_pair(extract, matcher: Matcher, points: torch.Tensor,
     Returns (transform, vox, feats).
     """
     vox, f = extract(points, pmask)
-    if keypoints is None:
-        keypoints = [random_keypoints(vox.mask[c], n_key, generator)
-                     for c in (0, 1)]
-    x0, x1 = (vox.xyz[c][keypoints[c]] for c in (0, 1))
-    f0, f1 = (f[c][keypoints[c]] for c in (0, 1))
+    with span("register/keypoints"):
+        if keypoints is None:
+            keypoints = [random_keypoints(vox.mask[c], n_key, generator)
+                         for c in (0, 1)]
+        x0, x1 = (vox.xyz[c][keypoints[c]] for c in (0, 1))
+        f0, f1 = (f[c][keypoints[c]] for c in (0, 1))
     t, _, _, _ = matcher.estimator(x0[None], x1[None], f0[None], f1[None],
                                    generator)
     return t[0], vox, f
@@ -138,65 +147,6 @@ def gpu_identity() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def profile_pair(extract, matcher, points, pmask, n_key, gen,
-                 iters: int) -> dict:
-    """Where a pair's time goes on the card: host-clock stage times with a
-    synchronize after each stage, then one torch.profiler window over
-    ``iters`` pairs for device time by kernel and the device's busy share
-    of the window."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    stages = dict.fromkeys(("voxelize", "graph", "model", "register"), 0.0)
-    for _ in range(iters):
-        marks = [time.perf_counter()]
-        with torch.inference_mode():
-            vox = voxelize_per_cloud(points, pmask, extract.voxel_size,
-                                     extract.nv_cap)
-            torch.cuda.synchronize()
-            marks.append(time.perf_counter())
-            flat = vox.flatten()
-            graph = build_graph(flat.coords, flat.mask, extract.conv_specs,
-                                extract.level_caps, n_clouds=2)
-            torch.cuda.synchronize()
-            marks.append(time.perf_counter())
-            f = extract.model(graph, flat.feats).reshape(
-                2, extract.nv_cap, -1)
-            torch.cuda.synchronize()
-            marks.append(time.perf_counter())
-            keys = [random_keypoints(vox.mask[c], n_key, gen)
-                    for c in (0, 1)]
-            matcher.estimator(*(vox.xyz[c][keys[c]][None] for c in (0, 1)),
-                              *(f[c][keys[c]][None] for c in (0, 1)))
-            torch.cuda.synchronize()
-            marks.append(time.perf_counter())
-        for name, a, b in zip(stages, marks, marks[1:]):
-            stages[name] += (b - a) * 1e3 / iters
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            register_pair(extract, matcher, points, pmask, n_key, gen)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-
-    # device-side events only (kernels and copies, ours included): the
-    # operator events that launched them carry the same time again
-    kernels = sorted(((e.self_device_time_total, e.key, e.count)
-                      for e in events if e.device_type == DeviceType.CUDA),
-                     reverse=True)
-    busy_ms = sum(us for us, _, _ in kernels) / 1e3
-    return {"stage_ms": stages, "window_ms": wall_ms,
-            "device_busy_ms": busy_ms,
-            "device_idle_share": 1.0 - busy_ms / wall_ms,
-            "top_device_ops": [
-                {"op": k[:80], "ms_per_pair": us / 1e3 / iters,
-                 "calls_per_pair": n / iters}
-                for us, k, n in kernels[:15]]}
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--points", type=int, default=65536)
@@ -226,8 +176,6 @@ def main(argv=None):
         register_pair(extract, matcher, pts, pmask, args.keypts, gen)
         torch.cuda.synchronize()  # per-pair sync, as bench_infer.py
     dt = (time.perf_counter() - t0) / args.iters
-    print(json.dumps(profile_pair(extract, matcher, pts, pmask, args.keypts,
-                                  gen, args.iters)))
     print(json.dumps({
         "metric": "gcl_sc2pcr_inference",
         "value": 1.0 / dt,

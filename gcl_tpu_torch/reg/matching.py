@@ -12,6 +12,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..utils.spans import span
+
 _BIG = 1e30
 
 
@@ -21,21 +23,25 @@ def find_nn(f0: torch.Tensor, f1: torch.Tensor,
     """Nearest row of f1 for every row of f0, ``chunk`` rows of f0 at a
     time. Rows of f1 where ``mask1`` is False are never chosen (unless all
     are). Returns (inds int64[N0], dists[N0]): d2, or sqrt(d2 + 1e-7)
-    when not ``squared``; ties go to the lower index."""
-    n1sq = (f1 * f1).sum(dim=1)
-    if mask1 is not None:
-        n1sq = torch.where(mask1, n1sq, _BIG)
-    inds, d2 = [], []
-    for fc in torch.split(f0, chunk):
-        d = (fc * fc).sum(dim=1)[:, None] + n1sq[None, :] - 2.0 * fc @ f1.T
+    when not ``squared``; ties go to the lower index. Runs inside the span
+    ``match/nn`` (utils.spans)."""
+    with span("match/nn"):
+        n1sq = (f1 * f1).sum(dim=1)
         if mask1 is not None:
-            d = torch.where(mask1[None, :], d, _BIG)
-        dmin, imin = torch.min(d, dim=1)
-        inds.append(imin)
-        d2.append(dmin)
-    inds = torch.cat(inds) if inds else f0.new_zeros(0, dtype=torch.long)
-    d2 = torch.cat(d2).clamp_min(0.0) if d2 else f0.new_zeros(0)
-    return inds, (d2 if squared else torch.sqrt(d2 + 1e-7))
+            n1sq = torch.where(mask1, n1sq, _BIG)
+        inds, d2 = [], []
+        for fc in torch.split(f0, chunk):
+            d = ((fc * fc).sum(dim=1)[:, None] + n1sq[None, :]
+                 - 2.0 * fc @ f1.T)
+            if mask1 is not None:
+                d = torch.where(mask1[None, :], d, _BIG)
+            dmin, imin = torch.min(d, dim=1)
+            inds.append(imin)
+            d2.append(dmin)
+        inds = (torch.cat(inds) if inds
+                else f0.new_zeros(0, dtype=torch.long))
+        d2 = torch.cat(d2).clamp_min(0.0) if d2 else f0.new_zeros(0)
+        return inds, (d2 if squared else torch.sqrt(d2 + 1e-7))
 
 
 def find_nn_cpu(feat0, feat1, return_distance: bool = False):

@@ -6,7 +6,9 @@ edge-length check or scores nothing, each is scored by its inlier count
 (``distance_threshold``), the first best is refined by iterative
 reweighted Kabsch over its inliers. Hypotheses are scored ``batch`` at a
 time (1024, as gcl_tpu's lax.map), their 3x3 SVDs batched in
-reg/procrustes.py.
+reg/procrustes.py. The spans (utils.spans) ``ransac/draw``,
+``ransac/score`` (every batch) and ``ransac/refine`` name ransac_pose's
+stages in a profiler trace.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.spans import span
 from .procrustes import rigid_transform_3d
 from .se3 import transform
 
@@ -75,19 +78,23 @@ def ransac_pose(src: torch.Tensor, tgt: torch.Tensor,
     valid = (torch.ones(n, dtype=torch.bool, device=dev) if mask is None
              else mask.to(dev))
     nvalid = valid.sum().clamp_min(1)
-    if samples is None:
-        order = torch.argsort((~valid).to(torch.uint8), stable=True)
-        draws = torch.randint(0, 2 ** 30, (num_hypotheses, sample_size),
-                              generator=generator).to(dev)
-        samples = order[draws % nvalid]
-    trans_h, fit_h = score_hypotheses(src, tgt, samples, distance_threshold,
-                                      edge_length_ratio, valid)
-    trans = trans_h[torch.argmax(fit_h)]
+    with span("ransac/draw"):
+        if samples is None:
+            order = torch.argsort((~valid).to(torch.uint8), stable=True)
+            draws = torch.randint(0, 2 ** 30, (num_hypotheses, sample_size),
+                                  generator=generator).to(dev)
+            samples = order[draws % nvalid]
+    with span("ransac/score"):
+        trans_h, fit_h = score_hypotheses(src, tgt, samples,
+                                          distance_threshold,
+                                          edge_length_ratio, valid)
+        trans = trans_h[torch.argmax(fit_h)]
 
-    for _ in range(refine_iters):
+    with span("ransac/refine"):
+        for _ in range(refine_iters):
+            d = _norm(transform(src, trans) - tgt)
+            w = ((d < distance_threshold) & valid).to(src.dtype)
+            trans = rigid_transform_3d(src[None], tgt[None], w[None])[0]
         d = _norm(transform(src, trans) - tgt)
-        w = ((d < distance_threshold) & valid).to(src.dtype)
-        trans = rigid_transform_3d(src[None], tgt[None], w[None])[0]
-    d = _norm(transform(src, trans) - tgt)
-    inlier = (d < distance_threshold) & valid
-    return trans, inlier, inlier.sum() / nvalid
+        inlier = (d < distance_threshold) & valid
+        return trans, inlier, inlier.sum() / nvalid

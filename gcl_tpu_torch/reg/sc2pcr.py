@@ -10,6 +10,11 @@ gcl_tpu/reg/sc2pcr.py).
      best by inlier count
   7. iterative reweighted post-refinement (20 rounds)
 
+The spans (utils.spans) ``sc2pcr/match`` (1), ``sc2pcr/consistency``
+(2-3), ``sc2pcr/seeds`` (4-5), ``sc2pcr/hypotheses`` (6) and
+``sc2pcr/refine`` (7 and the inlier labels) name the stages in a
+profiler trace.
+
 Ties are broken as gcl_tpu breaks them: top-k keeps the lower index
 (jax.lax.top_k) and seed ordering is a stable sort, so both are stable
 descending sorts here (torch.topk promises no order among equal values).
@@ -22,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.spans import span
 from .procrustes import rigid_transform_3d
 from .se3 import transform
 
@@ -153,37 +159,42 @@ class Matcher:
         """Core estimator. Inputs [bs, N, 3] with N <= max_points; returns
         [bs, 4, 4]."""
         num_corr = src_keypts.shape[1]
-        src_dist = _norm(src_keypts[:, :, None] - src_keypts[:, None])
-        tgt_dist = _norm(tgt_keypts[:, :, None] - tgt_keypts[:, None])
-        cross = torch.abs(src_dist - tgt_dist)
+        with span("sc2pcr/consistency"):
+            src_dist = _norm(src_keypts[:, :, None] - src_keypts[:, None])
+            tgt_dist = _norm(tgt_keypts[:, :, None] - tgt_keypts[:, None])
+            cross = torch.abs(src_dist - tgt_dist)
+            sc = torch.clamp(1.0 - cross ** 2 / self.d_thre ** 2, min=0.0)
+            hard = (cross < self.d_thre).to(torch.float32)
+            confidence = self.cal_leading_eigenvector(sc)
 
-        sc = torch.clamp(1.0 - cross ** 2 / self.d_thre ** 2, min=0.0)
-        hard = (cross < self.d_thre).to(torch.float32)
-        confidence = self.cal_leading_eigenvector(sc)
-        seeds = self.pick_seeds(src_dist, confidence, self.nms_radius,
-                                int(num_corr * self.ratio))
+        with span("sc2pcr/seeds"):
+            seeds = self.pick_seeds(src_dist, confidence, self.nms_radius,
+                                    int(num_corr * self.ratio))
+            hard_tight = (cross < self.d_thre / 2).to(torch.float32)
+            sidx = seeds[:, :, None].expand(-1, -1, num_corr)
+            seed_hard = torch.gather(hard, 1, sidx)
+            seed_hard_tight = torch.gather(hard_tight, 1, sidx)
+            sc2 = (seed_hard_tight @ hard_tight) * seed_hard
 
-        hard_tight = (cross < self.d_thre / 2).to(torch.float32)
-        sidx = seeds[:, :, None].expand(-1, -1, num_corr)
-        seed_hard = torch.gather(hard, 1, sidx)
-        seed_hard_tight = torch.gather(hard_tight, 1, sidx)
-        sc2 = (seed_hard_tight @ hard_tight) * seed_hard
-
-        trans = self.cal_seed_trans(seeds, sc2, src_keypts, tgt_keypts)
-        return self.post_refinement(trans, src_keypts, tgt_keypts, 20)
+        with span("sc2pcr/hypotheses"):
+            trans = self.cal_seed_trans(seeds, sc2, src_keypts, tgt_keypts)
+        with span("sc2pcr/refine"):
+            return self.post_refinement(trans, src_keypts, tgt_keypts, 20)
 
     def estimator(self, src_keypts, tgt_keypts, src_features, tgt_features,
                   generator: Optional[torch.Generator] = None):
         """Full pipeline. Returns (pred_trans, pred_labels, src_keypts_corr,
         tgt_keypts_corr)."""
-        src_c, tgt_c = self.match_pair(src_keypts, tgt_keypts,
-                                       src_features, tgt_features,
-                                       generator)
-        if src_c.shape[1] > self.max_points:
-            src_c = src_c[:, :self.max_points]
-            tgt_c = tgt_c[:, :self.max_points]
+        with span("sc2pcr/match"):
+            src_c, tgt_c = self.match_pair(src_keypts, tgt_keypts,
+                                           src_features, tgt_features,
+                                           generator)
+            if src_c.shape[1] > self.max_points:
+                src_c = src_c[:, :self.max_points]
+                tgt_c = tgt_c[:, :self.max_points]
         pred_trans = self.SC2_PCR(src_c, tgt_c)
-        warped = transform(src_c, pred_trans)
-        dist = _norm(warped - tgt_c)
-        labels = (dist < self.inlier_threshold).to(torch.float32)
+        with span("sc2pcr/refine"):
+            warped = transform(src_c, pred_trans)
+            dist = _norm(warped - tgt_c)
+            labels = (dist < self.inlier_threshold).to(torch.float32)
         return pred_trans, labels, src_c, tgt_c

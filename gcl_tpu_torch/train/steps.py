@@ -25,7 +25,6 @@ import dataclasses
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from ..core.kernel_maps import METHODS, ConvSpec, build_graph
 from ..data.device_pipeline import (VoxelizedClouds, batch_colocation_groups,
@@ -41,6 +40,7 @@ from ..losses.pairs import (PairLossDraws, contrastive_loss,
                             triplet_loss)
 from ..reg.matching import find_nn
 from ..reg.robust import est_quad_linear_robust
+from ..utils.spans import span
 from .diagnostics import group_distance_errors
 
 _GROUP_LOSSES = {"finest": finest_contrastive_loss,
@@ -164,9 +164,8 @@ def _geometry(points, pmask, transforms, radius, conv_specs,
     """(flat voxels, graph, groups, vox_b) of a colocation batch, the part
     the train step and the diagnostic step share."""
     b, c, p, _ = points.shape
-    # the record_function ranges name the step's stages in a
-    # torch.profiler trace (gcl_tpu_torch.bench --profile)
-    with record_function("gcl/voxelize"):
+    # the spans name the step's stages in a torch.profiler trace
+    with span("gcl/voxelize"):
         vox = voxelize_per_cloud(points.reshape(b * c, p, 3),
                                  pmask.reshape(b * c, p),
                                  step_cfg.voxel_size, step_cfg.nv_cap)
@@ -175,11 +174,11 @@ def _geometry(points, pmask, transforms, radius, conv_specs,
                                 vox.mask.reshape(b, c, nv),
                                 vox.xyz.reshape(b, c, nv, 3))
         flat = vox.flatten()
-    with record_function("gcl/groups"):
+    with span("gcl/groups"):
         groups = batch_colocation_groups(
             vox_b, transforms, radius, k=step_cfg.group_k,
             chunk=step_cfg.knn_chunk, cell=step_cfg.search_cell)
-    with record_function("gcl/graph"):
+    with span("gcl/graph"):
         graph = build_graph(flat.coords, flat.mask, conv_specs,
                             step_cfg.level_caps, n_clouds=b * c,
                             method=step_cfg.graph_method)
@@ -239,11 +238,11 @@ def make_gcl_grad_fn(model: torch.nn.Module, conv_specs: Sequence[ConvSpec],
                                 step_cfg.jitter_mode != "c1z")
 
         model.train()
-        with record_function("gcl/unet"):
+        with span("gcl/unet"):
             f_out = model(graph, flat.feats.to(step_cfg.compute_dtype),
                           conv1_jitter=conv1_jitter, generator=generator,
                           jitter_draws=draws.jitter)
-        with record_function("gcl/loss"):
+        with span("gcl/loss"):
             out = group_loss(
                 summing(f_out), flat.mask, groups, neg_filter, generator,
                 max_pos_cluster, max_hn_samples, loss_cfg, draws.loss)
@@ -251,7 +250,7 @@ def make_gcl_grad_fn(model: torch.nn.Module, conv_specs: Sequence[ConvSpec],
                      + finest_weight * out.finest_loss
                      + neg_weight * out.neg_loss)
         model.zero_grad(set_to_none=True)
-        with record_function("gcl/backward"):
+        with span("gcl/backward"):
             total.backward()
         return {"loss": total.detach(), "pos_loss": out.pos_loss.detach(),
                 "finest_loss": out.finest_loss.detach(),
@@ -287,13 +286,13 @@ def make_train_step_from_grad(opt: torch.optim.Optimizer,
     """grad_fn(*batch, generator=None, draws=None) -> metrics, which leaves
     the gradients in ``.grad``, as a one-SGD-step-per-batch step function:
     step_fn(lr, *batch, generator=None, draws=None) -> metrics. The update
-    is the profiler range ``{stage}/sgd``."""
+    is the span ``{stage}/sgd``."""
 
     def step_fn(lr: float, *batch, generator=None, draws=None):
         metrics = grad_fn(*batch, generator=generator, draws=draws)
         for group in opt.param_groups:
             group["lr"] = lr
-        with record_function(f"{stage}/sgd"):
+        with span(f"{stage}/sgd"):
             opt.step()
         return metrics
 
@@ -338,11 +337,11 @@ def make_pair_grad_fn(model: torch.nn.Module,
     def side_forward(points, pmask, generator, draws: StepDraws):
         b = points.shape[0]
         with torch.no_grad():
-            with record_function("fcgf/voxelize"):
+            with span("fcgf/voxelize"):
                 vox = voxelize_per_cloud(points, pmask, step_cfg.voxel_size,
                                          step_cfg.nv_cap)
                 flat = vox.flatten()
-            with record_function("fcgf/graph"):
+            with span("fcgf/graph"):
                 graph = build_graph(flat.coords, flat.mask, conv_specs,
                                     step_cfg.level_caps, n_clouds=b,
                                     method=step_cfg.graph_method)
@@ -356,7 +355,7 @@ def make_pair_grad_fn(model: torch.nn.Module,
                                          draws.sample_gate_u)
                 conv1_jitter = (step_cfg.jitter_sigma, 1.0, jit_rows,
                                 step_cfg.jitter_mode != "c1z")
-        with record_function("fcgf/unet"):
+        with span("fcgf/unet"):
             f = model(graph, flat.feats.to(step_cfg.compute_dtype),
                       conv1_jitter=conv1_jitter, generator=generator,
                       jitter_draws=draws.jitter)
@@ -386,13 +385,13 @@ def make_pair_grad_fn(model: torch.nn.Module,
                                        draws.side0 or StepDraws())
         vox1, flat1, f1 = side_forward(points1, pmask1, generator,
                                        draws.side1 or StepDraws())
-        with record_function("fcgf/correspondences"):
+        with span("fcgf/correspondences"):
             radius = torch.broadcast_to(torch.as_tensor(
                 radius, dtype=torch.float32, device=points0.device),
                 (points0.shape[0],))
             pairs, pm = batch_correspondences(vox0, vox1, trans, radius)
         args = (f0, f1, flat0.mask, flat1.mask, pairs, pm, generator)
-        with record_function("fcgf/loss"):
+        with span("fcgf/loss"):
             if trainer_kind == "hardest_contrastive":
                 out = hardest_contrastive_loss(
                     *args, num_pos=num_pos, num_hn_samples=num_hn,
@@ -416,7 +415,7 @@ def make_pair_grad_fn(model: torch.nn.Module,
             else:
                 total, pos, neg = out.loss, out.pos_dist, out.neg_dist
         model.zero_grad(set_to_none=True)
-        with record_function("fcgf/backward"):
+        with span("fcgf/backward"):
             total.backward()
         return {"loss": total.detach(), "pos_loss": pos.detach(),
                 "neg_loss": neg.detach(),
@@ -492,7 +491,7 @@ class AccumStepper:
                 p.grad = a.to(p.dtype)
             for group in self.opt.param_groups:
                 group["lr"] = lr
-            with record_function(f"{self.stage}/sgd"):
+            with span(f"{self.stage}/sgd"):
                 self.opt.step()
             self.reset()
         return metrics

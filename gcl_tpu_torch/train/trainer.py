@@ -276,9 +276,9 @@ class AlignmentTrainer:
                         f"{self.best_val_epoch}")
 
     def _profiled_epoch(self, epoch, profile_dir):
-        """The epoch under torch.profiler (host ranges and, on a card, its
-        kernels), written as a Chrome trace, trace.json, into
-        profile_dir."""
+        """The epoch under torch.profiler (the program's spans,
+        utils.spans, and, on a card, its kernels), written as a Chrome
+        trace, trace.json, into profile_dir."""
         from torch.profiler import ProfilerActivity, profile
 
         acts = [ProfilerActivity.CPU]
