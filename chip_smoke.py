@@ -35,11 +35,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
    launch inside it against its plain version, features within 1e-3 of
    the plain path's; find_nn on 5000 points and RANSAC with 131,072
    hypotheses registering a cloud against itself within RTE < 2 m and
-   RRE < 5 deg (the moved pair reported); pairs/s of the kernel and the
-   plain path and the stage times (voxelize, graph, U-Net, find_nn,
-   RANSAC); then eval_kitti.main end to end on a synthetic mini-KITTI in
-   a temporary directory, with the port's checkpoint of this model, for 3
-   pairs: finite RR, RTE and RRE (random weights: RR is no gate);
+   RRE < 5 deg, that pair exactly 1 K2, 20 K6 and 1 R1 launch (the moved
+   pair reported); pairs/s of the kernel and the plain path and the stage
+   times (voxelize, graph, U-Net, find_nn, RANSAC); then eval_kitti.main
+   end to end on a synthetic mini-KITTI in a temporary directory, with
+   the port's checkpoint of this model, for 3 pairs: finite RR, RTE and
+   RRE (random weights: RR is no gate), exactly 6 K2, 120 K6 and 3 R1
+   launches;
+4c. RANSAC's scoring kernel (R1) at the FCGF evaluation's shapes (131,072
+   samples of 4 of 5000 synthetic correspondences): score_hypotheses'
+   fits bit for bit those of 1024-hypothesis batches, the kernel's counts
+   bit for bit its plain version's, both timed alone with the fits, the
+   bound by instruction issue, ransac_pose timed;
 5. train kernels: builds the graph of the train step's batch (4 x 7
    clouds, 516,096 stride-1 rows) and runs every kernel of the step
    against its plain version there, each within 1e-4 of the plain
@@ -209,7 +216,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    (the wrappers' kernels run in their subprocesses);
 15. prints {"fcgf_step": {...}}, {"data_parallel": ..., "zoo": ...},
    {"entry_points": ...}, {"host_native": ...}, then
-   {"kernels": [...]} (twelve kernels, each with its launches on one rank
+   {"kernels": [...]} (twelve kernels, then R1 with phase 4c's numbers
+   and its launches on phase 4b's pair, in its eval_kitti.main run and
+   in phase 14's ETH run; each of the twelve with its
+   launches on one rank
    of phase 12's steps, on phase 13's steps, on phase 14's paths and on
    phase 16's in-process parts;
    a conv kernel's row holds its bf16 form's numbers, the main path's, and
@@ -238,6 +248,13 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_FLOP_PER_S = 67e12     # float32 outside the tensor cores, published
 TF32_FLOP_PER_S = 495e12    # TF32 on the tensor cores, dense, published
 BF16_FLOP_PER_S = 989e12    # bf16 on the tensor cores, dense, published
+# thread instructions a second: 132 SMs x 4 schedulers x 32 lanes at the
+# 1,980 MHz boost clock (H100 SXM, published)
+ISSUE_PER_S = 132 * 128 * 1.98e9
+# R1's instructions a (hypothesis, point) pair: the rotation's 3 multiplies
+# and 6 fmas, 6 adds, 3 squares, 2 sums, a compare and the count's add
+# (the squared sum is compared with a squared threshold: no root)
+R1_INSTR_PER_PAIR = 22
 # the kernels whose operations are matrix products: the card can run them
 # as split TF32 (float32) or bf16 products on the tensor cores
 PRODUCTS = ("K6", "K7", "K8", "K12")
@@ -282,13 +299,15 @@ def _routed(route):
     """Put route(K, wrapper, plain) in each kernel wrapper's place where
     its callers look it up: core.sparse_ops for the convs of the model,
     core.kernel_maps for the join of the explicit tables,
-    kernels.radius_topk for the group search of data.device_pipeline."""
+    kernels.radius_topk for the group search of data.device_pipeline,
+    reg.ransac for RANSAC's scoring."""
     from gcl_tpu_torch.core import kernel_maps, sparse_ops
     from gcl_tpu_torch.kernels import KERNELS, radius_topk
+    from gcl_tpu_torch.reg import ransac
 
     saved = []
     for k, (fn, plain) in KERNELS.items():
-        for mod in (sparse_ops, kernel_maps, radius_topk):
+        for mod in (sparse_ops, kernel_maps, radius_topk, ransac):
             if hasattr(mod, fn.__name__):
                 saved.append((mod, fn.__name__, fn))
                 setattr(mod, fn.__name__, route(k, fn, plain))
@@ -320,7 +339,7 @@ def checked_path(errs: dict, unequal: dict = None):
             for a, b in zip((got,) if one else got, (ref,) if one else ref):
                 if a is None:
                     _require(b is None, f"{k}: both leave dX out")
-                elif a.dtype == torch.int32:
+                elif a.dtype in (torch.int32, torch.int64):
                     _require(torch.equal(a, b), f"{k}: equal integers")
                     errs.setdefault(k, 0.0)
                 elif k in ("K1", "K11"):
@@ -1738,7 +1757,7 @@ def fcgf_eval_checks(dev, gpu: str) -> dict:
                                        compacted_rows, launch_counts,
                                        occupancy_conv_fwd,
                                        occupancy_conv_fwd_plain,
-                                       reset_launch_counts,
+                                       ransac_score, reset_launch_counts,
                                        sparse_conv_implicit_fwd,
                                        sparse_conv_implicit_fwd_plain)
     from gcl_tpu_torch.models.common import SparseConv
@@ -1848,11 +1867,16 @@ def fcgf_eval_checks(dev, gpu: str) -> dict:
     # transformed pair reported (random weights: no gate)
     gen = torch.Generator().manual_seed(SEED)
     self_pts = torch.stack([pts[0], pts[0]])
-    t_self, _ = _fcgf_register(extract, self_pts, pmask,
-                               np.random.RandomState(0), gen, N_HYP)
+    (t_self, _), pair_launches = _counted(lambda: _fcgf_register(
+        extract, self_pts, pmask, np.random.RandomState(0), gen, N_HYP))
     rte, rre = _rte_rre(t_self, np.eye(4))
     print(f"EXP self pair, find_nn + RANSAC 131,072: RTE {rte:.4g} m "
-          f"RRE {rre:.4g} deg")
+          f"RRE {rre:.4g} deg; launches {pair_launches}, R1 scored "
+          f"{ransac_score.hypotheses} hypotheses")
+    _require(pair_launches == {**{k: 0 for k in KERNELS}, "K2": 1, "K6": 20,
+                               "R1": 1} and ransac_score.hypotheses == N_HYP,
+             f"1 K2, 20 K6 and 1 R1 launch (scoring {N_HYP}) per evaluation "
+             f"pair, got {pair_launches}, {ransac_score.hypotheses}")
     _require(rte < 2.0 and rre < 5.0,
              f"EXP self pair within RTE < 2 m, RRE < 5 deg: {rte}, {rre}")
     t_pair, _ = _fcgf_register(extract, pts, pmask,
@@ -1911,10 +1935,19 @@ def fcgf_eval_checks(dev, gpu: str) -> dict:
                       ransac_hypotheses=N_HYP, rte_thresh=2.0,
                       rre_thresh=5.0)
         t0 = time.perf_counter()
-        res = eval_kitti.main(config, device="cuda", max_pairs=3)
+        res, eval_launches = _counted(
+            lambda: eval_kitti.main(config, device="cuda", max_pairs=3))
         print(f"eval_kitti.main, 3 synthetic pairs: "
-              f"{time.perf_counter() - t0:.2f} s")
+              f"{time.perf_counter() - t0:.2f} s; launches {eval_launches}, "
+              f"R1 scored {ransac_score.hypotheses} hypotheses")
     _require(len(res["transforms"]) == 3, "eval_kitti ran 3 pairs")
+    # two extract calls a pair (one a cloud), one R1 launch
+    _require(eval_launches == {**{k: 0 for k in KERNELS}, "K2": 6, "K6": 120,
+                               "R1": 3}
+             and ransac_score.hypotheses == 3 * N_HYP,
+             f"eval_kitti: 6 K2, 120 K6 and 3 R1 launches (scoring "
+             f"{3 * N_HYP}) for 3 pairs, got {eval_launches}, "
+             f"{ransac_score.hypotheses}")
     _require(all(np.isfinite(res[k]) for k in ("rr", "rte", "rre")),
              f"eval_kitti: finite RR, RTE, RRE, got {res}")
 
@@ -1932,7 +1965,74 @@ def fcgf_eval_checks(dev, gpu: str) -> dict:
     k2 = dict(exp_launches=launches["K2"], exp_max_abs_err=k2_err,
               exp_ms=k2_ms, exp_plain_ms=k2_plain_ms,
               exp_bound_ms=k2_bound[0], exp_bound_by=k2_bound[1])
-    return {"K6": k6, "K2": k2}
+    r1 = dict(launches=pair_launches["R1"],
+              eval_kitti_launches=eval_launches["R1"])
+    return {"K6": k6, "K2": k2, "R1": r1}
+
+
+def ransac_kernel_checks(dev, gpu: str) -> dict:
+    """Phase 4c, RANSAC's scoring kernel (R1) at the FCGF evaluation's
+    shapes: N_HYP samples of 4 of N_KEY correspondences (a 100 m box, a
+    third of the rows a rigid motion within 0.3 m, 5 % invalid). The fits
+    of score_hypotheses bit for bit those of 1024-hypothesis batches, the
+    kernel's counts of every hypothesis bit for bit the plain version's,
+    each timed alone (CUDA events), the kernel's bound by instruction
+    issue; ransac_pose timed on the host clock. (Its launches are counted
+    on the evaluation's own paths, phase 4b.)"""
+    import torch
+    from gcl_tpu_torch.kernels import ransac_score, ransac_score_plain
+    from gcl_tpu_torch.reg.procrustes import rigid_transform_3d
+    from gcl_tpu_torch.reg.ransac import (fit_hypotheses, ransac_pose,
+                                          score_hypotheses)
+
+    rng = np.random.RandomState(SEED + 20)
+    src = rng.uniform(-50, 50, (N_KEY, 3)).astype(np.float32)
+    gt = _rigid(10.0, [2.0, 1.0, 0.2])
+    tgt = src @ gt[:3, :3].T + gt[:3, 3] + rng.randn(N_KEY, 3) * 0.1
+    out = rng.rand(N_KEY) > 1 / 3
+    tgt[out] = rng.uniform(-50, 50, (int(out.sum()), 3))
+    src, tgt, valid, idx = (
+        torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        for a in (src, tgt.astype(np.float32), rng.rand(N_KEY) > 0.05,
+                  rng.randint(0, N_KEY, (N_HYP, 4))))
+    trans, fit = score_hypotheses(src, tgt, idx, 0.3, 0.9, valid)
+    s, t = src[idx], tgt[idx]
+
+    batched = torch.cat([rigid_transform_3d(a, b) for a, b in
+                         zip(torch.split(s, 1024), torch.split(t, 1024))])
+    _require(_bit_equal(trans, batched),
+             "R1: the fits bit for bit those of 1024-hypothesis batches")
+    every = torch.ones(N_HYP, dtype=torch.bool, device=dev)
+    got = ransac_score(src, tgt, valid, trans, every, 0.3)
+    want = ransac_score_plain(src, tgt, valid, trans, every, 0.3)
+    _require(torch.equal(got, want), f"R1: counts equal the plain "
+             f"version's, {int((got != want).sum())} differ")
+    _require(bool(((fit == got) | (fit == 0)).all()),
+             "R1: score_hypotheses' counts those of the hypotheses whose "
+             "edges pass")
+    ms = _ms(lambda: ransac_score(src, tgt, valid, trans, every, 0.3), 20)
+    plain_ms = _ms(lambda: ransac_score_plain(src, tgt, valid, trans, every,
+                                              0.3), 2)
+    fit_ms = _ms(lambda: fit_hypotheses(s, t), 3)
+    bound_ms = N_HYP * N_KEY * R1_INSTR_PER_PAIR / ISSUE_PER_S * 1e3
+    pose_ms = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ransac_pose(src, tgt, 0.3, generator=torch.Generator().manual_seed(i),
+                    num_hypotheses=N_HYP, sample_size=4,
+                    edge_length_ratio=0.9, mask=valid)[0].cpu()
+        pose_ms.append((time.perf_counter() - t0) * 1e3)
+    r = dict(max_abs_err=0.0, ms=ms,
+             plain_ms=plain_ms, bound_ms=bound_ms, bound_by="issue",
+             fits_ms=fit_ms, ransac_pose_ms=float(np.mean(pose_ms)),
+             best_count=int(got.max()))
+    print(f"R1 at {N_HYP} x {N_KEY}: counts equal the plain version's, "
+          f"kernel {ms:.4f} ms plain {plain_ms:.3f} ms bound {bound_ms:.4f} "
+          f"ms (issue, {R1_INSTR_PER_PAIR} instructions a pair); fits "
+          f"{fit_ms:.3f} ms; ransac_pose "
+          f"{r['ransac_pose_ms']:.2f} ms a call, host clock, on {gpu}")
+    return r
 
 
 # the FCGF train step: scripts/train_fcgf_kitti.sh's settings at full width
@@ -3134,7 +3234,7 @@ def eth_checks(dev, gpu: str, tmp: str) -> dict:
     res, launches = _counted(lambda: eval_eth.main(
         ["--eth_root", root, "--checkpoint", ckpt],
         scenes=["gazebo_summer"]))
-    want = _launches(model, 2 * len(gts))
+    want = {**_launches(model, 2 * len(gts)), "R1": len(gts)}
     _require(launches == want, f"ETH: launches {want}, got {launches}")
     errs = {}
     with checked_path(errs):
@@ -3649,6 +3749,10 @@ def main() -> None:
     exp = fcgf_eval_checks(dev, gpu)
     torch.cuda.empty_cache()
     clock("4b FCGF evaluation pair")
+    # 4c. RANSAC's scoring kernel at the FCGF evaluation's shapes
+    r1 = ransac_kernel_checks(dev, gpu)
+    torch.cuda.empty_cache()
+    clock("4c RANSAC scoring")
 
     # 5. and 6. the train step's kernels, its group search, the step
     f32, bf16 = torch.float32, torch.bfloat16
@@ -3851,6 +3955,21 @@ def main() -> None:
             eth_launches=entry["eth"]["launches"][k])
     for i, (k, *_) in enumerate(table):  # phase 16's in-process parts
         kernels[i]["host_native_launches"] = host_launches[k]
+    # R1 is on no train step's path: phase 4c's numbers, its launches on
+    # the paths that reach it, each counted from 0 (one a ransac_pose
+    # call): phase 4b's evaluation pair, eval_kitti.main's 3 pairs and
+    # phase 14's ETH scene
+    kernels.append({
+        "name": "ransac_score (R1)", "route": "cuda",
+        "source": "gcl_tpu_torch/csrc/ransac_score.cu",
+        "replaces": "none: gcl_tpu/reg/ransac.py scores in XLA",
+        "forms": ["float32"], **{key: r1[key] for key in numbers},
+        "library_ms": None, "fits_ms": r1["fits_ms"],
+        "ransac_pose_ms": r1["ransac_pose_ms"],
+        "path": f"ransac_pose, {N_HYP} x {N_KEY} (FCGF evaluation)",
+        "launches": exp["R1"]["launches"],
+        "eval_kitti_launches": exp["R1"]["eval_kitti_launches"],
+        "eth_launches": entry["eth"]["launches"]["R1"]})
     for i, k in ((0, "K6"), (2, "K2")):
         kernels[i]["float32"].update(
             demo_synthetic=demo_runs["synthetic"]["kernels"][k],

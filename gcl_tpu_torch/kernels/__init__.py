@@ -13,6 +13,7 @@ from .occupancy_conv import (c1z_unpack_bits, counted_occupancy_keys,
 from .radius_topk import (counted_topk_keys, topk_windows,
                           windowed_cell_topk, windowed_cell_topk_exact,
                           windowed_cell_topk_packed, windowed_cell_topk_plain)
+from .ransac_score import ransac_score, ransac_score_plain
 from .scalar_conv import (counted_scalar_keys, scalar_conv_dw,
                           scalar_conv_dw_plain,
                           scalar_conv_dx, scalar_conv_dx_plain,
@@ -26,7 +27,8 @@ from .sparse_conv import (compacted_rows, counted_dw_rows,
                           sparse_conv_implicit_fwd_plain,
                           sparse_conv_table_fwd, sparse_conv_table_fwd_plain)
 
-# TPU kernel number -> (wrapper, plain version)
+# TPU kernel number (R1: RANSAC's scoring, which gcl_tpu leaves to XLA)
+# -> (wrapper, plain version)
 KERNELS = {
     "K1": (windowed_cell_topk_packed, windowed_cell_topk_plain),
     "K2": (occupancy_conv_fwd, occupancy_conv_fwd_plain),
@@ -40,12 +42,14 @@ KERNELS = {
     "K10": (join_kmap, join_kmap_plain),
     "K11": (windowed_cell_topk_exact, windowed_cell_topk_plain),
     "K12": (sparse_conv_table_fwd, sparse_conv_table_fwd_plain),
+    "R1": (ransac_score, ransac_score_plain),
 }
 
 
 def reset_launch_counts() -> None:
     for fn, _ in KERNELS.values():
         fn.launches = 0
+    ransac_score.hypotheses = 0
 
 
 def launch_counts() -> dict:

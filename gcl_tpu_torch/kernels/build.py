@@ -42,6 +42,7 @@ SIGNATURES = {
     "sparse_conv_table_fwd": [_P] * 4 + [_I] * 5 + [_P],
     "sparse_conv_implicit_dw": [_P] * 6 + [_I] * 5 + [_P],
     "sparse_conv_table_dw": [_P] * 4 + [_I] * 5 + [_P],
+    "ransac_score": [_P] * 6 + [_I] * 2 + [ctypes.c_float, _P],
     "sparse_conv_fwd_count_rows": [_P],
     "sparse_conv_bwd_count_rows": [_P],
     "sparse_conv_bwd_count_dw_rows": [_P],

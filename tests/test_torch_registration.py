@@ -28,6 +28,9 @@ from gcl_tpu.reg.ransac import ransac_pose as j_ransac_pose
 from gcl_tpu.reg.robust import est_quad_linear_robust as j_robust
 from gcl_tpu.reg import se3 as jse3
 from gcl_tpu.reg.se3 import transform as j_transform
+from gcl_tpu_torch.kernels import (launch_counts, ransac_score,
+                                   ransac_score_plain, reset_launch_counts)
+from gcl_tpu_torch.kernels.ransac_score import squared_threshold
 from gcl_tpu_torch.reg import icp, metrics, se3
 from gcl_tpu_torch.reg.matching import (find_corr, find_nn, find_nn_cpu,
                                         mutual_feature_match)
@@ -225,6 +228,51 @@ def test_ransac_draws_and_recovers_the_transform():
     rte, rre = metrics.rte_rre(trans, t)
     assert rte < 0.1 and rre < 1.0
     assert 0.5 < float(fitness) < 0.75 and not (to_np(inl) & ~mask).any()
+
+
+def test_score_hypotheses_takes_the_plain_path_on_the_cpu():
+    """On CPU tensors the scoring is the plain version's (R1 has no CPU
+    mode) and the kernel's counters stay 0; a hypothesis whose edge check
+    fails scores 0."""
+    _, src, tgt, mask = _correspondences(5, n=64)
+    samples = torch.from_numpy(np.random.RandomState(5).randint(0, 64,
+                                                                (1500, 3)))
+    src_t, tgt_t, valid = map(torch.from_numpy, (src, tgt, mask))
+    reset_launch_counts()
+    trans, fit = score_hypotheses(src_t, tgt_t, samples, THR, 0.8, valid)
+    assert launch_counts()["R1"] == 0 and ransac_score.hypotheses == 0
+    every = ransac_score_plain(src_t, tgt_t, valid, trans,
+                               torch.ones(1500, dtype=torch.bool), THR)
+    assert ((fit == every) | (fit == 0)).all()
+    assert 100 < int((fit > 0).sum()) < 1500
+    ok = fit > 0
+    assert torch.equal(ransac_score(src_t, tgt_t, valid, trans, ok, THR),
+                       every * ok)
+    with pytest.raises(TypeError):
+        ransac_score(src_t.double(), tgt_t.double(), valid, trans.double(),
+                     ok, THR)
+    assert launch_counts()["R1"] == 0
+
+
+@pytest.mark.parametrize("thr", [0.3, 0.9, 1e-30, 2.0e19, float("inf"), 0.0,
+                                 -1.0, float("nan")])
+def test_squared_threshold_decides_as_the_root(thr):
+    """R1 compares a squared sum s with squared_threshold(thr) where the
+    plain version compares float32's correctly rounded sqrt(s) with thr:
+    the two agree on every float32 s >= 0 around the bound, at 0, at the
+    largest float, at inf and at NaN."""
+    bound = np.float32(squared_threshold(thr))
+    t = np.float32(thr)
+    near = [bound]
+    for way in (0.0, np.inf):
+        x = bound
+        for _ in range(6):
+            x = np.nextafter(x, np.float32(way))
+            near.append(x)
+    near += [np.finfo(np.float32).tiny / 4, np.float32(0),
+             np.finfo(np.float32).max, np.float32(np.inf), np.float32(np.nan)]
+    s = torch.tensor(np.array(near, dtype=np.float32))
+    assert torch.equal(torch.sqrt(s) < t.item(), s < bound.item())
 
 
 # ----------------------------------------------------------------------
